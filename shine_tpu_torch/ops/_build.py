@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+with a plain C interface and loaded with ctypes. No PyTorch header is
+included, so the build takes seconds, not the minutes that
+``torch.utils.cpp_extension.load`` needs. The library lands in
+``build/shine_tpu_torch/`` under the repository root, keyed on a hash of
+the sources, and is built at first use: nothing happens at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(os.path.dirname(_PKG), "build", "shine_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last nvcc run
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def lib_path() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(_BUILD, f"libshine_kernels_{h.hexdigest()[:12]}.so")
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        exe = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def _build(path: str) -> None:
+    global build_seconds
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.shine_gather_score.restype = i32
+    lib.shine_gather_score.argtypes = [
+        vp,  # vectors (N, d): f32 | bf16 | int8
+        i32,  # row type: 0 f32, 1 bf16, 2 int8
+        vp,  # q_ext (B, d) f32
+        vp,  # bias (B,) f32
+        vp,  # ids (B, K) i32
+        vp,  # row_scl (N,) f32 or null
+        vp,  # row_nrm (N,) f32 or null
+        vp,  # out (B, K) f32
+        i64,  # N
+        i32,  # B
+        i32,  # K
+        i32,  # d
+        i32,  # l2
+        vp,  # cudaStream_t
+    ]
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built from the checkout's sources on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = lib_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            _bind(lib)
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
