@@ -1,14 +1,26 @@
 """shine_tpu_torch: the PyTorch/CUDA port of shine_tpu for one NVIDIA H100.
 
-Serves batched HNSW k-NN queries. The graph is built by the JAX package's
-jax-free native builder (``shine_tpu.graph``); the search runs in torch on
-a CUDA card, with the candidate gather-and-score step in a hand-written
-CUDA kernel (``csrc/gather_score.cu``), or on the CPU with that kernel's
-plain torch twin. This package never imports JAX.
+Serves batched HNSW k-NN queries and near-exact brute-force queries. The
+graph is built by the port's own native builder (``graph``, ``native``);
+the HNSW search runs in torch with the candidate gather-and-score step in
+a hand-written CUDA kernel (``csrc/gather_score.cu``); ``FastFlatIndex``
+scans a packed bf16 table with the hand-written class-max kernel
+(``csrc/classmax_scan.cu``). Entry points run on the CUDA card unless the
+caller names another device; on the CPU each kernel's plain torch twin
+runs instead. This package imports neither JAX nor the JAX package.
 """
 
-from shine_tpu.config import HNSWParams, SearchParams
-from shine_tpu_torch.convert import device_graph_from_jax
+from shine_tpu_torch.config import HNSWParams, SearchParams
+from shine_tpu_torch.convert import device_graph_from_jax, fastflat_from_jax
+from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 
-__all__ = ["HNSWParams", "SearchParams", "HNSWIndex", "device_graph_from_jax"]
+__all__ = [
+    "HNSWParams",
+    "SearchParams",
+    "HNSWIndex",
+    "FlatIndex",
+    "FastFlatIndex",
+    "device_graph_from_jax",
+    "fastflat_from_jax",
+]

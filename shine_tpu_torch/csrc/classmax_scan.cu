@@ -1,0 +1,424 @@
+// classmax_scan: the brute-force class-max scan of FastFlatIndex, and its
+// exact top-kb select over the class lanes.
+//
+// Replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
+// classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
+// classmax2_topk_scan (_kernel2_topk, with _topk_epilogue). For query b and
+// class c (row r belongs to class r % cls), over the packed bf16 table ext
+// (N_pad, dp) and the bf16 queries q (B, dp):
+//
+//   score(b, r)  = sum_j q[b, j] * ext[r, j]        (bf16 products, f32 sums)
+//   best[b, c]   = max over rows r of class c of score(b, r), the earliest
+//                  row winning a tie (strict > in increasing row order); a
+//                  score at or below -3e38 never enters (the start state is
+//                  (-3e38, row c))
+//   rows[b, c]   = that row
+//   best2/rows2  = with KEEP2, the best of the class's other rows, by the
+//                  demotion rule of _kernel2: the old winner drops to the
+//                  runner-up slot when beaten; a challenger takes the slot
+//                  only if it beats the runner-up and not the winner.
+//
+// The select kernel then takes, per query, the kb lanes of largest best in
+// (value descending, lane ascending) order and gathers rows (and best2,
+// rows2) at them: classmax_scan followed by an exact top-kb and a gather.
+//
+// What bounds it on the H100: tensor-core operations. One batch of B=4096
+// queries against N_pad=1,003,520 rows at dp=144 is 2*B*N_pad*dp = 1.18e12
+// FLOP, 1.20 ms at the data sheet's 989 TFLOP/s of dense bf16; the table is
+// 289 MB, 0.09 ms at 3.35 TB/s. On CUDA cores alone (67 TFLOP/s f32) it
+// would take ~18 ms, hence bf16 mma.sync with f32 accumulation. Measured by
+// chip_smoke.py at that shape (cls=2048, NVIDIA H100 80GB HBM3, 700 W):
+// 5.56 ms without keep2 (22% of the bf16 peak), 11.56 ms with it.
+//
+// What the design does about it. The Pallas kernel kept a (tq, cls) state in
+// VMEM for the whole sweep; a Hopper SM has no such store, so the sweep is
+// cut the other way. Class c = row % cls means that member m of a run of
+// classes lane0 .. lane0+63 is the contiguous block of rows m*cls + lane0 ..
+// m*cls + lane0 + 63. Each CTA owns a (TQ queries) x (64 classes) tile and
+// keeps its running best and member code (and the runner-up pair) in
+// registers, laid out as the mma accumulators are: every thread holds 32
+// (query, class) cells. It walks m = 0 .. N_pad/cls - 1 in order, so the
+// earliest row still wins. For each m the 64 table rows stream through a
+// 3-stage cp.async ring in shared memory (in column chunks of at most 160
+// when dp is wide), the queries stay resident in shared memory, the
+// TQ x 64 scores come out of m16n8k16 mma.sync, and the max update runs on
+// the accumulators. Rows (= code*cls + lane) are written once, at the end.
+// The query tile is 128 (8 warps, 4 x 2 of 32 x 32) while the queries fit in
+// shared memory beside the ring, else 64 (4 warps); without keep2 two CTAs
+// run on each SM. Fragments come from
+// shared memory by ldmatrix, those of the next 16 columns while the mma of
+// the current ones run; shared-memory rows are padded by 8 bf16 so that the
+// eight row addresses of each 8x8 matrix hit distinct banks.
+//
+// Left for later: wgmma with TMA-fed tiles, holding the query fragments in
+// registers across members, and a fused select.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTC = 64;      // classes per CTA
+constexpr int kWarpQ = 32;   // queries per warp
+constexpr int kKC = 160;     // widest column chunk of a stage
+constexpr int kPad = 8;      // bf16 of padding per shared-memory row
+constexpr int kStages = 3;   // cp.async ring depth
+constexpr int kEStride = kKC + kPad;
+constexpr int kEBuf = kTC * kEStride;  // bf16 per ring slot
+constexpr float kNeg = -3e38f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a 4-register fragment: four 8x8 bf16 matrices, one row address per lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// One k-step's fragments of a warp's 32 x 32 tile: a[mt] the A fragment of
+// query rows mt*16 .. +15; b[np] the B fragments of table rows np*16 .. +15,
+// {b0, b1} of the first n-tile of 8, then of the second.
+__device__ __forceinline__ void load_frags(uint32_t (&a)[2][4], uint32_t (&b)[2][4],
+                                           const uint16_t* qa, const uint16_t* eb,
+                                           int qstride) {
+  ldsm_x4(a[0], qa);
+  ldsm_x4(a[1], qa + 16 * qstride);
+  ldsm_x4(b[0], eb);
+  ldsm_x4(b[1], eb + 16 * kEStride);
+}
+
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4][4], const uint32_t (&a)[2][4],
+                                         const uint32_t (&b)[2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], &b[nt >> 1][(nt & 1) * 2]);
+}
+
+// Column chunking of a table row: nk chunks of w columns (the last one
+// narrower), all multiples of 16.
+struct Chunks {
+  int nk, w;
+  __host__ __device__ explicit Chunks(int dp) {
+    nk = (dp + kKC - 1) / kKC;
+    const int per = (dp + nk - 1) / nk;
+    w = (per + 15) / 16 * 16;
+  }
+};
+
+size_t scan_smem_bytes(int wq, int dp) {
+  return (size_t(wq) * kWarpQ * (dp + kPad) + size_t(kStages) * kEBuf) * sizeof(uint16_t);
+}
+
+// keep1 is capped at 128 registers a thread so that two CTAs share an SM and
+// their per-member barriers interleave; keep2's state needs ~226, one CTA.
+template <int WQ, bool KEEP2>
+__global__ void __launch_bounds__(WQ * 2 * 32, KEEP2 ? 1 : 2)
+classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q,
+                float* __restrict__ best, int32_t* __restrict__ rows,
+                float* __restrict__ best2, int32_t* __restrict__ rows2, int B, int dp,
+                int cls, int members) {
+  constexpr int kThreads = WQ * 2 * 32;
+  constexpr int TQ = WQ * kWarpQ;
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int qstride = dp + kPad;
+  uint16_t* q_s = smem;                // [TQ][qstride]
+  uint16_t* e_s = smem + TQ * qstride; // [kStages][kTC][kEStride]
+
+  const int q0 = blockIdx.x * TQ;
+  const int lane0 = blockIdx.y * kTC;
+  const int tid = threadIdx.x;
+  const Chunks ch(dp);
+  const int64_t stages = int64_t(members) * ch.nk;
+
+  // the query tile, once; rows past B are zero (their results are dropped)
+  const int qpieces = dp / 8;
+  for (int i = tid; i < TQ * qpieces; i += kThreads) {
+    const int r = i / qpieces, p = i - r * qpieces;
+    uint16_t* dst = q_s + r * qstride + p * 8;
+    if (q0 + r < B)
+      cp_async16(dst, q + int64_t(q0 + r) * dp + p * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // stage (member m, column chunk kc): rows m*cls + lane0 .. +63, into ring
+  // slot `slot`
+  auto load_stage = [&](int m, int kc, int slot) {
+    const int c0 = kc * ch.w;
+    const int pieces = min(ch.w, dp - c0) / 8;
+    const uint16_t* src = ext + (int64_t(m) * cls + lane0) * dp + c0;
+    uint16_t* dst = e_s + slot * kEBuf;
+    for (int i = tid; i < kTC * pieces; i += kThreads) {
+      const int r = i / pieces, p = i - r * pieces;
+      cp_async16(dst + r * kEStride + p * 8, src + int64_t(r) * dp + p * 8);
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wq = warp >> 1, wc = warp & 1;
+
+  float acc[2][4][4];
+  float s1[2][4][4], s2[2][4][4];
+  int32_t c1[2][4][4], c2[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s1[mt][nt][i] = kNeg;
+        c1[mt][nt][i] = 0;
+        if (KEEP2) {
+          s2[mt][nt][i] = kNeg;
+          c2[mt][nt][i] = 0;
+        }
+      }
+
+  // the load cursor runs kStages - 1 stages ahead of the compute cursor;
+  // the query copies ride in the first group
+  int lm = 0, lkc = 0, lslot = 0;
+  auto advance = [&](int& mm, int& kk, int& slot) {
+    if (++kk == ch.nk) { kk = 0; ++mm; }
+    if (++slot == kStages) slot = 0;
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (lm < members) load_stage(lm, lkc, lslot);
+    cp_async_commit();
+    advance(lm, lkc, lslot);
+  }
+
+  // ldmatrix row addresses of this lane: A (queries) 16 rows x 8 columns per
+  // matrix pair, B (table rows) two n-tiles of 8 rows
+  const uint16_t* a_row = q_s + (wq * kWarpQ + (lane & 15)) * qstride + (lane >> 4) * 8;
+  const int b_off = (wc * 32 + (lane & 7) + ((lane >> 4) << 3)) * kEStride +
+                    ((lane >> 3) & 1) * 8;
+
+  int m = 0, kc = 0, slot = 0;
+  for (int64_t s = 0; s < stages; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s landed; the slot read in stage s-1 is free
+    if (lm < members) load_stage(lm, lkc, lslot);
+    cp_async_commit();
+    advance(lm, lkc, lslot);
+
+    const int c0 = kc * ch.w;
+    const int nks = min(ch.w, dp - c0) / 16;
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+    // fragments of k-step ks+1 load while the mma of k-step ks run
+    const uint16_t* qa = a_row + c0;
+    const uint16_t* eb = e_s + slot * kEBuf + b_off;
+    uint32_t a0[2][4], b0[2][4], a1[2][4], b1[2][4];
+    load_frags(a0, b0, qa, eb, qstride);
+    for (int ks = 0; ks < nks; ks += 2) {
+      if (ks + 1 < nks) load_frags(a1, b1, qa + (ks + 1) * 16, eb + (ks + 1) * 16, qstride);
+      mma_tile(acc, a0, b0);
+      if (ks + 1 < nks) {
+        if (ks + 2 < nks) load_frags(a0, b0, qa + (ks + 2) * 16, eb + (ks + 2) * 16, qstride);
+        mma_tile(acc, a1, b1);
+      }
+    }
+
+    if (kc == ch.nk - 1) {  // member m is scored: the running max update
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = acc[mt][nt][i];
+            if (!KEEP2) {
+              if (v > s1[mt][nt][i]) {
+                s1[mt][nt][i] = v;
+                c1[mt][nt][i] = m;
+              }
+            } else {
+              const bool win = v > s1[mt][nt][i];
+              const bool second = !win && v > s2[mt][nt][i];
+              s2[mt][nt][i] = win ? s1[mt][nt][i] : (second ? v : s2[mt][nt][i]);
+              c2[mt][nt][i] = win ? c1[mt][nt][i] : (second ? m : c2[mt][nt][i]);
+              s1[mt][nt][i] = win ? v : s1[mt][nt][i];
+              c1[mt][nt][i] = win ? m : c1[mt][nt][i];
+            }
+          }
+    }
+    advance(m, kc, slot);
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, t = lane & 3;
+  // accumulator cell (mt, nt, i): query wq*32 + mt*16 + g + 8*(i >= 2),
+  // class lane0 + wc*32 + nt*8 + 2t + (i & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + wq * kWarpQ + mt * 16 + g + 8 * h;
+      if (qi >= B) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = lane0 + wc * 32 + nt * 8 + 2 * t;
+        const int64_t o = int64_t(qi) * cls + col;
+        *reinterpret_cast<float2*>(best + o) =
+            make_float2(s1[mt][nt][2 * h], s1[mt][nt][2 * h + 1]);
+        *reinterpret_cast<int2*>(rows + o) =
+            make_int2(c1[mt][nt][2 * h] * cls + col, c1[mt][nt][2 * h + 1] * cls + col + 1);
+        if (KEEP2) {
+          *reinterpret_cast<float2*>(best2 + o) =
+              make_float2(s2[mt][nt][2 * h], s2[mt][nt][2 * h + 1]);
+          *reinterpret_cast<int2*>(rows2 + o) =
+              make_int2(c2[mt][nt][2 * h] * cls + col, c2[mt][nt][2 * h + 1] * cls + col + 1);
+        }
+      }
+    }
+}
+
+template <int WQ, bool KEEP2>
+int launch_scan(const uint16_t* ext, const uint16_t* q, float* best, int32_t* rows,
+                float* best2, int32_t* rows2, int B, int dp, int cls, int members,
+                cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(WQ, dp);
+  auto kernel = classmax_kernel<WQ, KEEP2>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
+  if (e != cudaSuccess) return int(e);
+  constexpr int TQ = WQ * kWarpQ;
+  const dim3 grid((B + TQ - 1) / TQ, cls / kTC);
+  kernel<<<grid, WQ * 2 * 32, smem, stream>>>(ext, q, best, rows, best2, rows2, B, dp, cls,
+                                              members);
+  return int(cudaGetLastError());
+}
+
+constexpr int kSelWarps = 4;
+
+// One warp per query: kb rounds of a warp argmax over the query's cls lanes
+// (held in shared memory), each round taking the first lane in (value
+// descending, lane ascending) order that comes after the previous pick.
+__global__ void __launch_bounds__(kSelWarps * 32)
+select_kernel(const float* __restrict__ best, const int32_t* __restrict__ rows,
+              const float* __restrict__ best2, const int32_t* __restrict__ rows2, int B,
+              int cls, int kb, float* __restrict__ out_best, int32_t* __restrict__ out_rows,
+              float* __restrict__ out_best2, int32_t* __restrict__ out_rows2) {
+  extern __shared__ float sel_s[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kSelWarps + warp;
+  if (b >= B) return;
+  float* v = sel_s + warp * cls;
+  const int64_t base = int64_t(b) * cls;
+  for (int j = lane; j < cls; j += 32) v[j] = best[base + j];
+  __syncwarp();
+  float pv = 0.f;
+  int pj = -1;  // no pick yet
+  for (int r = 0; r < kb; ++r) {
+    float bv = -__int_as_float(0x7f800000);
+    int bj = 0x7fffffff;
+    for (int j = lane; j < cls; j += 32) {
+      const float x = v[j];
+      const bool after = pj < 0 || x < pv || (x == pv && j > pj);
+      if (after && (x > bv || (x == bv && j < bj))) {
+        bv = x;
+        bj = j;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
+      if (ov > bv || (ov == bv && oj < bj)) {
+        bv = ov;
+        bj = oj;
+      }
+    }
+    if (lane == 0) {
+      const int64_t o = int64_t(b) * kb + r;
+      out_best[o] = bv;
+      out_rows[o] = rows[base + bj];
+      if (best2 != nullptr) {
+        out_best2[o] = best2[base + bj];
+        out_rows2[o] = rows2[base + bj];
+      }
+    }
+    pv = bv;
+    pj = bj;
+  }
+}
+
+}  // namespace
+
+// best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else null).
+// Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte aligned ext
+// and q. Returns the cudaError_t of the launch; the caller raises if not 0.
+extern "C" int shine_classmax_scan(const void* ext, const void* q, int64_t n_pad, int B,
+                                   int dp, int cls, int keep2, void* best, void* rows,
+                                   void* best2, void* rows2, void* stream) {
+  if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
+  const int members = int(n_pad / cls);
+  const auto* e = static_cast<const uint16_t*>(ext);
+  const auto* qq = static_cast<const uint16_t*>(q);
+  auto* b1 = static_cast<float*>(best);
+  auto* r1 = static_cast<int32_t*>(rows);
+  auto* b2 = static_cast<float*>(best2);
+  auto* r2 = static_cast<int32_t*>(rows2);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = scan_smem_bytes(4, dp) > 232448;
+  if (wide && scan_smem_bytes(2, dp) > 232448) return int(cudaErrorInvalidValue);
+  if (keep2)
+    return wide ? launch_scan<2, true>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s)
+                : launch_scan<4, true>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+  return wide ? launch_scan<2, false>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s)
+              : launch_scan<4, false>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+}
+
+// Top-kb lanes of best (B, cls) per query, in (value desc, lane asc) order,
+// with rows (and best2/rows2 when not null) gathered at them into (B, kb).
+extern "C" int shine_classmax_select(const void* best, const void* rows, const void* best2,
+                                     const void* rows2, int B, int cls, int kb,
+                                     void* out_best, void* out_rows, void* out_best2,
+                                     void* out_rows2, void* stream) {
+  if (kb <= 0 || kb > cls || B <= 0) return int(cudaErrorInvalidValue);
+  const size_t smem = size_t(kSelWarps) * cls * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(select_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  select_kernel<<<(B + kSelWarps - 1) / kSelWarps, kSelWarps * 32, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(best), static_cast<const int32_t*>(rows),
+      static_cast<const float*>(best2), static_cast<const int32_t*>(rows2), B, cls, kb,
+      static_cast<float*>(out_best), static_cast<int32_t*>(out_rows),
+      static_cast<float*>(out_best2), static_cast<int32_t*>(out_rows2));
+  return int(cudaGetLastError());
+}

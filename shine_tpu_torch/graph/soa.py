@@ -1,0 +1,108 @@
+"""Structure-of-arrays HNSW graph of the port, built by its native builder.
+
+    vectors          (N, d)    float32  the rows
+    levels           (N,)      int32    each vertex's top level (0-based)
+    neighbors0       (N, 2M)   int32    layer-0 lists, -1 padded
+    upper_row        (N,)      int32    row into upper_neighbors, -1 on level 0
+    upper_neighbors  (U, L, M) int32    lists of levels 1..L, -1 padded
+    entry_point / top_level              scalars
+
+Vertex ids are row indices. The layout and the builder are those of
+``shine_tpu/graph/soa.py``, so that a graph built or saved by either
+package serves in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+
+from shine_tpu_torch import native
+from shine_tpu_torch.config import HNSWParams
+
+_FIELDS = ("vectors", "levels", "neighbors0", "upper_row", "upper_neighbors")
+
+
+@dataclasses.dataclass
+class GraphSoA:
+    params: HNSWParams
+    vectors: np.ndarray
+    levels: np.ndarray
+    neighbors0: np.ndarray
+    upper_row: np.ndarray
+    upper_neighbors: np.ndarray
+    entry_point: int
+    top_level: int
+
+    @property
+    def n(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def level_cap(self) -> int:
+        return self.upper_neighbors.shape[1]
+
+    @classmethod
+    def from_fields(cls, graph) -> "GraphSoA":
+        """Copy any object with this class's fields (the JAX package's
+        ``GraphSoA``, for one) field by field, as numpy arrays."""
+        p = graph.params
+        return cls(
+            params=HNSWParams(M=p.M, ef_construction=p.ef_construction,
+                              metric=p.metric, seed=p.seed),
+            **{f: np.array(getattr(graph, f)) for f in _FIELDS},
+            entry_point=int(graph.entry_point),
+            top_level=int(graph.top_level),
+        )
+
+
+def build_graph(
+    vectors: np.ndarray,
+    params: HNSWParams,
+    *,
+    threads: int = 0,
+    level_cap: int = 12,
+) -> GraphSoA:
+    """Build with the native multithreaded builder (the reference's insert
+    semantics). Only ``threads=1`` is deterministic."""
+    lib = native.load()
+    vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+    n, d = vectors.shape
+    if threads <= 0:
+        threads = min(os.cpu_count() or 1, 32)
+    M = params.M
+    # the expected share of vertices above level 0 is 1/M under the
+    # geometric draw; 4x headroom plus a constant floor
+    upper_cap = int(4 * n / max(M, 2)) + 1024
+    levels = np.empty(n, dtype=np.int32)
+    neighbors0 = np.empty((n, 2 * M), dtype=np.int32)
+    upper_row = np.empty(n, dtype=np.int32)
+    upper_neighbors = np.empty((upper_cap, level_cap, M), dtype=np.int32)
+    meta = np.zeros(3, dtype=np.int64)
+    rc = lib.shine_hnsw_build(
+        vectors, n, d, M, params.ef_construction, params.seed,
+        params.metric_id, threads, upper_cap, level_cap, levels, neighbors0,
+        upper_row, upper_neighbors.reshape(-1), meta,
+    )
+    if rc != 0:
+        raise RuntimeError("upper-row capacity overflow during build")
+    entry_point, top_level, used = int(meta[0]), int(meta[1]), int(meta[2])
+    # keep the used upper rows, trimmed to top_level levels
+    lcap = max(top_level, 1)
+    upper_neighbors = np.ascontiguousarray(upper_neighbors[:used, :lcap])
+    return GraphSoA(
+        params=params,
+        vectors=vectors,
+        levels=levels,
+        neighbors0=neighbors0,
+        upper_row=upper_row,
+        upper_neighbors=upper_neighbors,
+        entry_point=entry_point,
+        top_level=top_level,
+    )

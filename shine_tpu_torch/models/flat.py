@@ -1,0 +1,414 @@
+"""Brute-force k-NN on one CUDA card (or the CPU): the PyTorch port of
+``shine_tpu/models/flat.py``'s ``FlatIndex`` and ``FastFlatIndex``.
+
+``FlatIndex`` scans every row in chunks with a running top-k (bf16
+operands, f32 sums, then an exact f32 re-rank of ``rerank * k``
+survivors; or exact f32 throughout). It is plain torch, as the JAX
+package left it to XLA.
+
+``FastFlatIndex`` is near-exact: the class-max scan (``ops/classmax.py``,
+the K2 kernel) reduces each query's scores over the packed bf16 table to
+the best row of each of ``cls`` row classes (and its runner-up with
+keep2), the best ``kb`` classes are selected, and their rows are
+re-ranked exactly in f32. A true neighbour is lost only when a better one
+shares its class (~C(k,2)/cls); rows are shuffled at build so that class
+membership does not follow id order. The four scan routes are those of
+``fast_flat_search`` in the JAX package: keep1 or keep2, the select fused
+into the kernel or not.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shine_tpu_torch.config import METRIC_L2, metric_id
+from shine_tpu_torch.device import resolve_device
+from shine_tpu_torch.ops import classmax as cm
+from shine_tpu_torch.ops.beam import smallest_positions
+from shine_tpu_torch.ops.distance import (
+    check_precision,
+    matmul_nt,
+    rerank_topk,
+    rerank_topk_ext,
+    score_trim,
+    squared_norms,
+)
+from shine_tpu_torch.ops.scan import (
+    NEG,
+    QUANTUM,
+    pack_ext_device,
+    pack_ext_query,
+    pack_ext_table,
+)
+
+CHUNK_QUANTUM = 1024
+_ROW_SOURCE_MSG = ("row_source (exact re-rank from regenerated rows) is not "
+                   "ported yet: ROADMAP A7")
+
+
+def _top_by_position(d: torch.Tensor, ids: torch.Tensor, kk: int):
+    """The kk smallest of each row of ``d`` with their ``ids``."""
+    sel = smallest_positions(d, kk)
+    return torch.gather(d, 1, sel), torch.gather(ids, 1, sel)
+
+
+def flat_search(
+    data: dict[str, torch.Tensor | int],
+    queries: torch.Tensor,  # (B, d)
+    *,
+    k: int,
+    chunk: int = 65536,
+    metric: int = METRIC_L2,
+    use_bf16: bool = True,
+    rerank: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming top-k: (dists (B, k), ids (B, k)). With ``use_bf16`` the
+    scan keeps ``rerank * k`` candidates (bf16 rounding reorders
+    near-ties) and an exact f32 re-rank picks the final k."""
+    check_precision()
+    vectors = data["vectors"]
+    q = queries.to(device=vectors.device, dtype=torch.float32)
+    B = q.shape[0]
+    n_pad = vectors.shape[0]
+    chunk = min(chunk, n_pad)
+    if chunk % CHUNK_QUANTUM and chunk != n_pad:
+        raise ValueError(f"chunk must be a multiple of {CHUNK_QUANTUM}")
+    qn = (q * q).sum(dim=-1)
+    # bf16 operands with f32 sums: a bf16 product is exact in f32
+    qc = q.to(torch.bfloat16).to(torch.float32) if use_bf16 else q
+    base = data["vectors_bf16"] if use_bf16 else vectors
+    kk = min(max(rerank, 1) * k, n_pad) if use_bf16 else k
+    dev = q.device
+    bd = torch.full((B, kk), torch.inf, device=dev)
+    bi = torch.full((B, kk), -1, dtype=torch.int32, device=dev)
+    for off in range(0, n_pad, chunk):
+        blk = base[off:off + chunk]
+        bsq = data["sqnorms"][off:off + chunk]
+        dots = matmul_nt(qc, blk)
+        if metric == METRIC_L2:
+            dd = qn[:, None] - 2.0 * dots + bsq[None, :]
+        else:
+            dd = 1.0 - dots
+        ids = torch.arange(off, off + blk.shape[0], dtype=torch.int32,
+                           device=dev).expand(B, -1)
+        # construction padding: rows >= n, and the inf-norm sentinel rows
+        ok = (ids < data["n"]) & torch.isfinite(bsq)[None, :]
+        dd = torch.where(ok, dd, torch.inf)
+        bd, bi = _top_by_position(torch.cat([bd, dd], 1),
+                                  torch.cat([bi, ids], 1), kk)
+    if use_bf16:  # exact f32 re-rank of the survivors, stable on ties
+        safe = bi.clamp_min(0).long()
+        cv = vectors[safe]
+        dots = torch.einsum("bd,bkd->bk", q, cv)
+        if metric == METRIC_L2:
+            bd = qn[:, None] - 2.0 * dots + data["sqnorms"][safe]
+        else:
+            bd = 1.0 - dots
+        bd = torch.where(bi >= 0, bd, torch.inf)
+        bd, bi = _top_by_position(bd, bi, k)
+    return bd, bi
+
+
+class FlatIndex:
+    """Exact k-NN (recall 1.0 by construction) on ``device``, the CUDA
+    card unless another is given."""
+
+    def __init__(self, vectors: np.ndarray, metric: str | int = "l2", *,
+                 device: torch.device | str | None = None):
+        dev = resolve_device(device)
+        v = np.ascontiguousarray(vectors, dtype=np.float32)
+        n, dim = v.shape
+        n_pad = -(-n // CHUNK_QUANTUM) * CHUNK_QUANTUM
+        if n_pad != n:
+            v = np.concatenate([v, np.zeros((n_pad - n, dim), np.float32)])
+        vj = torch.from_numpy(v).to(dev)
+        self.metric = metric_id(metric)
+        sq = (squared_norms(vj) if self.metric == METRIC_L2
+              else torch.zeros(n_pad, device=dev))
+        sq = torch.where(torch.arange(n_pad, device=dev) < n, sq, torch.inf)
+        self.data = {"vectors": vj, "vectors_bf16": vj.to(torch.bfloat16),
+                     "sqnorms": sq, "n": n}
+        self.n, self.dim = n, dim
+
+    def search(self, queries: np.ndarray, k: int = 10, *,
+               batch_size: int = 4096, chunk: int = 65536,
+               use_bf16: bool = True) -> tuple[np.ndarray, np.ndarray]:
+        nq, d = queries.shape
+        out_i = np.empty((nq, k), dtype=np.int32)
+        out_d = np.empty((nq, k), dtype=np.float32)
+        batch_size = min(batch_size, max(nq, 1))
+        for lo in range(0, nq, batch_size):
+            hi = min(lo + batch_size, nq)
+            q = np.zeros((batch_size, d), np.float32)
+            q[: hi - lo] = queries[lo:hi]
+            dd, ii = flat_search(self.data, torch.from_numpy(q), k=k,
+                                 chunk=chunk, metric=self.metric,
+                                 use_bf16=use_bf16)
+            out_d[lo:hi] = dd[: hi - lo].cpu().numpy()
+            out_i[lo:hi] = ii[: hi - lo].cpu().numpy()
+        return out_i, out_d
+
+
+def kb_auto(n_rows: int, dim: int) -> int:
+    """The JAX package's measured re-rank margin: classes kept per query
+    (64 from 1M rows, 128 at d >= 512, else 32)."""
+    if dim >= 512:
+        return 128
+    return 64 if n_rows >= 1_000_000 else 32
+
+
+def keep2_auto(n_rows: int, cls: int) -> bool:
+    """The JAX package's measured keep2 rule: keep each class's runner-up
+    once a class holds ~500 rows or more."""
+    return n_rows // max(cls, 1) >= 500
+
+
+def fast_flat_search(
+    ext, vectors, sqnorms, q_ext, q, *, k, kb, tq, tn, cls, metric,
+    keep2=False, n=0, approx_sel=False, prerank=0, fused_sel=False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batch: class-max scan, select of kb classes, optional score
+    trim, exact re-rank. (dists (B, k), ids (B, k)). ``approx_sel`` takes
+    the exact select, as ``approx_max_k`` does off the TPU; an unfused
+    select is ``select_lanes``. Without f32 rows (``vectors`` None) the
+    re-rank reads the bf16 table and ``prerank`` is not applied, as in the
+    JAX package."""
+    kb_eff = min(kb, cls)
+    fused = fused_sel and not approx_sel
+    if keep2:
+        if fused:
+            v1, cand1, v2, c2 = cm.classmax2_topk_scan(
+                ext, q_ext, kb=kb_eff, tq=tq, tn=tn, cls=cls)
+        else:
+            m1, a1, m2, a2 = cm.classmax2_scan(ext, q_ext, tq=tq, tn=tn,
+                                               cls=cls)
+            v1, sel = cm.select_lanes(m1, kb_eff)
+            cand1 = torch.gather(a1, 1, sel)
+            c2 = torch.gather(a2, 1, sel)
+            v2 = torch.gather(m2, 1, sel)
+        # a runner-up that never entered carries no row
+        cand2 = torch.where(v2 > NEG, c2, -1)
+        cand = torch.cat([cand1, cand2], 1)
+        vals = torch.cat([v1, v2], 1)
+    elif fused:
+        vals, cand = cm.classmax_topk_scan(ext, q_ext, kb=kb_eff, tq=tq, tn=tn,
+                                           cls=cls)
+    else:
+        m1, a1 = cm.classmax_scan(ext, q_ext, tq=tq, tn=tn, cls=cls)
+        vals, sel = cm.select_lanes(m1, kb_eff)
+        cand = torch.gather(a1, 1, sel)
+    limit = n or vectors.shape[0]
+    cand = torch.where(cand < limit, cand, -1)  # pad rows and empty classes
+    if prerank and max(prerank, k) < cand.shape[-1] and vectors is not None:
+        cand = score_trim(vals, cand, max(prerank, k))
+    if vectors is None:
+        return rerank_topk_ext(ext, q, cand, k, metric)
+    return rerank_topk(vectors, sqnorms, q, cand, k, metric)
+
+
+class FastFlatIndex:
+    """Near-exact brute force through the class-max scan (K2), on
+    ``device``, the CUDA card unless another is given.
+
+    The host constructor shuffles rows with numpy's permutation from
+    ``seed``, as the JAX package does, so both hold the same table."""
+
+    def __init__(
+        self,
+        vectors: np.ndarray,
+        metric: str | int = "l2",
+        *,
+        tn: int = 1024,
+        shuffle: bool = True,
+        seed: int = 0,
+        device: torch.device | str | None = None,
+    ):
+        dev = resolve_device(device)
+        self.metric = metric_id(metric)
+        v = np.ascontiguousarray(vectors, dtype=np.float32)
+        n, d = v.shape
+        self.perm = None
+        if shuffle:
+            rng = np.random.default_rng(seed)
+            self.perm = rng.permutation(n).astype(np.int32)
+            v = v[self.perm]
+        n_pad = -(-n // QUANTUM) * QUANTUM
+        self.ext = pack_ext_table(v, self.metric, n_pad, device=dev)
+        self.vectors = torch.from_numpy(v).to(dev)
+        sq = ((v * v).sum(-1) if self.metric == METRIC_L2
+              else np.zeros(n, np.float32))
+        self.sqnorms = torch.from_numpy(sq.astype(np.float32)).to(dev)
+        self.n, self.dim, self.tn = n, d, tn
+        self.dp = self.ext.shape[1]
+        self._perm_dev = None
+
+    @classmethod
+    def from_ext(cls, ext_dev: torch.Tensor, n: int, metric: str | int = "l2",
+                 *, dim: int | None = None, row_source=None) -> "FastFlatIndex":
+        """From a packed bf16 table alone: no f32 rows are kept and the
+        re-rank reads the table (``rerank_topk_ext``). ``dim`` is the true
+        dimension (the table is padded); it drives ``kb_auto``."""
+        if row_source is not None:
+            raise NotImplementedError(_ROW_SOURCE_MSG)
+        self = cls.__new__(cls)
+        self.metric = metric_id(metric)
+        n_pad, dp = ext_dev.shape
+        if n_pad % QUANTUM or n > n_pad:
+            raise ValueError(f"the table needs rows % {QUANTUM} == 0 and n <= rows")
+        self.ext = ext_dev.to(torch.bfloat16)
+        self.vectors = self.sqnorms = self.perm = self._perm_dev = None
+        if dim is None:
+            dim = dp - 2 if self.metric == METRIC_L2 else dp
+        self.n, self.dim, self.tn, self.dp = n, dim, 1024, dp
+        return self
+
+    @classmethod
+    def from_device(cls, v_dev: torch.Tensor, metric: str | int = "l2", *,
+                    shuffle: bool | None = None,
+                    seed: int = 0) -> "FastFlatIndex":
+        """From rows already on a device; n must be a multiple of 4096.
+        The shuffle (on unless ``shuffle=False``: the transient row copy
+        fits beside any table that fits the card) is a ``torch.Generator``
+        permutation from ``seed``, which is not the JAX package's
+        ``jax.random`` one: the two hold the same rows in other orders."""
+        self = cls.__new__(cls)
+        self.metric = metric_id(metric)
+        n, d = v_dev.shape
+        if n % QUANTUM:
+            raise ValueError(f"from_device requires n % {QUANTUM} == 0")
+        v = v_dev.to(torch.float32)
+        self.perm = self._perm_dev = None
+        if shuffle or shuffle is None:
+            gen = torch.Generator().manual_seed(seed)
+            perm = torch.randperm(n, generator=gen).to(torch.int32)
+            v = v[perm.to(v.device).long()]
+            self.perm = perm.numpy()
+        self.ext = pack_ext_device(v, self.metric)
+        self.vectors = v
+        self.sqnorms = (squared_norms(v) if self.metric == METRIC_L2
+                        else torch.zeros(n, device=v.device))
+        self.n, self.dim, self.tn, self.dp = n, d, 1024, self.ext.shape[1]
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.ext.device
+
+    def preload(self, queries: np.ndarray, *, batch_size: int = 4096):
+        """Stage the queries on the device once, zero-padded to a multiple
+        of ``batch_size``: (q_dev, nq)."""
+        nq, d = queries.shape
+        nq_pad = -(-nq // batch_size) * batch_size
+        q_all = np.zeros((nq_pad, d), np.float32)
+        q_all[:nq] = queries
+        return torch.from_numpy(q_all).to(self.device), nq
+
+    def _resolve_knobs(self, kb, cls, keep2, fused_sel, approx_sel):
+        n_pad = int(self.ext.shape[0])
+        if kb <= 0:
+            kb = kb_auto(n_pad, self.dim)
+        if cls <= 0:
+            cls = 1024 if keep2_auto(n_pad, 2048) else 2048
+        if keep2 is None:
+            keep2 = keep2_auto(n_pad, cls)
+        if fused_sel is None:
+            fused_sel = ((keep2 and kb <= 32) or kb <= 16) and not approx_sel
+        return kb, cls, keep2, fused_sel
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int = 10,
+        *,
+        kb: int = 0,
+        batch_size: int = 4096,
+        tq: int = 512,
+        cls: int = 0,
+        preloaded=None,
+        with_dists: bool = True,
+        keep2: bool | None = None,
+        approx_sel: bool = False,
+        prerank: int = 0,
+        fused_sel: bool | None = None,
+        megabatch: bool = False,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(ids (nq, k) int32, dists (nq, k) f32) as numpy, in the caller's
+        id space. ``kb``, ``cls``, ``keep2`` and ``fused_sel`` left at
+        0/None take the JAX package's measured auto rules; ``prerank > 0``
+        trims to that many candidates by the scan's own scores before the
+        re-rank. ``megabatch`` is accepted for the JAX signature and changes
+        nothing: the batches always run in one host loop."""
+        nq = queries.shape[0]
+        batch_size = max(tq, -(-min(batch_size, max(nq, 1)) // tq) * tq)
+        if preloaded is None:
+            preloaded = self.preload(queries, batch_size=batch_size)
+        elif preloaded[1] != nq or preloaded[0].shape[0] % batch_size:
+            raise ValueError("preloaded queries do not match this call")
+        ids, dists = self.search_device(
+            preloaded, k, kb=kb, batch_size=batch_size, tq=tq, cls=cls,
+            keep2=keep2, approx_sel=approx_sel, prerank=prerank,
+            fused_sel=fused_sel, megabatch=megabatch)
+        out_i = ids.cpu().numpy()
+        out_d = (dists.cpu().numpy() if with_dists
+                 else np.zeros((nq, k), np.float32))
+        return out_i, out_d
+
+    def search_device(
+        self,
+        preloaded,
+        k: int = 10,
+        *,
+        kb: int = 0,
+        batch_size: int = 4096,
+        tq: int = 512,
+        cls: int = 0,
+        keep2: bool | None = None,
+        approx_sel: bool = False,
+        prerank: int = 0,
+        fused_sel: bool | None = None,
+        megabatch: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``search`` on staged queries (``preload``), returning (ids, dists)
+        as device tensors with the shuffle undone on the device."""
+        q_dev, nq = preloaded
+        kb, cls, keep2, fused_sel = self._resolve_knobs(
+            kb, cls, keep2, fused_sel, approx_sel)
+        nq_pad = q_dev.shape[0]
+        if nq_pad % batch_size:
+            raise ValueError(f"{nq_pad} staged queries are not a multiple of "
+                             f"batch_size={batch_size}")
+        tn = max(self.tn, cls)
+        parts = []
+        for lo in range(0, nq_pad, batch_size):
+            qj = q_dev[lo:lo + batch_size].to(torch.float32)
+            q_ext = pack_ext_query(qj, self.dp).to(torch.bfloat16)
+            parts.append(fast_flat_search(
+                self.ext, self.vectors, self.sqnorms, q_ext, qj, k=k, kb=kb,
+                tq=tq, tn=tn, cls=cls, metric=self.metric, keep2=keep2,
+                n=self.n, approx_sel=approx_sel, prerank=prerank,
+                fused_sel=fused_sel))
+        all_d = torch.cat([p[0] for p in parts])[:nq]
+        all_i = torch.cat([p[1] for p in parts])[:nq]
+        if self.perm is not None:
+            if self._perm_dev is None:
+                self._perm_dev = torch.from_numpy(self.perm).to(self.device)
+            all_i = torch.where(
+                all_i >= 0, self._perm_dev[all_i.clamp_min(0).long()], -1)
+        return all_i, all_d
+
+    def cost_counters(self, nq: int, k: int = 10, *, kb: int = 0,
+                      batch_size: int = 4096) -> dict:
+        """Analytic cost: each batch streams the packed table once through
+        the scan; kb survivors per query are re-ranked in f32."""
+        n_pad = int(self.ext.shape[0])
+        if kb <= 0:
+            kb = kb_auto(n_pad, self.dim)
+        batches = -(-nq // max(batch_size, 1))
+        return {
+            "distance_computations": nq * n_pad + nq * kb,
+            "scanned_rows": nq * n_pad,
+            "hbm_gather_bytes": batches * self.ext.numel() * 2
+            + nq * kb * self.dim * 4,
+            "ici_exchange_bytes": 0,
+        }

@@ -29,8 +29,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from shine_tpu.config import METRIC_L2, HNSWParams, SearchParams
-from shine_tpu.graph.soa import GraphSoA, build_graph
+from shine_tpu_torch.config import METRIC_L2, HNSWParams, SearchParams
+from shine_tpu_torch.device import resolve_device
+from shine_tpu_torch.graph.soa import GraphSoA, build_graph
 from shine_tpu_torch.ops.beam import (
     Beam,
     beam_frontier_multi,
@@ -93,9 +94,12 @@ def quantize_rows(host_v: np.ndarray, rows: str) -> dict[str, torch.Tensor]:
 
 
 def device_graph(
-    graph: GraphSoA, *, rows: str = "f32", device: torch.device | str = "cpu"
+    graph: GraphSoA, *, rows: str = "f32",
+    device: torch.device | str | None = None,
 ) -> DeviceGraph:
-    """Upload a host graph, with its rows stored as ``rows``."""
+    """Upload a host graph, with its rows stored as ``rows``, to ``device``
+    (the CUDA card unless another is given)."""
+    device = resolve_device(device)
     upper_ids = np.where(graph.levels >= 1)[0].astype(np.int32)
     if len(upper_ids) == 0:
         upper_ids = np.array([graph.entry_point], dtype=np.int32)
@@ -305,11 +309,12 @@ def _search(g: DeviceGraph, queries: torch.Tensor, sp: SearchParams,
 
 
 class HNSWIndex:
-    """Single-card index: host build (native C++) + batched device search."""
+    """Single-card index: host build (native C++) + batched device search.
+    It runs on the CUDA card unless ``device`` names another."""
 
     def __init__(
         self, graph: GraphSoA, *, rows: str = "f32",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         self.graph = graph
         self.device_graph = device_graph(graph, rows=rows, device=device)
@@ -325,9 +330,10 @@ class HNSWIndex:
     @classmethod
     def build(
         cls, vectors: np.ndarray, params: HNSWParams | None = None, *,
-        rows: str = "f32", device: torch.device | str = "cpu", **kw,
+        rows: str = "f32", device: torch.device | str | None = None, **kw,
     ) -> "HNSWIndex":
         """Build the graph with the native builder, then upload it."""
+        resolve_device(device)  # refuse before the build, not after it
         graph = build_graph(vectors, params or HNSWParams(), **kw)
         return cls(graph, rows=rows, device=device)
 

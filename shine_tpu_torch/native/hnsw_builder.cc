@@ -1,0 +1,416 @@
+// Native host-side HNSW graph builder of shine_tpu_torch: a copy of
+// shine_tpu/native/hnsw_builder.cc, kept so that the PyTorch port builds its
+// graphs without importing the JAX package. The code below this header must
+// stay equal to that file's, so that both packages build the same graph from
+// the same inputs (tests/test_torch_graph.py holds them to it at threads=1).
+// Only the builder is copied: that file's host search and reverse-edge merge,
+// which nothing in the port calls, are left out.
+//
+// Clean-room C++20 implementation of the HNSW construction semantics of the
+// reference engine (src/hnsw/hnsw.hh:40-251): geometric level draw with
+// m_L = 1/ln(M), greedy upper-layer descent, ef_construction-bounded
+// best-first search per layer, the diversity selection heuristic
+// (hnsw.hh:482-522), and bidirectional connection with shrink-if-full
+// (hnsw.hh:180-225). Where the reference synchronizes through one-sided RDMA
+// CAS spinlocks across the network, this builder uses in-process per-vertex
+// mutexes.
+//
+// Exposed as a plain C ABI for ctypes.
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <queue>
+#include <random>
+#include <thread>
+#include <vector>
+
+namespace {
+
+using std::int32_t;
+using std::int64_t;
+using std::uint64_t;
+
+constexpr int kMetricL2 = 0;
+constexpr int kMetricIP = 1;
+
+struct PairDI {
+  float dist;
+  int32_t id;
+};
+struct NearerFirst {
+  bool operator()(const PairDI& a, const PairDI& b) const {
+    return a.dist > b.dist || (a.dist == b.dist && a.id > b.id);
+  }
+};
+struct FartherFirst {
+  bool operator()(const PairDI& a, const PairDI& b) const {
+    return a.dist < b.dist || (a.dist == b.dist && a.id < b.id);
+  }
+};
+
+using MinQ = std::priority_queue<PairDI, std::vector<PairDI>, NearerFirst>;
+using MaxQ = std::priority_queue<PairDI, std::vector<PairDI>, FartherFirst>;
+
+inline float l2sq(const float* a, const float* b, int d) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int i = 0;
+  for (; i + 4 <= d; i += 4) {
+    float d0 = a[i] - b[i];
+    float d1 = a[i + 1] - b[i + 1];
+    float d2 = a[i + 2] - b[i + 2];
+    float d3 = a[i + 3] - b[i + 3];
+    s0 += d0 * d0;
+    s1 += d1 * d1;
+    s2 += d2 * d2;
+    s3 += d3 * d3;
+  }
+  for (; i < d; ++i) {
+    float dd = a[i] - b[i];
+    s0 += dd * dd;
+  }
+  return s0 + s1 + s2 + s3;
+}
+
+inline float ipdist(const float* a, const float* b, int d) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int i = 0;
+  for (; i + 4 <= d; i += 4) {
+    s0 += a[i] * b[i];
+    s1 += a[i + 1] * b[i + 1];
+    s2 += a[i + 2] * b[i + 2];
+    s3 += a[i + 3] * b[i + 3];
+  }
+  for (; i < d; ++i) s0 += a[i] * b[i];
+  return 1.f - (s0 + s1 + s2 + s3);
+}
+
+class Builder {
+ public:
+  Builder(const float* vecs, int64_t n, int d, int M, int efc, uint64_t seed,
+          int metric, int32_t* levels, int32_t* neighbors0, int32_t* upper_row,
+          int32_t* upper_neighbors, int64_t upper_cap, int level_cap)
+      : vecs_(vecs),
+        n_(n),
+        d_(d),
+        M_(M),
+        Mmax_(M),
+        Mmax0_(2 * M),
+        efc_(efc),
+        metric_(metric),
+        levels_(levels),
+        neighbors0_(neighbors0),
+        upper_row_(upper_row),
+        upper_neighbors_(upper_neighbors),
+        upper_cap_(upper_cap),
+        level_cap_(level_cap),
+        locks_(static_cast<size_t>(n)),
+        deg0_(static_cast<size_t>(n)),
+        mult_(1.0 / std::log(static_cast<double>(M))) {
+    std::fill(neighbors0_, neighbors0_ + n_ * Mmax0_, -1);
+    std::fill(upper_row_, upper_row_ + n_, -1);
+    std::fill(upper_neighbors_, upper_neighbors_ + upper_cap_ * level_cap_ * M_,
+              -1);
+    for (int64_t i = 0; i < n_; ++i) {
+      levels_[i] = -1;  // not inserted yet
+      deg0_[i].store(0, std::memory_order_relaxed);
+    }
+    // deterministic per-id level draw (independent of thread schedule)
+    seed_ = seed;
+  }
+
+  int draw_level(int64_t id) const {
+    std::mt19937_64 rng(seed_ ^ (0x9E3779B97F4A7C15ULL * (id + 1)));
+    std::uniform_real_distribution<double> u(0.0, 1.0);
+    double r = u(rng);
+    if (r <= 0.0) r = 1e-300;
+    int lvl = static_cast<int>(-std::log(r) * mult_);
+    return std::min(lvl, level_cap_);
+  }
+
+  inline float dist(const float* a, const float* b) const {
+    return metric_ == kMetricIP ? ipdist(a, b, d_) : l2sq(a, b, d_);
+  }
+  inline const float* vec(int32_t id) const { return vecs_ + (int64_t)id * d_; }
+
+  // --- adjacency accessors -------------------------------------------------
+  // level 0 list: neighbors0_[id*Mmax0 .. ), degree in deg0_[id]
+  // level l>=1 list: upper_neighbors_[(upper_row[id]*level_cap + (l-1))*M .. )
+  int32_t* list0(int32_t id) { return neighbors0_ + (int64_t)id * Mmax0_; }
+  int32_t* list_u(int32_t id, int l) {
+    int64_t row = upper_row_[id];
+    return upper_neighbors_ + ((row * level_cap_) + (l - 1)) * M_;
+  }
+
+  int degree(int32_t id, int l) {
+    if (l == 0) return deg0_[id].load(std::memory_order_acquire);
+    const int32_t* ls = list_u(id, l);
+    int c = 0;
+    while (c < M_ && ls[c] >= 0) ++c;
+    return c;
+  }
+
+  // --- search --------------------------------------------------------------
+  // Greedy 1-NN descent on one level (reference search_for_one,
+  // hnsw.hh:331-393). Locking the scanned vertex during construction matches
+  // the reference's with_lock behavior.
+  PairDI search_for_one(const float* q, PairDI ep, int level, bool lock) {
+    bool improved = true;
+    while (improved) {
+      improved = false;
+      int32_t cur = ep.id;
+      std::unique_lock<std::mutex> guard;
+      if (lock) guard = std::unique_lock<std::mutex>(locks_[cur]);
+      const int32_t* ls = level == 0 ? list0(cur) : list_u(cur, level);
+      int cap = level == 0 ? Mmax0_ : M_;
+      for (int j = 0; j < cap; ++j) {
+        int32_t nb = ls[j];
+        if (nb < 0) break;
+        float dd = dist(q, vec(nb));
+        if (dd < ep.dist || (dd == ep.dist && nb < ep.id)) {
+          ep = {dd, nb};
+          improved = true;
+        }
+      }
+    }
+    return ep;
+  }
+
+  // ef-bounded best-first search on one level (reference search_level,
+  // hnsw.hh:406-476). Returns up to ef results, nearest first.
+  std::vector<PairDI> search_level(const float* q, PairDI ep, int level,
+                                   int ef, bool lock,
+                                   std::vector<uint64_t>& visited,
+                                   uint64_t stamp) {
+    MinQ cand;
+    MaxQ top;
+    cand.push(ep);
+    top.push(ep);
+    visited[ep.id] = stamp;
+    while (!cand.empty()) {
+      PairDI c = cand.top();
+      if (c.dist > top.top().dist && (int)top.size() >= ef) break;
+      cand.pop();
+      std::unique_lock<std::mutex> guard;
+      if (lock) guard = std::unique_lock<std::mutex>(locks_[c.id]);
+      const int32_t* ls = level == 0 ? list0(c.id) : list_u(c.id, level);
+      int cap = level == 0 ? Mmax0_ : M_;
+      for (int j = 0; j < cap; ++j) {
+        int32_t nb = ls[j];
+        if (nb < 0) break;
+        if (visited[nb] == stamp) continue;
+        visited[nb] = stamp;
+        float dd = dist(q, vec(nb));
+        if ((int)top.size() < ef || dd < top.top().dist ||
+            (dd == top.top().dist && nb < top.top().id)) {
+          cand.push({dd, nb});
+          top.push({dd, nb});
+          if ((int)top.size() > ef) top.pop();
+        }
+      }
+    }
+    std::vector<PairDI> out(top.size());
+    for (int i = (int)top.size() - 1; i >= 0; --i) {
+      out[i] = top.top();
+      top.pop();
+    }
+    return out;
+  }
+
+  // Diversity heuristic (reference select_heuristic, hnsw.hh:482-522):
+  // scan candidates nearest-first; keep c iff it is closer to q than to any
+  // already-kept element.
+  void select_heuristic(std::vector<PairDI>& cands, int M) const {
+    if ((int)cands.size() <= M) return;
+    std::sort(cands.begin(), cands.end(), [](const PairDI& a, const PairDI& b) {
+      return a.dist < b.dist || (a.dist == b.dist && a.id < b.id);
+    });
+    std::vector<PairDI> kept;
+    kept.reserve(M);
+    for (const PairDI& c : cands) {
+      if ((int)kept.size() >= M) break;
+      bool good = true;
+      for (const PairDI& k : kept) {
+        float dck = dist(vec(c.id), vec(k.id));
+        if (dck < c.dist) {
+          good = false;
+          break;
+        }
+      }
+      if (good) kept.push_back(c);
+    }
+    cands = std::move(kept);
+  }
+
+  // --- insertion -----------------------------------------------------------
+  void insert(int32_t id, std::vector<uint64_t>& visited, uint64_t& stamp) {
+    int level = draw_level(id);
+    const float* q = vec(id);
+
+    // claim upper rows before publishing
+    if (level > 0) {
+      int64_t row = upper_next_.fetch_add(1, std::memory_order_relaxed);
+      if (row >= upper_cap_) {
+        overflow_.store(true, std::memory_order_relaxed);
+        level = 0;
+      } else {
+        upper_row_[id] = (int32_t)row;
+      }
+    }
+
+    // bootstrap / entry point read (reference hnsw.hh:56-96)
+    int32_t ep_id;
+    int ep_level;
+    {
+      std::unique_lock<std::mutex> g(global_lock_);
+      if (entry_point_ < 0) {
+        levels_[id] = level;
+        entry_point_ = id;
+        top_level_ = level;
+        return;
+      }
+      ep_id = entry_point_;
+      ep_level = top_level_;
+    }
+    bool new_top = level > ep_level;
+    // when the insert raises the top level the reference holds the global
+    // new-level lock for the whole insert (hnsw.hh:101-107); we mirror that
+    // by re-checking and swapping the EP at the end under the same lock.
+
+    levels_[id] = level;
+
+    PairDI ep{dist(q, vec(ep_id)), ep_id};
+    for (int l = ep_level; l > level; --l)
+      ep = search_for_one(q, ep, l, /*lock=*/true);
+
+    for (int l = std::min(level, ep_level); l >= 0; --l) {
+      ++stamp;
+      std::vector<PairDI> cands =
+          search_level(q, ep, l, efc_, /*lock=*/true, visited, stamp);
+      ep = cands.front();
+      select_heuristic(cands, M_);
+      // write the new node's list for this level
+      {
+        std::lock_guard<std::mutex> g(locks_[id]);
+        int32_t* ls = l == 0 ? list0(id) : list_u(id, l);
+        int cap = l == 0 ? Mmax0_ : M_;
+        int c = 0;
+        for (const PairDI& p : cands) {
+          if (c >= cap) break;
+          ls[c++] = p.id;
+        }
+        if (l == 0) deg0_[id].store(c, std::memory_order_release);
+      }
+      // bidirectional connect with shrink-if-full (hnsw.hh:180-225)
+      for (const PairDI& p : cands) connect(p.id, id, p.dist, l);
+    }
+
+    if (new_top) {
+      std::unique_lock<std::mutex> g(global_lock_);
+      if (level > top_level_) {
+        top_level_ = level;
+        entry_point_ = id;
+      }
+    }
+  }
+
+  void connect(int32_t dst, int32_t src, float d_sd, int l) {
+    std::lock_guard<std::mutex> g(locks_[dst]);
+    int cap = l == 0 ? Mmax0_ : M_;
+    int32_t* ls = l == 0 ? list0(dst) : list_u(dst, l);
+    int deg = degree(dst, l);
+    if (deg < cap) {
+      ls[deg] = src;
+      if (l == 0) deg0_[dst].store(deg + 1, std::memory_order_release);
+      return;
+    }
+    // full: re-select among existing + new (reference hnsw.hh:204-223)
+    std::vector<PairDI> cands;
+    cands.reserve(deg + 1);
+    cands.push_back({d_sd, src});
+    const float* dv = vec(dst);
+    for (int j = 0; j < deg; ++j) cands.push_back({dist(dv, vec(ls[j])), ls[j]});
+    select_heuristic(cands, cap);
+    int c = 0;
+    for (const PairDI& p : cands) ls[c++] = p.id;
+    for (int j = c; j < cap; ++j) ls[j] = -1;
+    if (l == 0) deg0_[dst].store(c, std::memory_order_release);
+  }
+
+  void run(int threads) {
+    if (threads < 1) threads = 1;
+    std::atomic<int64_t> next{0};
+    auto worker = [&]() {
+      std::vector<uint64_t> visited(n_, 0);
+      uint64_t stamp = 0;
+      for (;;) {
+        int64_t i = next.fetch_add(1, std::memory_order_relaxed);
+        if (i >= n_) return;
+        insert((int32_t)i, visited, stamp);
+      }
+    };
+    std::vector<std::thread> pool;
+    for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+    worker();
+    for (auto& th : pool) th.join();
+  }
+
+  int32_t entry_point() const { return entry_point_; }
+  int top_level() const { return top_level_; }
+  int64_t upper_used() const {
+    int64_t v = upper_next_.load();
+    return v < upper_cap_ ? v : upper_cap_;
+  }
+  bool overflowed() const { return overflow_.load(); }
+
+ private:
+  const float* vecs_;
+  int64_t n_;
+  int d_, M_, Mmax_, Mmax0_, efc_, metric_;
+  int32_t* levels_;
+  int32_t* neighbors0_;
+  int32_t* upper_row_;
+  int32_t* upper_neighbors_;
+  int64_t upper_cap_;
+  int level_cap_;
+  uint64_t seed_;
+  std::vector<std::mutex> locks_;
+  std::vector<std::atomic<int32_t>> deg0_;
+  std::mutex global_lock_;
+  int32_t entry_point_ = -1;
+  int top_level_ = 0;
+  std::atomic<int64_t> upper_next_{0};
+  std::atomic<bool> overflow_{false};
+  double mult_;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, 1 if the upper-row capacity overflowed (affected
+// nodes were demoted to level 0; the build is still valid).
+// Outputs:
+//   levels[n]                       node max level (0-based)
+//   neighbors0[n * 2M]              level-0 adjacency, -1 padded
+//   upper_row[n]                    row into upper_neighbors, -1 if level==0
+//   upper_neighbors[upper_cap * level_cap * M]  levels 1..level_cap, -1 padded
+//   meta[3] = {entry_point, top_level, upper_rows_used}
+int shine_hnsw_build(const float* vecs, int64_t n, int d, int M, int efc,
+                     uint64_t seed, int metric, int threads, int64_t upper_cap,
+                     int level_cap, int32_t* levels, int32_t* neighbors0,
+                     int32_t* upper_row, int32_t* upper_neighbors,
+                     int64_t* meta) {
+  Builder b(vecs, n, d, M, efc, seed, metric, levels, neighbors0, upper_row,
+            upper_neighbors, upper_cap, level_cap);
+  b.run(threads);
+  meta[0] = b.entry_point();
+  meta[1] = b.top_level();
+  meta[2] = b.upper_used();
+  return b.overflowed() ? 1 : 0;
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface and loaded with ctypes. No PyTorch header is
-included, so the build takes seconds, not the minutes that
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes. No PyTorch header is included, so
+the build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` needs. The library lands in
 ``build/shine_tpu_torch/`` under the repository root, keyed on a hash of
 the sources, and is built at first use: nothing happens at import.
@@ -25,12 +26,14 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "shine_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # each kernel's registers and spills, into build_log
 ]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the last nvcc run
+build_seconds: float | None = None  # wall time of the last build
+build_log = ""  # the compilers' remarks of the last build
 
 
 def _sources() -> list[str]:
@@ -56,19 +59,41 @@ def _nvcc() -> str:
     return exe
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; raise on the first that fails. Returns
+    each one's standard error (the compiler's remarks)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = []
+    for cmd, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            for other in procs:
+                other.kill()
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}")
+        errs.append(err)
+    return errs
+
+
 def _build(path: str) -> None:
-    global build_seconds
+    global build_seconds, build_log
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(log)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -88,6 +113,36 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32,  # K
         i32,  # d
         i32,  # l2
+        vp,  # cudaStream_t
+    ]
+    lib.shine_classmax_scan.restype = i32
+    lib.shine_classmax_scan.argtypes = [
+        vp,  # ext (N_pad, dp) bf16
+        vp,  # q (B, dp) bf16
+        i64,  # N_pad
+        i32,  # B
+        i32,  # dp
+        i32,  # cls
+        i32,  # keep2
+        vp,  # best (B, cls) f32
+        vp,  # rows (B, cls) i32
+        vp,  # best2 (B, cls) f32 or null
+        vp,  # rows2 (B, cls) i32 or null
+        vp,  # cudaStream_t
+    ]
+    lib.shine_classmax_select.restype = i32
+    lib.shine_classmax_select.argtypes = [
+        vp,  # best (B, cls) f32
+        vp,  # rows (B, cls) i32
+        vp,  # best2 (B, cls) f32 or null
+        vp,  # rows2 (B, cls) i32 or null
+        i32,  # B
+        i32,  # cls
+        i32,  # kb
+        vp,  # out best (B, kb) f32
+        vp,  # out rows (B, kb) i32
+        vp,  # out best2 (B, kb) f32 or null
+        vp,  # out rows2 (B, kb) i32 or null
         vp,  # cudaStream_t
     ]
 

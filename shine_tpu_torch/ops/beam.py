@@ -49,6 +49,14 @@ def dist_id_key(d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return (fkey << 32) + _id_key(ids)
 
 
+def smallest_positions(d: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions (int64) of the k smallest entries of each row of ``d``,
+    ascending, the lower position first among equal values:
+    ``lax.top_k(-d, k)``'s order, with -0.0 and +0.0 tied."""
+    pos = torch.arange(d.shape[1], device=d.device).expand_as(d)
+    return torch.sort(dist_id_key(d, pos), dim=1)[1][:, :k]
+
+
 def _sort_by(key: torch.Tensor, *cols: torch.Tensor) -> list[torch.Tensor]:
     """Stable sort of each row by ``key``, carrying ``cols`` along."""
     _, perm = torch.sort(key, dim=1, stable=True)

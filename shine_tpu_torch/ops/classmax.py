@@ -1,0 +1,225 @@
+"""The class-max scan (K2): the port of ``shine_tpu/ops/pallas_scan3.py``.
+
+Every row r of the packed table belongs to class ``r % cls``. For each
+query the scan keeps, per class, the best score and its row (strict ``>``
+in increasing row order, so the earliest row wins a tie; a score at or
+below NEG never enters, the start state being (NEG, row = lane)) and, in
+the ``classmax2_*`` forms, the runner-up by ``_kernel2``'s demotion rule.
+The ``*_topk_*`` forms end with an exact top-kb over the class lanes
+(value descending, the lower lane winning a tie) and gather the rows (and
+runner-ups) at the picked lanes: the same as the unfused form followed by
+``select_lanes`` and a gather.
+
+Each function takes the JAX signature; ``tq`` and ``tn`` are accepted and
+pick no tiling. CPU tensors take the plain twin (``*_ref``), CUDA tensors
+launch the hand-written kernel in ``csrc/classmax_scan.cu`` or raise;
+each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from shine_tpu_torch.ops import _build
+from shine_tpu_torch.ops.beam import smallest_positions
+from shine_tpu_torch.ops.distance import matmul_nt
+from shine_tpu_torch.ops.scan import NEG
+
+CLS = 1024
+TN = 2048
+_REF_ROWS = 32_768  # rows the twin scores per step
+_KERNEL_CLASS_TILE = 64  # classes per CTA of the kernel
+_KERNEL_MAX_DP = 1304  # widest table whose query tile fits in shared memory
+
+
+def _max_first(dd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max over dim 1 of (B, M, cls) and the first index reaching it."""
+    mx = dd.amax(dim=1)
+    idx = torch.arange(dd.shape[1], dtype=torch.int32, device=dd.device)
+    first = torch.where(dd == mx[:, None, :], idx[None, :, None],
+                        dd.shape[1]).amin(dim=1)
+    return mx, first.to(torch.int32)
+
+
+def _classmax_ref(ext: torch.Tensor, q_ext: torch.Tensor, cls: int,
+                  keep2: bool) -> tuple[torch.Tensor, ...]:
+    """The plain twin of every form: f32 products over chunks of rows (a
+    bf16 product is exact in f32), the chunk's best (and runner-up) member
+    per class, merged into the running state with earlier rows winning
+    ties."""
+    n_pad = ext.shape[0]
+    B = q_ext.shape[0]
+    members = n_pad // cls
+    per = max(1, _REF_ROWS // cls)
+    dev = ext.device
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    s1 = neg.expand(B, cls).clone()
+    c1 = torch.zeros((B, cls), dtype=torch.int32, device=dev)
+    s2, c2 = s1.clone(), c1.clone()
+    qf = q_ext.to(torch.float32)
+    for m0 in range(0, members, per):
+        m1 = min(m0 + per, members)
+        dd = matmul_nt(qf, ext[m0 * cls:m1 * cls]).view(B, m1 - m0, cls)
+        dd = torch.where(dd > neg, dd, neg)  # at or below NEG never enters
+        mx, first = _max_first(dd)
+        win = mx > s1
+        if keep2:
+            rest = dd.scatter(1, first[:, None, :].long(), -torch.inf)
+            mx2, first2 = _max_first(rest)
+            # the runner-up: the better of the old winner and the chunk's
+            # runner-up when the chunk wins, else of the old runner-up and
+            # the chunk's winner; ties go to the earlier rows
+            keep_old1 = s1 >= mx2
+            keep_old2 = s2 >= mx
+            s2 = torch.where(win, torch.where(keep_old1, s1, mx2),
+                             torch.where(keep_old2, s2, mx))
+            c2 = torch.where(win, torch.where(keep_old1, c1, first2 + m0),
+                             torch.where(keep_old2, c2, first + m0))
+        s1 = torch.where(win, mx, s1)
+        c1 = torch.where(win, first + m0, c1)
+    lane = torch.arange(cls, dtype=torch.int32, device=dev)
+    out = (s1, c1 * cls + lane)
+    if keep2:
+        out += (s2, c2 * cls + lane)
+    return out
+
+
+def select_lanes(best: torch.Tensor, kb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-kb of each row of ``best`` (B, cls): (values (B, kb),
+    lanes (B, kb) int64) in value-descending order, the lower lane first
+    among equal values, as ``lax.top_k`` orders them (-0.0 and +0.0 tie,
+    as in the Pallas epilogue and the CUDA select)."""
+    sel = smallest_positions(-best, kb)
+    return torch.gather(best, 1, sel), sel
+
+
+def _topk_ref(ext, q_ext, cls, kb, keep2):
+    out = _classmax_ref(ext, q_ext, cls, keep2)
+    vals, sel = select_lanes(out[0], kb)
+    return (vals,) + tuple(torch.gather(o, 1, sel) for o in out[1:])
+
+
+def classmax_scan_ref(ext, q_ext, *, cls=CLS):
+    """Plain twin of ``classmax_scan``."""
+    return _classmax_ref(ext, q_ext, cls, False)
+
+
+def classmax2_scan_ref(ext, q_ext, *, cls=CLS):
+    """Plain twin of ``classmax2_scan``."""
+    return _classmax_ref(ext, q_ext, cls, True)
+
+
+def classmax_topk_scan_ref(ext, q_ext, *, kb, cls=CLS):
+    """Plain twin of ``classmax_topk_scan``."""
+    return _topk_ref(ext, q_ext, cls, kb, False)
+
+
+def classmax2_topk_scan_ref(ext, q_ext, *, kb, cls=CLS):
+    """Plain twin of ``classmax2_topk_scan``."""
+    return _topk_ref(ext, q_ext, cls, kb, True)
+
+
+def _check(ext: torch.Tensor, q_ext: torch.Tensor, cls: int, kb: int | None) -> None:
+    if ext.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the class-max scan runs on cpu or cuda, not {ext.device}")
+    for name, t in (("ext", ext), ("q_ext", q_ext)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2:
+            raise TypeError(f"{name} must be a 2-D bf16 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q_ext.device != ext.device:
+        raise ValueError(f"q_ext is on {q_ext.device}, ext on {ext.device}")
+    n_pad, dp = ext.shape
+    if q_ext.shape[1] != dp:
+        raise ValueError(f"q_ext width {q_ext.shape[1]} != table width {dp}")
+    if cls <= 0 or n_pad % cls:
+        raise ValueError(f"the table's {n_pad} rows must be a multiple of cls={cls}")
+    if kb is not None and not 1 <= kb <= cls:
+        raise ValueError(f"kb={kb} must lie in [1, cls={cls}]")
+    if ext.device.type == "cuda":
+        if dp % 16 or dp > _KERNEL_MAX_DP:
+            raise ValueError(f"the kernel takes widths that are multiples of 16 "
+                             f"up to {_KERNEL_MAX_DP}, got {dp}")
+        if cls % _KERNEL_CLASS_TILE:
+            raise ValueError(f"the kernel needs cls % {_KERNEL_CLASS_TILE} == 0, "
+                             f"got {cls}")
+        if n_pad >= 2**31:
+            raise ValueError("row ids must fit in int32")
+        if ext.data_ptr() % 16 or q_ext.data_ptr() % 16:
+            raise ValueError("ext and q_ext must be 16-byte aligned")
+
+
+def _launch(wrapper, ext, q_ext, cls, kb, keep2) -> tuple[torch.Tensor, ...]:
+    """Run the scan kernel (and, given kb, the select kernel) on the
+    tensors' card, adding one to ``wrapper.launches`` once the scan has
+    launched. An empty batch launches nothing and counts nothing."""
+    n_pad, dp = ext.shape
+    B = q_ext.shape[0]
+    dev = ext.device
+
+    def planes(width):
+        ps = [torch.empty((B, width), dtype=torch.float32, device=dev),
+              torch.empty((B, width), dtype=torch.int32, device=dev)]
+        if keep2:
+            ps += [torch.empty((B, width), dtype=torch.float32, device=dev),
+                   torch.empty((B, width), dtype=torch.int32, device=dev)]
+        return ps
+
+    def ptrs(ps):
+        return [p.data_ptr() for p in ps] + [None] * (4 - len(ps))
+
+    full = planes(cls)
+    if B == 0:
+        return tuple(full if kb is None else planes(kb))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.shine_classmax_scan(
+            ext.data_ptr(), q_ext.data_ptr(), n_pad, B, dp, cls, int(keep2),
+            *ptrs(full), stream), "classmax_scan")
+        wrapper.launches += 1
+        if kb is None:
+            return tuple(full)
+        picked = planes(kb)
+        _build.check(lib.shine_classmax_select(
+            *ptrs(full), B, cls, kb, *ptrs(picked), stream), "classmax_select")
+    return tuple(picked)
+
+
+def _run(wrapper, ext, q_ext, cls, kb, keep2):
+    _check(ext, q_ext, cls, kb)
+    if ext.device.type == "cpu":
+        if kb is None:
+            return _classmax_ref(ext, q_ext, cls, keep2)
+        return _topk_ref(ext, q_ext, cls, kb, keep2)
+    return _launch(wrapper, ext, q_ext, cls, kb, keep2)
+
+
+def classmax_scan(ext, q_ext, *, tq=1024, tn=TN, cls=CLS):
+    """(best (B, cls) f32, rows (B, cls) int32) of bf16 ``q_ext`` (B, dp)
+    against the bf16 table ``ext`` (N_pad, dp)."""
+    return _run(classmax_scan, ext, q_ext, cls, None, False)
+
+
+def classmax2_scan(ext, q_ext, *, tq=512, tn=TN, cls=CLS):
+    """(best, rows, best2, rows2), each (B, cls): the class winners and
+    runner-ups."""
+    return _run(classmax2_scan, ext, q_ext, cls, None, True)
+
+
+def classmax_topk_scan(ext, q_ext, *, kb, tq=1024, tn=TN, cls=CLS):
+    """(best (B, kb), rows (B, kb)): ``classmax_scan`` followed by an exact
+    top-kb over the lanes and a gather."""
+    return _run(classmax_topk_scan, ext, q_ext, cls, kb, False)
+
+
+def classmax2_topk_scan(ext, q_ext, *, kb, tq=512, tn=TN, cls=CLS):
+    """(best, rows, best2, rows2), each (B, kb): ``classmax2_scan`` with the
+    four planes gathered at the top-kb lanes of ``best``."""
+    return _run(classmax2_topk_scan, ext, q_ext, cls, kb, True)
+
+
+for _f in (classmax_scan, classmax2_scan, classmax_topk_scan,
+           classmax2_topk_scan):
+    _f.launches = 0

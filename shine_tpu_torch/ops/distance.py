@@ -1,7 +1,8 @@
 """Distance helpers of the port, and its fp32 precision lock.
 
 Every product whose result ranks rows (the dense-entry sweep, the
-squared norms, the brute-force ground truth) must run in full fp32. On a
+squared norms, the brute-force ground truth, the re-ranks) must run in
+full fp32. On a
 CUDA card PyTorch runs an fp32 matmul in TF32 (about three decimal
 digits) once ``torch.backends.cuda.matmul.allow_tf32`` is set or
 ``torch.set_float32_matmul_precision`` is lowered from "highest"; at
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from shine_tpu.config import METRIC_IP, metric_id
+from shine_tpu_torch.config import METRIC_IP, METRIC_L2, metric_id
 from shine_tpu_torch.ops.beam import dist_id_key
 
 
@@ -84,3 +85,94 @@ def exact_knn(
         best_d = torch.gather(all_d, 1, sel)
         best_i = torch.gather(all_i, 1, sel)
     return best_i.to(torch.int32), best_d
+
+
+def _sort_keep(d: torch.Tensor, cand_ids: torch.Tensor, k: int):
+    """(d, ids) sorted by (dist, id), -1 ids last among equal dists, cut
+    to k: ``lax.sort`` on (d, key_i) with two keys."""
+    _, order = torch.sort(dist_id_key(d, cand_ids), dim=-1)
+    return (torch.gather(d, -1, order)[..., :k],
+            torch.gather(cand_ids, -1, order)[..., :k])
+
+
+def _l2_or_ip(dots: torch.Tensor, q: torch.Tensor, metric: int,
+              row_sq: torch.Tensor | None) -> torch.Tensor:
+    if metric == METRIC_IP:
+        return 1.0 - dots
+    qn = (q * q).sum(dim=-1)  # per query: a rank-invariant offset
+    if row_sq is None:  # ``dots`` already holds 2<q, v> - ||v||^2
+        return qn[..., None] - dots
+    return qn[..., None] - 2.0 * dots + row_sq
+
+
+def rerank_topk(
+    vectors: torch.Tensor,  # (N, d) f32
+    sqnorms: torch.Tensor,  # (N,) f32
+    queries: torch.Tensor,  # (..., d) f32
+    cand_ids: torch.Tensor,  # (..., K) int32, -1 pad
+    k: int,
+    metric: int = METRIC_L2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 re-rank of K candidates down to k: (dists (..., k), ids
+    (..., k)) ascending by (dist, id); -1 candidates score +inf."""
+    check_precision()
+    q = queries.to(torch.float32)
+    safe = cand_ids.clamp_min(0).long()
+    cv = vectors[safe].to(torch.float32)  # (..., K, d)
+    dots = torch.einsum("...d,...kd->...k", q, cv)
+    d = _l2_or_ip(dots, q, metric, sqnorms[safe])
+    d = torch.where(cand_ids >= 0, d, torch.inf)
+    return _sort_keep(d, cand_ids, k)
+
+
+def _ext_scores(ext: torch.Tensor, q_ext: torch.Tensor,
+                cand_ids: torch.Tensor) -> torch.Tensor:
+    """<q_ext, ext[id]> of each candidate: bf16 operands, f32 sums."""
+    check_precision()
+    rows = ext[cand_ids.clamp_min(0).long()].to(torch.float32)  # (..., K, dp)
+    qe = q_ext.to(torch.bfloat16).to(torch.float32)
+    return torch.einsum("...d,...kd->...k", qe, rows)
+
+
+def rerank_topk_ext(
+    ext: torch.Tensor,  # (N_pad, dp) bf16 packed score table
+    queries: torch.Tensor,  # (..., d) f32
+    cand_ids: torch.Tensor,  # (..., K) int32, -1 pad
+    k: int,
+    metric: int = METRIC_L2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank from the packed bf16 table when no f32 rows are kept:
+    distance = ||q||^2 - score (L2) or 1 - score (IP). Its precision is
+    the bf16 rows' (~0.4% relative), as the scan's."""
+    from shine_tpu_torch.ops.scan import pack_ext_query
+
+    q = queries.to(torch.float32)
+    qe = pack_ext_query(q.reshape(-1, q.shape[-1]), ext.shape[1])
+    qe = qe.reshape(q.shape[:-1] + (ext.shape[1],))
+    d = _l2_or_ip(_ext_scores(ext, qe, cand_ids), q, metric, None)
+    d = torch.where(cand_ids >= 0, d, torch.inf)
+    return _sort_keep(d, cand_ids, k)
+
+
+def score_trim(
+    vals: torch.Tensor,  # (..., K) f32 scan scores, larger is nearer
+    cand_ids: torch.Tensor,  # (..., K) int32, -1 pad
+    pre: int,
+) -> torch.Tensor:
+    """Trim candidates to the best ``pre`` by the scores the scan already
+    returned: (score descending, id ascending), -1 pads last."""
+    sd = torch.where(cand_ids >= 0, -vals.to(torch.float32), torch.inf)
+    return _sort_keep(sd, cand_ids, pre)[1]
+
+
+def prerank_trim_ext(
+    ext: torch.Tensor,  # (N_pad, dp) bf16 packed score table
+    q_ext: torch.Tensor,  # (B, dp) packed queries
+    cand_ids: torch.Tensor,  # (B, K) int32, -1 pad
+    pre: int,
+) -> torch.Tensor:
+    """Trim candidates to the best ``pre`` by their packed-table scores,
+    re-read from ``ext``; ties as ``score_trim``."""
+    sd = torch.where(cand_ids >= 0, -_ext_scores(ext, q_ext, cand_ids),
+                     torch.inf)
+    return _sort_keep(sd, cand_ids, pre)[1]

@@ -12,6 +12,7 @@ import torch
 from shine_tpu.config import HNSWParams
 from shine_tpu.graph.soa import GraphSoA
 from shine_tpu.models import hnsw as jh
+from shine_tpu_torch.graph.soa import GraphSoA as PortGraph
 from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 
@@ -58,7 +59,7 @@ def test_gather_score_matches_dist_ext(rows, metric, d):
     n, B, K, l2 = 500, 12, 40, metric == "l2"
     graph = _graph(rng, n, d)
     jg, _ = jh.device_graph(graph, rows=rows)
-    tg = th.device_graph(graph, rows=rows)
+    tg = th.device_graph(PortGraph.from_fields(graph), rows=rows, device="cpu")
     q_ext, bias, ids = _inputs(rng, n, B, K, d, l2)
     want = np.asarray(jh._dist_ext(
         jg, jnp.asarray(q_ext), jnp.asarray(bias), jnp.asarray(ids),
@@ -79,7 +80,7 @@ def test_gather_score_matches_pallas_gather(rows):
     n, B, K, d = 600, 8, 48, 32
     graph = _graph(rng, n, d)
     jg, _ = jh.device_graph(graph, rows=rows)
-    tg = th.device_graph(graph, rows=rows)
+    tg = th.device_graph(PortGraph.from_fields(graph), rows=rows, device="cpu")
     for l2 in (True, False):
         q_ext, bias, ids = _inputs(rng, n, B, K, d, l2)
         safe = np.maximum(ids, 0)
@@ -102,7 +103,8 @@ def test_gather_score_matches_pallas_gather(rows):
 
 def test_gather_score_cpu_runs_twin_and_counts_no_launch():
     rng = np.random.default_rng(3)
-    tg = th.device_graph(_graph(rng, 100, 16), rows="f32")
+    tg = th.device_graph(PortGraph.from_fields(_graph(rng, 100, 16)),
+                         rows="f32", device="cpu")
     q_ext, bias, ids = _inputs(rng, 100, 4, 10, 16, True)
     before = gather_score.launches
     got = _port(tg, q_ext, bias, ids, True)

@@ -13,6 +13,7 @@ from shine_tpu.graph.soa import build_graph
 from shine_tpu.io import brute_force_knn, recall_at_k, synthetic_dataset
 from shine_tpu.models import hnsw as jh
 from shine_tpu_torch import HNSWIndex, device_graph_from_jax
+from shine_tpu_torch.graph.soa import GraphSoA as PortGraph
 from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.ops.distance import exact_knn
 from shine_tpu_torch.ops.gather_score import gather_score
@@ -51,8 +52,10 @@ def test_tables_from_jax_match_port_upload(l2_case, rows):
     jg, top = jh.device_graph(graph, rows=rows)
     assert jg.neighbors0.shape[1] == 128  # packed by the JAX package
     conv = device_graph_from_jax(_arrays(jg), top_level=top,
-                                 nbr_width=graph.neighbors0.shape[1])
-    own = th.device_graph(graph, rows=rows)
+                                 nbr_width=graph.neighbors0.shape[1],
+                                 device="cpu")
+    own = th.device_graph(PortGraph.from_fields(graph), rows=rows,
+                          device="cpu")
     assert (conv.entry_point, conv.top_level) == (own.entry_point, own.top_level)
     for f in ("vectors_ext", "neighbors0", "upper_row", "upper_neighbors",
               "upper_ids", "upper_vecs_ext", "row_scl", "row_nrm"):
@@ -71,7 +74,8 @@ def test_convert_rejects_list_width_that_does_not_divide(l2_case, width):
     _, graph = l2_case
     jg, top = jh.device_graph(graph)
     with pytest.raises(ValueError, match="nbr_width"):
-        device_graph_from_jax(_arrays(jg), top_level=top, nbr_width=width)
+        device_graph_from_jax(_arrays(jg), top_level=top, nbr_width=width,
+                              device="cpu")
 
 
 def _search_both(graph, queries, sp, rows, uchunk=None):
@@ -83,7 +87,9 @@ def _search_both(graph, queries, sp, rows, uchunk=None):
         # the constant is not part of the jit cache key: force a retrace
         jh.batched_search.clear_cache()
         out = []
-        for idx in (jh.HNSWIndex(graph, rows=rows), HNSWIndex(graph, rows=rows)):
+        for idx in (jh.HNSWIndex(graph, rows=rows),
+                    HNSWIndex(PortGraph.from_fields(graph), rows=rows,
+                              device="cpu")):
             ids, dd = idx.search(queries, sp, batch_size=64)
             out.append((ids, dd, idx.last_hops, idx.last_dists))
     finally:
@@ -140,14 +146,15 @@ def test_chunked_dense_entry_matches_jax(l2_case, chunking):
     queries = ds.queries[:64]
     jax_out, port_out = _search_both(graph, queries, sp, "f32", uchunk=uchunk)
     _assert_close_results(jax_out, port_out)
-    one_shot = HNSWIndex(graph).search(queries, sp, batch_size=64)
+    one_shot = HNSWIndex(PortGraph.from_fields(graph), device="cpu").search(
+        queries, sp, batch_size=64)
     np.testing.assert_array_equal(port_out[0], one_shot[0])
     np.testing.assert_allclose(port_out[1], one_shot[1], rtol=1e-4, atol=1e-3)
 
 
 def test_index_tail_padding_and_recall(l2_case):
     ds, graph = l2_case
-    idx = HNSWIndex(graph)
+    idx = HNSWIndex(PortGraph.from_fields(graph), device="cpu")
     sp = SearchParams(k=10, ef=64)
     a, _ = idx.search(ds.queries[:70], sp, batch_size=64)
     b, _ = idx.search(ds.queries[:70], sp, batch_size=128)
@@ -162,7 +169,8 @@ def test_index_tail_padding_and_recall(l2_case):
 def test_cpu_search_launches_no_kernel(l2_case):
     ds, graph = l2_case
     before = gather_score.launches
-    HNSWIndex(graph).search(ds.queries[:8], SearchParams(k=5, ef=16),
+    HNSWIndex(PortGraph.from_fields(graph), device="cpu").search(
+        ds.queries[:8], SearchParams(k=5, ef=16),
                             batch_size=8)
     assert gather_score.launches == before
 

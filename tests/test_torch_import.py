@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX, holds its fp32 precision lock, and
-its chip script refuses to run without a CUDA card."""
+"""The PyTorch port imports without JAX and without the JAX package, holds
+its fp32 precision lock, its entry points refuse to run without a CUDA card
+unless asked for the CPU, and its chip script refuses to run without one."""
 
 import os
 import pathlib
@@ -13,18 +14,20 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-# a sys.meta_path finder that refuses jax, jaxlib and ml_dtypes
+# a sys.meta_path finder that refuses jax, jaxlib, ml_dtypes and the JAX
+# package shine_tpu
 _BLOCKER = """
 import sys
+_BLOCKED = ("jax", "jaxlib", "ml_dtypes", "shine_tpu")
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"):
+        if name.split(".")[0] in _BLOCKED:
             raise ImportError(f"blocked: {name}")
         return None
 sys.meta_path.insert(0, _Block())
 import importlib
 importlib.import_module(sys.argv[1])
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
 assert not loaded, loaded
 """
 
@@ -37,9 +40,16 @@ def _clean_env():
 
 @pytest.mark.parametrize("module", [
     "shine_tpu_torch",
+    "shine_tpu_torch.config",
     "shine_tpu_torch.convert",
+    "shine_tpu_torch.graph.soa",
+    "shine_tpu_torch.io",
+    "shine_tpu_torch.models.flat",
     "shine_tpu_torch.models.hnsw",
+    "shine_tpu_torch.native",
+    "shine_tpu_torch.ops.classmax",
     "shine_tpu_torch.ops.gather_score",
+    "shine_tpu_torch.ops.scan",
     "chip_smoke",
 ])
 def test_imports_with_jax_blocked(module):
@@ -51,9 +61,19 @@ def test_imports_with_jax_blocked(module):
     assert res.returncode == 0, res.stderr
 
 
+def _port_sources():
+    return [*(REPO / "shine_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+
+
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes)\b", re.M)
-    for path in [*(REPO / "shine_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in _port_sources():
+        assert not pattern.search(path.read_text()), path
+
+
+def test_no_jax_package_import_in_port_sources():
+    pattern = re.compile(r"^\s*(from|import)\s+shine_tpu\b(?!_torch)", re.M)
+    for path in _port_sources():
         assert not pattern.search(path.read_text()), path
 
 

@@ -1,4 +1,5 @@
-"""The CUDA kernel gather_score against its plain twin, on a card.
+"""The CUDA kernels (gather_score, K1; the class-max scan, K2) against
+their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -10,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from shine_tpu.config import HNSWParams, SearchParams
-from shine_tpu.graph.soa import build_graph
-from shine_tpu.io import synthetic_dataset
 from shine_tpu_torch import HNSWIndex
+from shine_tpu_torch.config import HNSWParams, SearchParams
+from shine_tpu_torch.graph.soa import build_graph
+from shine_tpu_torch.io import synthetic_dataset
 from shine_tpu_torch.models.hnsw import quantize_rows
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 
@@ -80,11 +81,156 @@ def test_search_on_card_matches_cpu(card):
     graph = build_graph(ds.base, HNSWParams(M=8, ef_construction=64), threads=1)
     sp = SearchParams(k=10, ef=48, frontier=4)
     for rows in ("f32", "bf16", "int8"):
-        a, da = HNSWIndex(graph, rows=rows).search(ds.queries, sp, batch_size=64)
+        a, da = HNSWIndex(graph, rows=rows, device="cpu").search(
+            ds.queries, sp, batch_size=64)
         before = gather_score.launches
         b_idx = HNSWIndex(graph, rows=rows, device=card)
         b, db = b_idx.search(ds.queries, sp, batch_size=64)
         assert gather_score.launches - before == b_idx.last_steps > 0
+        assert (a == b).mean() >= 0.99
+        same = a == b
+        np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
+
+
+# --- the class-max scan (K2) -------------------------------------------------
+
+# K2 scores sum dp bf16 products, each exact in f32, in another order than
+# the twin's f32 matmul: at most dp * 2^-23 * sum|products|; the tables below
+# keep sum|products| under ~1e3 at dp=960, so the bound is ~0.12
+K2_ATOL = 0.25
+
+
+def _k2_case(rng, n_pad, d, B, dev, pad_rows=0):
+    from shine_tpu_torch.ops.scan import ext_width, pack_ext_query, pack_ext_table
+
+    v = rng.normal(size=(n_pad - pad_rows, d)).astype(np.float32)
+    ext = pack_ext_table(v, 0, n_pad, device=dev)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    q_ext = pack_ext_query(torch.from_numpy(q).to(dev), ext_width(d))
+    return ext, q_ext.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("B", [256, 77])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_classmax_kernel_matches_twin(card, d, B, keep2):
+    from shine_tpu_torch.ops import classmax as cm
+
+    rng = np.random.default_rng(d + B)
+    ext, q = _k2_case(rng, 16384, d, B, card, pad_rows=1000)
+    cls = 1024
+    fn = cm.classmax2_scan if keep2 else cm.classmax_scan
+    before = fn.launches
+    got = fn(ext, q, cls=cls)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = cm.classmax2_scan_ref(ext, q, cls=cls)
+    for g, w in zip(got[::2], want[::2]):
+        torch.testing.assert_close(g, w, rtol=0, atol=K2_ATOL)
+    clear = (want[0] - want[2]) > K2_ATOL
+    assert clear.float().mean() > 0.9
+    assert torch.equal(got[1][clear], want[1][clear])
+    lane = torch.arange(cls, device=card, dtype=torch.int32)
+    for rows in got[1::2]:
+        assert torch.equal(rows % cls, lane.expand_as(rows))
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_classmax_kernel_integers_bit_for_bit(card, d, keep2):
+    """Integer entries in [-4, 4]: the kernel's f32 sums are exact, so it
+    must equal the twin bit for bit, ties and all, ragged B included."""
+    from shine_tpu_torch.ops import classmax as cm
+
+    rng = np.random.default_rng(d)
+    dp = -(-d // 16) * 16
+    ext = torch.from_numpy(rng.integers(-4, 5, size=(8192, dp)).astype(
+        np.float32)).to(card).to(torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-4, 5, size=(200, dp)).astype(
+        np.float32)).to(card).to(torch.bfloat16)
+    fn, ref = ((cm.classmax2_scan, cm.classmax2_scan_ref) if keep2
+               else (cm.classmax_scan, cm.classmax_scan_ref))
+    got = fn(ext, q, cls=256)
+    want = ref(ext, q, cls=256)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_classmax_topk_kernel_equals_unfused_plus_select(card, d, keep2):
+    from shine_tpu_torch.ops import classmax as cm
+
+    rng = np.random.default_rng(3 * d)
+    ext, q = _k2_case(rng, 8192, d, 300, card)
+    cls, kb = 512, 32
+    unfused = (cm.classmax2_scan if keep2 else cm.classmax_scan)(ext, q, cls=cls)
+    fn = cm.classmax2_topk_scan if keep2 else cm.classmax_topk_scan
+    before = fn.launches
+    fused = fn(ext, q, cls=cls, kb=kb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    vals, sel = cm.select_lanes(unfused[0], kb)
+    assert torch.equal(fused[0], vals)
+    for f, u in zip(fused[1:], unfused[1:]):
+        assert torch.equal(f, torch.gather(u, 1, sel))
+    twin = (cm.classmax2_topk_scan_ref if keep2 else cm.classmax_topk_scan_ref)(
+        ext, q, cls=cls, kb=kb)
+    torch.testing.assert_close(fused[0], twin[0], rtol=0, atol=K2_ATOL)
+
+
+@pytest.mark.parametrize("topk", [False, True])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_classmax_empty_batch_launches_nothing(card, topk, keep2):
+    from shine_tpu_torch.ops import classmax as cm
+
+    ext = torch.zeros(4096, 32, dtype=torch.bfloat16, device=card)
+    q = torch.zeros(0, 32, dtype=torch.bfloat16, device=card)
+    fn = {(False, False): cm.classmax_scan, (False, True): cm.classmax2_scan,
+          (True, False): cm.classmax_topk_scan,
+          (True, True): cm.classmax2_topk_scan}[(topk, keep2)]
+    kw = {"cls": 256, **({"kb": 8} if topk else {})}
+    before = fn.launches
+    got = fn(ext, q, **kw)
+    assert fn.launches == before
+    assert all(g.shape == (0, 8 if topk else 256) and g.is_cuda for g in got)
+
+
+def test_classmax_kernel_rejects_what_it_cannot_take(card):
+    from shine_tpu_torch.ops import classmax as cm
+
+    ext = torch.zeros(4096, 24, dtype=torch.bfloat16, device=card)
+    q = torch.zeros(8, 24, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        cm.classmax_scan(ext, q, cls=256)
+    ext = torch.zeros(4096, 32, dtype=torch.bfloat16, device=card)
+    q = torch.zeros(8, 32, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="cls % 64"):
+        cm.classmax_scan(ext, q, cls=32)
+    with pytest.raises(ValueError, match="is on"):
+        cm.classmax_scan(ext, q.cpu(), cls=256)
+
+
+def test_fastflat_on_card_matches_cpu(card):
+    from shine_tpu_torch import FastFlatIndex
+    from shine_tpu_torch.ops import classmax as cm
+
+    ds = synthetic_dataset(n=20_000, dim=32, num_queries=300, seed=6,
+                           compute_gt=False)
+    cpu = FastFlatIndex(ds.base, device="cpu")
+    gpu = FastFlatIndex(ds.base)  # the card by default
+    assert gpu.device.type == "cuda"
+    for knobs in ({}, {"kb": 32, "keep2": True, "tq": 256},
+                  {"kb": 64, "keep2": True}, {"kb": 16}):
+        a, da = cpu.search(ds.queries, 10, **knobs)
+        before = sum(f.launches for f in (cm.classmax_scan, cm.classmax2_scan,
+                                          cm.classmax_topk_scan,
+                                          cm.classmax2_topk_scan))
+        b, db = gpu.search(ds.queries, 10, **knobs)
+        after = sum(f.launches for f in (cm.classmax_scan, cm.classmax2_scan,
+                                         cm.classmax_topk_scan,
+                                         cm.classmax2_topk_scan))
+        assert after > before
         assert (a == b).mean() >= 0.99
         same = a == b
         np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
