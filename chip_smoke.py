@@ -28,7 +28,21 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
      kb=16), recall@10 against the same ground truth, QPS after a
      warm-up batch, each kernel's launches;
   8. FastFlatIndex end to end: 256 queries on the CPU and the card, at
-     the auto knobs and the keep2 point.
+     the auto knobs and the keep2 point;
+     A profile of one auto batch (device time by kernel, busy share)
+     follows phases 7 and 10;
+  9. K3 against its plain twins: both split functions, keep1 and keep2, on
+     the set's bf16 and int8 split tables (1,015,808 x 128, aux
+     (2, 1,015,808)), B=4096, L2 and IP, at the (cls, kb) that each
+     SplitFlatIndex route of phase 10 resolves to and at cls=4096/kb=32;
+     each fused form against the unfused form plus select_lanes, bit for
+     bit; CUDA-event timings of kernels, twins and the bare bf16 product
+     (for int8, on the table widened to bf16 before the timing);
+ 10. SplitFlatIndex, bf16 and int8: all queries at batch 4096 through four
+     routes (the auto knobs, keep2 at kb=32, keep2 at kb=64, kb=16),
+     recall@10, QPS after a warm-up batch, each K3 form's launches;
+ 11. SplitFlatIndex end to end: 256 queries on the CPU and the card at the
+     auto knobs, bf16 and int8.
 
 Every count of kernel launches is set to 0 just before the run it reads.
 Each kernel's entry in the JSON table pairs those launches with the time,
@@ -50,7 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from shine_tpu_torch import FastFlatIndex, HNSWIndex, native
+from shine_tpu_torch import FastFlatIndex, HNSWIndex, SplitFlatIndex, native
 from shine_tpu_torch.config import HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
@@ -60,6 +74,11 @@ from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops.distance import check_precision, exact_knn
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table
+from shine_tpu_torch.ops.scan_split import (
+    SPLIT_QUANTUM,
+    pack_split_query,
+    pack_split_tables,
+)
 
 N, D, NQ, SEED = 1_000_000, 128, 10_000, 7
 B, K = 4096, 256  # bench batch; E * 2M = 8 * 32 candidate lanes per step
@@ -101,6 +120,30 @@ K2_FORMS = {
 }
 
 
+# K3 scores: 2<q, v> - ||v||^2 (or scl * <q, comp> + nrm for int8) from 128
+# bf16 products, each exact in f32, summed in another order than the twin's
+# f32 matmul: at most 128 * 2^-23 * sum|products| * scl, under 0.1 on this
+# set; 0.25 as for K2
+K3_ATOL = 0.25
+SPLIT_DTYPES = ("bf16", "int8")
+K3_EXTRA_SHAPE = (4096, 32)  # (cls, kb) the auto rule takes past 1,024,000 rows
+SPLIT_MIN_RECALL = 0.98  # bf16 at the auto knobs: the floor FastFlat holds here
+# the SplitFlatIndex routes: between them they launch every K3 form
+SPLIT_ROUTES = (
+    ("auto", {}),
+    ("keep2_kb32", {"kb": 32, "keep2": True}),
+    ("keep2_kb64", {"kb": 64, "keep2": True}),
+    ("kb16", {"kb": 16}),
+)
+K3_FUNCS = {
+    "classmax_scan_split": (cm.classmax_scan_split, cm.classmax_scan_split_ref,
+                            "shine_tpu/ops/pallas_scan_split.py:176"),
+    "classmax_topk_scan_split": (cm.classmax_topk_scan_split,
+                                 cm.classmax_topk_scan_split_ref,
+                                 "shine_tpu/ops/pallas_scan_split.py:267"),
+}
+
+
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -139,6 +182,9 @@ def reset_launches() -> None:
     gather_score.launches = 0
     for fn, _, _ in K2_FORMS.values():
         fn.launches = 0
+    for fn, _, _ in K3_FUNCS.values():
+        fn.launches = 0
+        fn.form_launches.clear()
 
 
 def kernel_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> list[dict]:
@@ -403,6 +449,252 @@ def flat_end_to_end(ds, gpu: FastFlatIndex) -> None:
         _compare(a_ids, a_d, b_ids, b_d, f"fastflat {route}", FLAT_ATOL)
 
 
+def split_route_plan(index: SplitFlatIndex) -> list[tuple]:
+    """(route, knobs, function, keep2, cls, kb) of each SplitFlatIndex
+    route, from the index's own knob resolution; fails unless the routes
+    launch every K3 form (function x keep2), each on one route."""
+    plan = []
+    for route, knobs in SPLIT_ROUTES:
+        kb, cls, keep2, fused = index._resolve_knobs(
+            knobs.get("kb", 0), 0, knobs.get("keep2"), None, False)
+        fn = "classmax_topk_scan_split" if fused else "classmax_scan_split"
+        plan.append((route, knobs, fn, keep2, cls, min(kb, cls)))
+    forms = sorted((p[2], p[3]) for p in plan)
+    if forms != sorted((f, k2) for f in K3_FUNCS for k2 in (False, True)):
+        raise AssertionError(f"the routes launch {forms}, not each K3 form once")
+    return plan
+
+
+def _k3_bound(keep2: bool, cls: int, kb: int | None, elt: int) -> tuple[float, str]:
+    """The work the function needs: the N real rows at width D (the zero
+    columns and pad rows add none), their aux, B queries, the outputs."""
+    planes = 4 if keep2 else 2
+    nbytes = (N * (D * elt + 8) + B * D * 2
+              + B * (cls if kb is None else kb) * 4 * planes)
+    return bound_ms(nbytes, 2.0 * B * N * D, PEAK_BF16)
+
+
+def _k3_rescored(comp, aux, q, planes, what: str) -> None:
+    """Each selected row, scored again in f32 from the tables, has the
+    score reported beside it (runner-ups that never entered excepted)."""
+    qf = q.float()
+    for s, r in zip(planes[::2], planes[1::2]):
+        rl = r.long()
+        dots = torch.einsum("bd,bkd->bk", qf, comp[rl].float())
+        err = float((aux[1][rl] * dots + aux[0][rl] - s)[s > -3e38].abs().max())
+        if err > K3_ATOL:
+            raise AssertionError(f"{what}: a selected row scores {err} away "
+                                 "from its reported score")
+
+
+def _k3_form(fn_name, keep2, comp, aux, q, metric, cls, kb, cases) -> tuple:
+    """One form at one shape against its twin; times it under L2 and
+    records the case. Returns the kernel's outputs."""
+    fn, ref, _ = K3_FUNCS[fn_name]
+    kw = {"cls": cls, "keep2": keep2, **({} if kb is None else {"kb": kb})}
+    got = fn(comp, aux, q, **kw)
+    torch.cuda.synchronize()
+    err = _k2_err(got, ref(comp, aux, q, **kw), cls)
+    what = (f"{fn_name} {'int8' if comp.dtype == torch.int8 else 'bf16'} "
+            f"keep2={keep2} {metric} cls={cls} kb={kb}")
+    if err > K3_ATOL:
+        raise AssertionError(f"{what}: scores differ by {err} > {K3_ATOL}")
+    case = {"metric": metric, "cls": cls, "kb": kb, "max_abs_err": err}
+    msg = f"[K3] {what}: max_abs_err={err:.3e}"
+    if metric == "l2":
+        case["ms"] = cuda_ms(lambda: fn(comp, aux, q, **kw), reps=10)
+        case["plain_ms"] = cuda_ms(lambda: ref(comp, aux, q, **kw), reps=3, warmup=1)
+        case["bound_ms"], case["bound_by"] = _k3_bound(keep2, cls, kb,
+                                                       comp.element_size())
+        msg += (f" kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+                f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+    cases[(fn_name, keep2)].append(case)
+    log(msg)
+    return got
+
+
+def k3_vs_twin(base: np.ndarray, queries: np.ndarray, dev, plan,
+               comp_dtype: str) -> tuple[dict, float]:
+    """Every K3 form against its twin on the set's split tables of one
+    comp dtype: the unfused forms at each cls of the plan and of
+    K3_EXTRA_SHAPE, each fused form at its route's (cls, kb) and at
+    K3_EXTRA_SHAPE. Returns each form's cases and the yardstick's ms."""
+    n_pad = -(-N // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    shapes = {(fn, keep2): {(cls, kb if "topk" in fn else None),
+                            (K3_EXTRA_SHAPE[0], K3_EXTRA_SHAPE[1] if "topk" in fn
+                             else None)}
+              for _, _, fn, keep2, cls, kb in plan}
+    cases: dict = {form: [] for form in shapes}
+    library_ms = None
+    for metric, mid in (("l2", 0), ("ip", 1)):
+        comp, aux = pack_split_tables(base, mid, n_pad, comp_dtype=comp_dtype,
+                                      device=dev)
+        q = pack_split_query(torch.from_numpy(queries[:B]).to(dev), comp.shape[1])
+        for cls in sorted({c for form in shapes.values() for c, _ in form}):
+            lane = torch.arange(cls, device=dev, dtype=torch.int32)
+            t1, tr1, t2, _ = cm.classmax_scan_split_ref(comp, aux, q, cls=cls,
+                                                        keep2=True)
+            clear = (t1 - t2) > K3_ATOL  # the twin's winner is unambiguous
+            unfused = {}
+            for keep2 in (False, True):
+                got = _k3_form("classmax_scan_split", keep2, comp, aux, q,
+                               metric, cls, None, cases)
+                if not torch.equal(got[1] % cls, lane.expand_as(got[1])):
+                    raise AssertionError("classmax_scan_split: a row outside "
+                                         "its class")
+                if not torch.equal(got[1][clear], tr1[clear]):
+                    raise AssertionError(f"classmax_scan_split keep2={keep2} "
+                                         f"{metric} cls={cls}: rows differ "
+                                         "where the winner is clear")
+                unfused[keep2] = got
+            for keep2 in (False, True):
+                kbs = sorted(kb for c, kb in shapes[("classmax_topk_scan_split",
+                                                     keep2)] if c == cls)
+                for kb in kbs:
+                    got = _k3_form("classmax_topk_scan_split", keep2, comp, aux,
+                                   q, metric, cls, kb, cases)
+                    _k3_rescored(comp, aux, q, got, "classmax_topk_scan_split")
+                    vals, sel = cm.select_lanes(unfused[keep2][0], kb)
+                    expect = (vals,) + tuple(torch.gather(p, 1, sel)
+                                             for p in unfused[keep2][1:])
+                    if not all(torch.equal(g, e) for g, e in zip(got, expect)):
+                        raise AssertionError(
+                            f"classmax_topk_scan_split {comp_dtype} keep2={keep2}"
+                            f" {metric} cls={cls} kb={kb}: the fused select is "
+                            "not the unfused form plus select")
+            del t1, tr1, t2, clear, unfused
+        if metric == "l2":
+            # the yardstick: the bare bf16 product in 65,536-row chunks, on
+            # the table widened to bf16 beforehand when it is int8
+            wide = comp.to(torch.bfloat16)
+
+            def product():
+                for lo in range(0, n_pad, 65_536):
+                    torch.matmul(q, wide[lo:lo + 65_536].T)
+            library_ms = cuda_ms(product, reps=10)
+            log(f"[K3] torch.matmul bf16 ({B}, {D}) x ({n_pad}, {D})^T in "
+                f"65,536-row chunks ({comp_dtype} table"
+                f"{', widened before timing' if comp_dtype == 'int8' else ''}): "
+                f"{library_ms:.4f} ms")
+            del wide
+        del comp, aux, q
+        torch.cuda.empty_cache()
+    return cases, library_ms
+
+
+def serve_split(index: SplitFlatIndex, ds, gt, plan) -> dict:
+    """All queries through each route; returns each route's launches of
+    its K3 form, checked non-zero, with recall and QPS logged."""
+    launches = {}
+    pre = index.preload(ds.queries, batch_size=B)
+    for route, knobs, fn, keep2, cls, kb in plan:
+        index.search(ds.queries[:B], 10, batch_size=B, **knobs)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ids, _ = index.search(ds.queries, 10, batch_size=B, preloaded=pre,
+                              **knobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {f"{name}[{dt},keep{2 if k2 else 1}]": n
+                  for name, (f, _, _) in K3_FUNCS.items()
+                  for (dt, k2), n in f.form_launches.items()}
+        n = K3_FUNCS[fn][0].form_launches.get((index.comp_dtype, keep2), 0)
+        recall = recall_at_k(ids, gt, 10)
+        log(f"[split] {index.comp_dtype} {route}: {fn} keep2={keep2} cls={cls} "
+            f"kb={kb} recall@10={recall:.4f} qps={NQ / wall:.1f} "
+            f"wall={wall:.3f} s launches={counts}")
+        floor = (SPLIT_MIN_RECALL if (route, index.comp_dtype) == ("auto", "bf16")
+                 else FLAT_ROUTE_MIN_RECALL)
+        if recall < floor:
+            raise AssertionError(f"split {index.comp_dtype} {route}: recall@10 "
+                                 f"{recall:.4f} < {floor}")
+        if n == 0:
+            raise AssertionError(f"split {index.comp_dtype} {route}: {fn} "
+                                 f"keep2={keep2} never launched")
+        launches[route] = n
+    return launches
+
+
+def profile_batch(index, queries: np.ndarray, what: str) -> None:
+    """Device time by kernel over one batch of B queries at the auto knobs
+    (torch.profiler, after a warm-up batch), and the card's busy share of
+    the batch's host span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pre = index.preload(queries[:B], batch_size=B)
+    index.search_device(pre, 10, batch_size=B)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search_device(pre, 10, batch_size=B)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    # device events only: an operator's row repeats its kernels' time
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[profile] {what}, one batch of {B}: span {span_ms:.3f} ms (profiled), "
+        f"device busy {busy:.3f} ms ({100 * busy / span_ms:.1f}%)")
+    for ms, count, key in rows[:8]:
+        if ms > 0:
+            log(f"[profile]   {ms:8.4f} ms {100 * ms / busy:5.1f}% x{count} {key[:90]}")
+
+
+def split_end_to_end(ds, gpu: SplitFlatIndex) -> None:
+    q = ds.queries[:E2E_QUERIES]
+    cpu = SplitFlatIndex(ds.base, comp_dtype=gpu.comp_dtype, device="cpu")
+    a_ids, a_d = cpu.search(q, 10, batch_size=E2E_QUERIES)
+    b_ids, b_d = gpu.search(q, 10, batch_size=E2E_QUERIES)
+    _compare(a_ids, a_d, b_ids, b_d, f"split {gpu.comp_dtype} auto", FLAT_ATOL)
+
+
+def split_phases(ds, gt, dev) -> list[dict]:
+    """Phases 9-11 for both comp dtypes; the K3 entries of the kernel
+    table, each at the shape of the route whose launches it reports."""
+    kernels = []
+    for comp_dtype in SPLIT_DTYPES:
+        t0 = time.perf_counter()
+        index = SplitFlatIndex(ds.base, comp_dtype=comp_dtype, device=dev)
+        torch.cuda.synchronize()
+        log(f"[split] SplitFlatIndex {comp_dtype} build (shuffle, host pack "
+            f"{tuple(index.comp.shape)} + aux {tuple(index.aux.shape)}, copy to "
+            f"the card): {time.perf_counter() - t0:.2f} s")
+        plan = split_route_plan(index)
+        cases, library_ms = k3_vs_twin(ds.base, ds.queries, dev, plan, comp_dtype)
+        launches = serve_split(index, ds, gt, plan)
+        profile_batch(index, ds.queries, f"split {comp_dtype} auto")
+        split_end_to_end(ds, index)
+        del index
+        torch.cuda.empty_cache()
+        for route, _, fn, keep2, cls, kb in plan:
+            kb = kb if "topk" in fn else None
+            at = [c for c in cases[(fn, keep2)] if (c["cls"], c["kb"]) == (cls, kb)]
+            main_k3 = next(c for c in at if c["metric"] == "l2")
+            kernels.append({
+                "name": f"{fn}[{comp_dtype},keep{2 if keep2 else 1}]",
+                "route": "cuda",
+                "source": "shine_tpu_torch/csrc/classmax_scan.cu",
+                "replaces": K3_FUNCS[fn][2],
+                "launches": launches[route],
+                "max_abs_err": max(c["max_abs_err"] for c in at),
+                "ms": main_k3["ms"],
+                "plain_ms": main_k3["plain_ms"],
+                "bound_ms": main_k3["bound_ms"],
+                "bound_by": main_k3["bound_by"],
+                "library_ms": library_ms,
+                "split_route": route,
+                "comp_dtype": comp_dtype,
+                "keep2": keep2,
+                "cls": cls,
+                "kb": kb,
+                "cases": cases[(fn, keep2)],
+            })
+    return kernels
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -467,7 +759,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     k2_launches = serve_flat(flat, ds, gt, plan)
+    profile_batch(flat, ds.queries, "fastflat auto")
     flat_end_to_end(ds, flat)
+    del flat
+    torch.cuda.empty_cache()
+    k3_kernels = split_phases(ds, gt, dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     kernels = [{
@@ -506,6 +802,7 @@ def main() -> None:
             "kb": kb,
             "cases": k2_cases[name],
         })
+    kernels += k3_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

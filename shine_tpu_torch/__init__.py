@@ -4,15 +4,20 @@ Serves batched HNSW k-NN queries and near-exact brute-force queries. The
 graph is built by the port's own native builder (``graph``, ``native``);
 the HNSW search runs in torch with the candidate gather-and-score step in
 a hand-written CUDA kernel (``csrc/gather_score.cu``); ``FastFlatIndex``
-scans a packed bf16 table with the hand-written class-max kernel
-(``csrc/classmax_scan.cu``). Entry points run on the CUDA card unless the
-caller names another device; on the CPU each kernel's plain torch twin
-runs instead. This package imports neither JAX nor the JAX package.
+scans a packed bf16 table and ``SplitFlatIndex`` a split bf16 or int8
+table with the hand-written class-max kernels (``csrc/classmax_scan.cu``).
+Entry points run on the CUDA card unless the caller names another device;
+on the CPU each kernel's plain torch twin runs instead. This package
+imports neither JAX nor the JAX package.
 """
 
 from shine_tpu_torch.config import HNSWParams, SearchParams
-from shine_tpu_torch.convert import device_graph_from_jax, fastflat_from_jax
-from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex
+from shine_tpu_torch.convert import (
+    device_graph_from_jax,
+    fastflat_from_jax,
+    splitflat_from_jax,
+)
+from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 
 __all__ = [
@@ -21,6 +26,8 @@ __all__ = [
     "HNSWIndex",
     "FlatIndex",
     "FastFlatIndex",
+    "SplitFlatIndex",
     "device_graph_from_jax",
     "fastflat_from_jax",
+    "splitflat_from_jax",
 ]

@@ -1,10 +1,11 @@
 """Carry the JAX package's index state over to the port.
 
-The JAX ``DeviceGraph`` (graph lists and stored rows) and the JAX
-``FastFlatIndex`` (packed table, rows, norms, permutation) are this
-system's state. ``device_graph_from_jax`` and ``fastflat_from_jax`` take
-their fields as numpy arrays, so that both packages serve one index, and
-import nothing of JAX.
+The JAX ``DeviceGraph`` (graph lists and stored rows), the JAX
+``FastFlatIndex`` (packed table, rows, norms, permutation) and the JAX
+``SplitFlatIndex`` (component table, aux, rows, norms, permutation) are
+this system's state. ``device_graph_from_jax``, ``fastflat_from_jax`` and
+``splitflat_from_jax`` take their fields as numpy arrays, so that both
+packages serve one index, and import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import numpy as np
 import torch
 
 from shine_tpu_torch.device import resolve_device
-from shine_tpu_torch.models.flat import FastFlatIndex
+from shine_tpu_torch.models.flat import FastFlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import DeviceGraph
 from shine_tpu_torch.ops.scan import ext_width
+from shine_tpu_torch.ops.scan_split import comp_width
 
 _TABLES = ("vectors_ext", "neighbors0", "upper_row", "upper_neighbors",
            "upper_ids", "upper_vecs_ext", "row_scl", "row_nrm")
@@ -73,6 +75,24 @@ def device_graph_from_jax(
     )
 
 
+def _cut_to_width(table: np.ndarray, width: int, name: str) -> np.ndarray:
+    """The first ``width`` columns of ``table``; the JAX package pads to
+    128 lanes, and the columns dropped must be that zero padding."""
+    if table.shape[1] < width or np.any(table[:, width:].view(np.int8)):
+        raise ValueError(
+            f"{name} is {table.shape[1]} wide; columns past {width} must be zero")
+    return np.ascontiguousarray(table[:, :width])
+
+
+def _attach_rows(index, arrays: Mapping[str, np.ndarray | None],
+                 device: torch.device) -> None:
+    if arrays.get("vectors") is not None:
+        index.vectors = _to_torch(np.asarray(arrays["vectors"])).to(device)
+        index.sqnorms = _to_torch(np.asarray(arrays["sqnorms"])).to(device)
+    if arrays.get("perm") is not None:
+        index.perm = np.asarray(arrays["perm"]).astype(np.int32)
+
+
 def fastflat_from_jax(
     arrays: Mapping[str, np.ndarray | None],
     *,
@@ -89,17 +109,32 @@ def fastflat_from_jax(
     package's zero lane padding. Both packages then answer the same
     queries from the same state."""
     device = resolve_device(device)
-    ext = np.asarray(arrays["ext"])
-    width = ext_width(dim)
-    if ext.shape[1] < width or np.any(ext[:, width:].view(np.int16)):
-        raise ValueError(
-            f"ext is {ext.shape[1]} wide; columns past {width} must be zero")
-    self = FastFlatIndex.from_ext(
-        _to_torch(np.ascontiguousarray(ext[:, :width])).to(device), n, metric,
+    ext = _cut_to_width(np.asarray(arrays["ext"]), ext_width(dim), "ext")
+    self = FastFlatIndex.from_ext(_to_torch(ext).to(device), n, metric, dim=dim)
+    _attach_rows(self, arrays, device)
+    return self
+
+
+def splitflat_from_jax(
+    arrays: Mapping[str, np.ndarray | None],
+    *,
+    n: int,
+    dim: int,
+    metric: str | int,
+    device: torch.device | str | None = None,
+) -> SplitFlatIndex:
+    """The port's SplitFlatIndex holding the JAX SplitFlatIndex's state, on
+    ``device`` (the CUDA card unless another is given): ``comp`` (ml_dtypes
+    bf16, carried as raw bits, or int8), ``aux``, ``vectors``, ``sqnorms``
+    and ``perm``, as numpy (``vectors`` and ``sqnorms`` None for a
+    table-only index, ``perm`` None for an unshuffled one). ``comp`` is
+    cut to the port's width; the columns dropped are the JAX package's
+    zero lane padding."""
+    device = resolve_device(device)
+    comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
+    self = SplitFlatIndex.from_parts(
+        _to_torch(comp).to(device),
+        _to_torch(np.asarray(arrays["aux"], np.float32)).to(device), n, metric,
         dim=dim)
-    if arrays.get("vectors") is not None:
-        self.vectors = _to_torch(np.asarray(arrays["vectors"])).to(device)
-        self.sqnorms = _to_torch(np.asarray(arrays["sqnorms"])).to(device)
-    if arrays.get("perm") is not None:
-        self.perm = np.asarray(arrays["perm"]).astype(np.int32)
+    _attach_rows(self, arrays, device)
     return self

@@ -1,34 +1,45 @@
-// classmax_scan: the brute-force class-max scan of FastFlatIndex, and its
-// exact top-kb select over the class lanes.
+// classmax_scan: the brute-force class-max scans of FastFlatIndex (K2) and
+// SplitFlatIndex (K3), and their exact top-kb select over the class lanes.
 //
-// Replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
+// K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
 // classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
-// classmax2_topk_scan (_kernel2_topk, with _topk_epilogue). For query b and
-// class c (row r belongs to class r % cls), over the packed bf16 table ext
-// (N_pad, dp) and the bf16 queries q (B, dp):
+// classmax2_topk_scan (_kernel2_topk, with _topk_epilogue). K3 replaces
+// shine_tpu/ops/pallas_scan_split.py: classmax_scan_split and
+// classmax_topk_scan_split (_kernel_split, keep2 or not). For query b and
+// class c (row r belongs to class r % cls), with bf16 queries q (B, dp):
 //
-//   score(b, r)  = sum_j q[b, j] * ext[r, j]        (bf16 products, f32 sums)
-//   best[b, c]   = max over rows r of class c of score(b, r), the earliest
-//                  row winning a tie (strict > in increasing row order); a
-//                  score at or below -3e38 never enters (the start state is
-//                  (-3e38, row c))
-//   rows[b, c]   = that row
-//   best2/rows2  = with KEEP2, the best of the class's other rows, by the
-//                  demotion rule of _kernel2: the old winner drops to the
-//                  runner-up slot when beaten; a challenger takes the slot
-//                  only if it beats the runner-up and not the winner.
+//   K2 score(b, r) = sum_j q[b, j] * ext[r, j]     (packed bf16 table ext
+//                    (N_pad, dp); bf16 products, f32 sums)
+//   K3 score(b, r) = scl[r] * sum_j q[b, j] * comp[r, j] + nrm[r]
+//                    (comp (N_pad, dp) bf16 or int8, turned into bf16
+//                    exactly; aux (2, N_pad) f32 holds nrm, scl; the
+//                    product and the sum round once each, as in Pallas)
+//   best[b, c]     = max over rows r of class c of score(b, r), the earliest
+//                    row winning a tie (strict > in increasing row order); a
+//                    score at or below -3e38 never enters (the start state is
+//                    (-3e38, row c)); K3's pad rows (comp 0, scl 1, nrm
+//                    -3e38) score exactly -3e38
+//   rows[b, c]     = that row
+//   best2/rows2    = with KEEP2, the best of the class's other rows, by the
+//                    demotion rule of _kernel2: the old winner drops to the
+//                    runner-up slot when beaten; a challenger takes the slot
+//                    only if it beats the runner-up and not the winner.
 //
 // The select kernel then takes, per query, the kb lanes of largest best in
 // (value descending, lane ascending) order and gathers rows (and best2,
-// rows2) at them: classmax_scan followed by an exact top-kb and a gather.
+// rows2) at them: the scan followed by an exact top-kb and a gather.
 //
 // What bounds it on the H100: tensor-core operations. One batch of B=4096
-// queries against N_pad=1,003,520 rows at dp=144 is 2*B*N_pad*dp = 1.18e12
-// FLOP, 1.20 ms at the data sheet's 989 TFLOP/s of dense bf16; the table is
-// 289 MB, 0.09 ms at 3.35 TB/s. On CUDA cores alone (67 TFLOP/s f32) it
-// would take ~18 ms, hence bf16 mma.sync with f32 accumulation. Measured by
-// chip_smoke.py at that shape (cls=2048, NVIDIA H100 80GB HBM3, 700 W):
-// 5.56 ms without keep2 (22% of the bf16 peak), 11.56 ms with it.
+// queries against the 1,000,000 real rows of a 1M x 128 set is
+// 2*B*1e6*130 = 1.065e12 FLOP for K2 (width d+2), 1.0768 ms at the data
+// sheet's 989 TFLOP/s of dense bf16, and 2*B*1e6*128 = 1.049e12 FLOP for K3,
+// 1.0602 ms; the tables are 289 MB (K2), 268 MB (K3 bf16, aux included) or
+// 138 MB (K3 int8), under 0.09 ms at 3.35 TB/s. On CUDA cores alone
+// (67 TFLOP/s f32) it would take ~16 ms, hence bf16 mma.sync with f32
+// accumulation. K2 measured
+// by chip_smoke.py at that shape (cls=2048, NVIDIA H100 80GB HBM3, 700.00 W):
+// 5.3811 ms without keep2 (5.0x the bound), 11.5302 ms with it; K3's times
+// are in PERF.md.
 //
 // What the design does about it. The Pallas kernel kept a (tq, cls) state in
 // VMEM for the whole sweep; a Hopper SM has no such store, so the sweep is
@@ -50,6 +61,13 @@
 // the current ones run; shared-memory rows are padded by 8 bf16 so that the
 // eight row addresses of each 8x8 matrix hit distinct banks.
 //
+// K3 runs the same kernel. The member's 64 nrm and 64 scl (two 256-byte runs
+// of aux) ride in each ring stage beside the table rows and scale and shift
+// the accumulators before the max update. An int8 table streams raw bytes
+// through the ring; once a stage has landed, the CTA widens its 64 rows to
+// bf16 (int8 -> f32 -> bf16 is exact for |x| <= 128) into one bf16 tile of
+// the K2 layout, behind one more barrier, and the mma read that tile.
+//
 // Left for later: wgmma with TMA-fed tiles, holding the query fragments in
 // registers across members, and a fused select.
 
@@ -65,7 +83,11 @@ constexpr int kPad = 8;      // bf16 of padding per shared-memory row
 constexpr int kStages = 3;   // cp.async ring depth
 constexpr int kEStride = kKC + kPad;
 constexpr int kEBuf = kTC * kEStride;  // bf16 per ring slot
+constexpr int kRStride = kKC + 16;     // bytes per raw int8 row of a slot
 constexpr float kNeg = -3e38f;
+
+// the table a scan reads: K2's packed bf16 ext, or K3's split comp + aux
+enum Kind { kExt = 0, kSplitBf16 = 1, kSplitI8 = 2 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -121,6 +143,14 @@ __device__ __forceinline__ void mma_tile(float (&acc)[2][4][4], const uint32_t (
     for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], &b[nt >> 1][(nt & 1) * 2]);
 }
 
+// Two bf16 (low half first) of the signed bytes 2h and 2h+1 of x, exactly.
+__device__ __forceinline__ uint32_t bf16x2_of_s8(uint32_t x, int h) {
+  const int v0 = static_cast<int>(x << (24 - 16 * h)) >> 24;
+  const int v1 = static_cast<int>(x << (16 - 16 * h)) >> 24;
+  return __byte_perm(__float_as_uint(__int2float_rn(v0)),
+                     __float_as_uint(__int2float_rn(v1)), 0x7632);
+}
+
 // Column chunking of a table row: nk chunks of w columns (the last one
 // narrower), all multiples of 16.
 struct Chunks {
@@ -132,24 +162,37 @@ struct Chunks {
   }
 };
 
-size_t scan_smem_bytes(int wq, int dp) {
-  return (size_t(wq) * kWarpQ * (dp + kPad) + size_t(kStages) * kEBuf) * sizeof(uint16_t);
+// Shared memory of a CTA: the query tile, the bf16 ring (an int8 table
+// keeps one bf16 tile and a raw byte ring instead), and the aux ring.
+size_t scan_smem_bytes(int wq, int dp, int kind) {
+  const int tiles = kind == kSplitI8 ? 1 : kStages;
+  size_t bytes = (size_t(wq) * kWarpQ * (dp + kPad) + size_t(tiles) * kEBuf) * sizeof(uint16_t);
+  if (kind == kSplitI8) bytes += size_t(kStages) * kTC * kRStride;
+  if (kind != kExt) bytes += size_t(kStages) * 2 * kTC * sizeof(float);
+  return bytes;
 }
 
 // keep1 is capped at 128 registers a thread so that two CTAs share an SM and
 // their per-member barriers interleave; keep2's state needs ~226, one CTA.
-template <int WQ, bool KEEP2>
+template <int WQ, bool KEEP2, int KIND>
 __global__ void __launch_bounds__(WQ * 2 * 32, KEEP2 ? 1 : 2)
-classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q,
-                float* __restrict__ best, int32_t* __restrict__ rows,
-                float* __restrict__ best2, int32_t* __restrict__ rows2, int B, int dp,
-                int cls, int members) {
+classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
+                const uint16_t* __restrict__ q, float* __restrict__ best,
+                int32_t* __restrict__ rows, float* __restrict__ best2,
+                int32_t* __restrict__ rows2, int B, int dp, int cls, int members) {
+  constexpr bool kSplit = KIND != kExt;
+  constexpr bool kI8 = KIND == kSplitI8;
   constexpr int kThreads = WQ * 2 * 32;
   constexpr int TQ = WQ * kWarpQ;
   extern __shared__ __align__(16) uint16_t smem[];
   const int qstride = dp + kPad;
-  uint16_t* q_s = smem;                // [TQ][qstride]
-  uint16_t* e_s = smem + TQ * qstride; // [kStages][kTC][kEStride]
+  uint16_t* q_s = smem;                 // [TQ][qstride]
+  uint16_t* e_s = smem + TQ * qstride;  // [kStages or 1][kTC][kEStride]
+  // int8 only: [kStages][kTC][kRStride] raw bytes
+  int8_t* r_s = reinterpret_cast<int8_t*>(e_s + (kI8 ? 1 : kStages) * kEBuf);
+  // split only: [kStages][2][kTC] f32, nrm then scl
+  float* a_s = reinterpret_cast<float*>(r_s + (kI8 ? kStages * kTC * kRStride : 0));
+  const int64_t n_pad = int64_t(members) * cls;
 
   const int q0 = blockIdx.x * TQ;
   const int lane0 = blockIdx.y * kTC;
@@ -168,16 +211,34 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
 
-  // stage (member m, column chunk kc): rows m*cls + lane0 .. +63, into ring
-  // slot `slot`
+  // stage (member m, column chunk kc): rows m*cls + lane0 .. +63 (and their
+  // nrm, scl), into ring slot `slot`
   auto load_stage = [&](int m, int kc, int slot) {
     const int c0 = kc * ch.w;
-    const int pieces = min(ch.w, dp - c0) / 8;
-    const uint16_t* src = ext + (int64_t(m) * cls + lane0) * dp + c0;
-    uint16_t* dst = e_s + slot * kEBuf;
-    for (int i = tid; i < kTC * pieces; i += kThreads) {
-      const int r = i / pieces, p = i - r * pieces;
-      cp_async16(dst + r * kEStride + p * 8, src + int64_t(r) * dp + p * 8);
+    const int64_t row0 = int64_t(m) * cls + lane0;
+    if constexpr (kI8) {
+      const int pieces = min(ch.w, dp - c0) / 16;
+      const int8_t* src = static_cast<const int8_t*>(table) + row0 * dp + c0;
+      int8_t* dst = r_s + slot * kTC * kRStride;
+      for (int i = tid; i < kTC * pieces; i += kThreads) {
+        const int r = i / pieces, p = i - r * pieces;
+        cp_async16(dst + r * kRStride + p * 16, src + int64_t(r) * dp + p * 16);
+      }
+    } else {
+      const int pieces = min(ch.w, dp - c0) / 8;
+      const uint16_t* src = static_cast<const uint16_t*>(table) + row0 * dp + c0;
+      uint16_t* dst = e_s + slot * kEBuf;
+      for (int i = tid; i < kTC * pieces; i += kThreads) {
+        const int r = i / pieces, p = i - r * pieces;
+        cp_async16(dst + r * kEStride + p * 8, src + int64_t(r) * dp + p * 8);
+      }
+    }
+    if constexpr (kSplit) {
+      // 16 pieces of 4 f32 for nrm (aux[0]), 16 for scl (aux[1])
+      for (int i = tid; i < 2 * kTC / 4; i += kThreads) {
+        const int plane = i / (kTC / 4), p = i - plane * (kTC / 4);
+        cp_async16(a_s + (slot * 2 + plane) * kTC + p * 4, aux + plane * n_pad + row0 + p * 4);
+      }
     }
   };
 
@@ -220,6 +281,7 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
   const uint16_t* a_row = q_s + (wq * kWarpQ + (lane & 15)) * qstride + (lane >> 4) * 8;
   const int b_off = (wc * 32 + (lane & 7) + ((lane >> 4) << 3)) * kEStride +
                     ((lane >> 3) & 1) * 8;
+  const int g = lane >> 2, t = lane & 3;
 
   int m = 0, kc = 0, slot = 0;
   for (int64_t s = 0; s < stages; ++s) {
@@ -231,6 +293,22 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
 
     const int c0 = kc * ch.w;
     const int nks = min(ch.w, dp - c0) / 16;
+    if constexpr (kI8) {
+      // widen the stage's int8 rows into the bf16 tile; its last reader,
+      // stage s-1, passed the barrier above
+      const int pieces = nks;
+      const int8_t* src = r_s + slot * kTC * kRStride;
+      for (int i = tid; i < kTC * pieces; i += kThreads) {
+        const int r = i / pieces, p = i - r * pieces;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * kRStride + p * 16);
+        uint4* dst = reinterpret_cast<uint4*>(e_s + r * kEStride + p * 16);
+        dst[0] = make_uint4(bf16x2_of_s8(raw.x, 0), bf16x2_of_s8(raw.x, 1),
+                            bf16x2_of_s8(raw.y, 0), bf16x2_of_s8(raw.y, 1));
+        dst[1] = make_uint4(bf16x2_of_s8(raw.z, 0), bf16x2_of_s8(raw.z, 1),
+                            bf16x2_of_s8(raw.w, 0), bf16x2_of_s8(raw.w, 1));
+      }
+      __syncthreads();
+    }
     if (kc == 0) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -241,7 +319,7 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
     }
     // fragments of k-step ks+1 load while the mma of k-step ks run
     const uint16_t* qa = a_row + c0;
-    const uint16_t* eb = e_s + slot * kEBuf + b_off;
+    const uint16_t* eb = e_s + (kI8 ? 0 : slot * kEBuf) + b_off;
     uint32_t a0[2][4], b0[2][4], a1[2][4], b1[2][4];
     load_frags(a0, b0, qa, eb, qstride);
     for (int ks = 0; ks < nks; ks += 2) {
@@ -254,6 +332,22 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
     }
 
     if (kc == ch.nk - 1) {  // member m is scored: the running max update
+      if constexpr (kSplit) {
+        // score = scl * dot + nrm, rounded twice (no FMA contraction)
+        const float* nrm = a_s + slot * 2 * kTC + wc * 32 + 2 * t;
+        const float* scl = nrm + kTC;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float2 sc = *reinterpret_cast<const float2*>(scl + nt * 8);
+          const float2 nr = *reinterpret_cast<const float2*>(nrm + nt * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[mt][nt][i] = __fadd_rn(__fmul_rn(acc[mt][nt][i], (i & 1) ? sc.y : sc.x),
+                                         (i & 1) ? nr.y : nr.x);
+        }
+      }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -280,7 +374,6 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
   }
   cp_async_wait<0>();
 
-  const int g = lane >> 2, t = lane & 3;
   // accumulator cell (mt, nt, i): query wq*32 + mt*16 + g + 8*(i >= 2),
   // class lane0 + wc*32 + nt*8 + 2t + (i & 1)
 #pragma unroll
@@ -307,20 +400,44 @@ classmax_kernel(const uint16_t* __restrict__ ext, const uint16_t* __restrict__ q
     }
 }
 
-template <int WQ, bool KEEP2>
-int launch_scan(const uint16_t* ext, const uint16_t* q, float* best, int32_t* rows,
-                float* best2, int32_t* rows2, int B, int dp, int cls, int members,
-                cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(WQ, dp);
-  auto kernel = classmax_kernel<WQ, KEEP2>;
+template <int WQ, bool KEEP2, int KIND>
+int launch_scan(const void* table, const float* aux, const uint16_t* q, float* best,
+                int32_t* rows, float* best2, int32_t* rows2, int B, int dp, int cls,
+                int members, cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(WQ, dp, KIND);
+  auto kernel = classmax_kernel<WQ, KEEP2, KIND>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return int(e);
   constexpr int TQ = WQ * kWarpQ;
   const dim3 grid((B + TQ - 1) / TQ, cls / kTC);
-  kernel<<<grid, WQ * 2 * 32, smem, stream>>>(ext, q, best, rows, best2, rows2, B, dp, cls,
-                                              members);
+  kernel<<<grid, WQ * 2 * 32, smem, stream>>>(table, aux, q, best, rows, best2, rows2, B, dp,
+                                              cls, members);
   return int(cudaGetLastError());
+}
+
+// Checks the shape, picks the query tile (128, else 64 when the queries of
+// 128 do not fit beside the ring) and launches.
+template <int KIND>
+int dispatch_scan(const void* table, const void* aux, const void* q, int64_t n_pad, int B,
+                  int dp, int cls, int keep2, void* best, void* rows, void* best2,
+                  void* rows2, void* stream) {
+  if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
+  const int members = int(n_pad / cls);
+  const auto* a = static_cast<const float*>(aux);
+  const auto* qq = static_cast<const uint16_t*>(q);
+  auto* b1 = static_cast<float*>(best);
+  auto* r1 = static_cast<int32_t*>(rows);
+  auto* b2 = static_cast<float*>(best2);
+  auto* r2 = static_cast<int32_t*>(rows2);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = scan_smem_bytes(4, dp, KIND) > 232448;
+  if (wide && scan_smem_bytes(2, dp, KIND) > 232448) return int(cudaErrorInvalidValue);
+  if (keep2)
+    return wide ? launch_scan<2, true, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s)
+                : launch_scan<4, true, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+  return wide ? launch_scan<2, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s)
+              : launch_scan<4, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
 }
 
 constexpr int kSelWarps = 4;
@@ -379,28 +496,29 @@ select_kernel(const float* __restrict__ best, const int32_t* __restrict__ rows,
 
 }  // namespace
 
-// best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else null).
-// Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte aligned ext
-// and q. Returns the cudaError_t of the launch; the caller raises if not 0.
+// K2. best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else
+// null). Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte
+// aligned ext and q. Returns the cudaError_t of the launch; the caller
+// raises if not 0.
 extern "C" int shine_classmax_scan(const void* ext, const void* q, int64_t n_pad, int B,
                                    int dp, int cls, int keep2, void* best, void* rows,
                                    void* best2, void* rows2, void* stream) {
-  if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
-  const int members = int(n_pad / cls);
-  const auto* e = static_cast<const uint16_t*>(ext);
-  const auto* qq = static_cast<const uint16_t*>(q);
-  auto* b1 = static_cast<float*>(best);
-  auto* r1 = static_cast<int32_t*>(rows);
-  auto* b2 = static_cast<float*>(best2);
-  auto* r2 = static_cast<int32_t*>(rows2);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool wide = scan_smem_bytes(4, dp) > 232448;
-  if (wide && scan_smem_bytes(2, dp) > 232448) return int(cudaErrorInvalidValue);
-  if (keep2)
-    return wide ? launch_scan<2, true>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s)
-                : launch_scan<4, true>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s);
-  return wide ? launch_scan<2, false>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s)
-              : launch_scan<4, false>(e, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+  return dispatch_scan<kExt>(ext, nullptr, q, n_pad, B, dp, cls, keep2, best, rows, best2,
+                             rows2, stream);
+}
+
+// K3. comp (n_pad, dpc) bf16 (comp_int8 = 0) or int8 (1), aux (2, n_pad) f32
+// [nrm; scl], q (B, dpc) bf16; outputs and requirements as K2's, aux 16-byte
+// aligned too.
+extern "C" int shine_classmax_scan_split(const void* comp, int comp_int8, const void* aux,
+                                         const void* q, int64_t n_pad, int B, int dpc, int cls,
+                                         int keep2, void* best, void* rows, void* best2,
+                                         void* rows2, void* stream) {
+  if (comp_int8)
+    return dispatch_scan<kSplitI8>(comp, aux, q, n_pad, B, dpc, cls, keep2, best, rows, best2,
+                                   rows2, stream);
+  return dispatch_scan<kSplitBf16>(comp, aux, q, n_pad, B, dpc, cls, keep2, best, rows, best2,
+                                   rows2, stream);
 }
 
 // Top-kb lanes of best (B, cls) per query, in (value desc, lane asc) order,

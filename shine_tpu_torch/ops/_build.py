@@ -130,6 +130,23 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp,  # rows2 (B, cls) i32 or null
         vp,  # cudaStream_t
     ]
+    lib.shine_classmax_scan_split.restype = i32
+    lib.shine_classmax_scan_split.argtypes = [
+        vp,  # comp (N_pad, dpc) bf16 | int8
+        i32,  # comp is int8
+        vp,  # aux (2, N_pad) f32: nrm, scl
+        vp,  # q (B, dpc) bf16
+        i64,  # N_pad
+        i32,  # B
+        i32,  # dpc
+        i32,  # cls
+        i32,  # keep2
+        vp,  # best (B, cls) f32
+        vp,  # rows (B, cls) i32
+        vp,  # best2 (B, cls) f32 or null
+        vp,  # rows2 (B, cls) i32 or null
+        vp,  # cudaStream_t
+    ]
     lib.shine_classmax_select.restype = i32
     lib.shine_classmax_select.argtypes = [
         vp,  # best (B, cls) f32

@@ -176,3 +176,45 @@ def prerank_trim_ext(
     sd = torch.where(cand_ids >= 0, -_ext_scores(ext, q_ext, cand_ids),
                      torch.inf)
     return _sort_keep(sd, cand_ids, pre)[1]
+
+
+def _split_scores(comp: torch.Tensor, aux: torch.Tensor, q: torch.Tensor,
+                  cand_ids: torch.Tensor) -> torch.Tensor:
+    """scl[id] * <q, comp[id]> + nrm[id] of each candidate, in full f32."""
+    check_precision()
+    safe = cand_ids.clamp_min(0).long()
+    rows = comp[safe][..., :q.shape[-1]].to(torch.float32)  # (..., K, d)
+    dots = torch.einsum("...d,...kd->...k", q, rows)
+    return aux[1][safe] * dots + aux[0][safe]
+
+
+def rerank_topk_split(
+    comp: torch.Tensor,  # (N_pad, dpc) bf16 or int8 component table
+    aux: torch.Tensor,  # (2, N_pad) f32: nrm, scl
+    queries: torch.Tensor,  # (..., d) f32
+    cand_ids: torch.Tensor,  # (..., K) int32, -1 pad
+    k: int,
+    metric: int = METRIC_L2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank from the split tables when no f32 rows are kept: distance =
+    ||q||^2 - score (L2) or 1 - score (IP). Its precision is the stored
+    components' (bf16 ~0.4%, int8 ~s/127 a row)."""
+    q = queries.to(torch.float32)
+    d = _l2_or_ip(_split_scores(comp, aux, q, cand_ids), q, metric, None)
+    d = torch.where(cand_ids >= 0, d, torch.inf)
+    return _sort_keep(d, cand_ids, k)
+
+
+def prerank_trim_split(
+    comp: torch.Tensor,  # (N_pad, dpc) bf16 or int8 component table
+    aux: torch.Tensor,  # (2, N_pad) f32: nrm, scl
+    queries: torch.Tensor,  # (B, d) f32
+    cand_ids: torch.Tensor,  # (B, K) int32, -1 pad
+    pre: int,
+) -> torch.Tensor:
+    """Trim candidates to the best ``pre`` by their split-table scores,
+    re-read from ``comp`` and ``aux``; ties as ``score_trim``."""
+    q = queries.to(torch.float32)
+    sd = torch.where(cand_ids >= 0, -_split_scores(comp, aux, q, cand_ids),
+                     torch.inf)
+    return _sort_keep(sd, cand_ids, pre)[1]

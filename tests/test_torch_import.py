@@ -50,6 +50,8 @@ def _clean_env():
     "shine_tpu_torch.ops.classmax",
     "shine_tpu_torch.ops.gather_score",
     "shine_tpu_torch.ops.scan",
+    "shine_tpu_torch.ops.scan_split",
+    "shine_tpu_torch.ops.distance",
     "chip_smoke",
 ])
 def test_imports_with_jax_blocked(module):

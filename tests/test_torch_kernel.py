@@ -1,5 +1,5 @@
-"""The CUDA kernels (gather_score, K1; the class-max scan, K2) against
-their plain twins, on a card.
+"""The CUDA kernels (gather_score, K1; the class-max scans, K2 and K3)
+against their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -234,3 +234,150 @@ def test_fastflat_on_card_matches_cpu(card):
         assert (a == b).mean() >= 0.99
         same = a == b
         np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
+
+
+# --- the split-layout class-max scan (K3) ------------------------------------
+
+_K3_FNS = ("scan", "topk")
+
+
+def _k3_tables(rng, n_pad, d, B, comp_dtype, dev, real=None, integer=True):
+    """Split tables of ``real`` rows (all but 1000 by default) padded to
+    n_pad, and (B, dpc) bf16 queries, on ``dev``. Integer rows hold +-127
+    in column 0 and small integers elsewhere, so that int8 holds them
+    exactly and every score is an exact f32 integer."""
+    from shine_tpu_torch.ops.scan_split import pack_split_query, pack_split_tables
+
+    real = n_pad - 1000 if real is None else real
+    if integer:
+        v = rng.integers(-4, 5, size=(real, d)).astype(np.float32)
+        v[:, 0] = np.where(rng.random(real) < 0.5, -127.0, 127.0)
+        q = rng.integers(-4, 5, size=(B, d)).astype(np.float32)
+    else:
+        v = rng.normal(size=(real, d)).astype(np.float32)
+        q = rng.normal(size=(B, d)).astype(np.float32)
+    comp, aux = pack_split_tables(v, 0, n_pad, comp_dtype=comp_dtype, device=dev)
+    return comp, aux, pack_split_query(torch.from_numpy(q).to(dev), comp.shape[1])
+
+
+def _k3_call(fn, keep2, ref=False, **kw):
+    from shine_tpu_torch.ops import classmax as cm
+
+    f = {("scan", False): cm.classmax_scan_split,
+         ("topk", False): cm.classmax_topk_scan_split,
+         ("scan", True): cm.classmax_scan_split_ref,
+         ("topk", True): cm.classmax_topk_scan_split_ref}[(fn, ref)]
+    if fn == "scan":
+        kw.pop("kb", None)
+    return f, lambda comp, aux, q: f(comp, aux, q, keep2=keep2, **kw)
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("keep2", [False, True])
+@pytest.mark.parametrize("fn", _K3_FNS)
+def test_split_kernel_integers_bit_for_bit(card, d, comp_dtype, keep2, fn):
+    """Exact integer scores: the kernel equals the twin bit for bit, ties,
+    pad rows and all, at a ragged B."""
+    rng = np.random.default_rng(d + 7 * keep2)
+    comp, aux, q = _k3_tables(rng, 8192, d, 200, comp_dtype, card)
+    wrapper, run = _k3_call(fn, keep2, cls=256, kb=24)
+    _, twin = _k3_call(fn, keep2, ref=True, cls=256, kb=24)
+    before = wrapper.launches
+    form_before = dict(wrapper.form_launches)
+    got = run(comp, aux, q)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    form = (comp_dtype, keep2)
+    assert wrapper.form_launches[form] == form_before.get(form, 0) + 1
+    want = twin(comp, aux, q)
+    assert len(got) == len(want) == (4 if keep2 else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_split_kernel_gaussian_and_fused_equals_unfused(card, comp_dtype, keep2):
+    from shine_tpu_torch.ops import classmax as cm
+
+    rng = np.random.default_rng(31 + keep2)
+    comp, aux, q = _k3_tables(rng, 16384, 128, 300, comp_dtype, card, integer=False)
+    cls, kb = 1024, 32
+    unfused = cm.classmax_scan_split(comp, aux, q, cls=cls, keep2=keep2)
+    want = cm.classmax_scan_split_ref(comp, aux, q, cls=cls, keep2=True)
+    for g, w in zip(unfused[::2], want[::2]):
+        torch.testing.assert_close(g, w, rtol=0, atol=K2_ATOL)
+    clear = (want[0] - want[2]) > K2_ATOL
+    assert clear.float().mean() > 0.9
+    assert torch.equal(unfused[1][clear], want[1][clear])
+    fused = cm.classmax_topk_scan_split(comp, aux, q, cls=cls, kb=kb, keep2=keep2)
+    vals, sel = cm.select_lanes(unfused[0], kb)
+    assert torch.equal(fused[0], vals)
+    for f, u in zip(fused[1:], unfused[1:]):
+        assert torch.equal(f, torch.gather(u, 1, sel))
+
+
+@pytest.mark.parametrize("fn", _K3_FNS)
+@pytest.mark.parametrize("keep2", [False, True])
+def test_split_empty_batch_launches_nothing(card, fn, keep2):
+    comp = torch.zeros(4096, 32, dtype=torch.int8, device=card)
+    aux = torch.ones(2, 4096, device=card)
+    q = torch.zeros(0, 32, dtype=torch.bfloat16, device=card)
+    wrapper, run = _k3_call(fn, keep2, cls=256, kb=8)
+    before, forms = wrapper.launches, dict(wrapper.form_launches)
+    got = run(comp, aux, q)
+    assert wrapper.launches == before and wrapper.form_launches == forms
+    assert all(g.shape == (0, 8 if fn == "topk" else 256) and g.is_cuda for g in got)
+
+
+@pytest.mark.parametrize("bad", ["width", "wide", "cls", "rows", "aux_shape",
+                                 "dtype", "unaligned", "cpu_aux"])
+def test_split_kernel_rejects_what_it_cannot_take(card, bad):
+    from shine_tpu_torch.ops import classmax as cm
+
+    comp = torch.zeros(4096, 32, dtype=torch.int8, device=card)
+    aux = torch.ones(2, 4096, device=card)
+    q = torch.zeros(8, 32, dtype=torch.bfloat16, device=card)
+    kw = {"cls": 256}
+    if bad == "width":
+        comp, q = comp[:, :24].contiguous(), q[:, :24].contiguous()
+    elif bad == "wide":
+        comp = torch.zeros(4096, 1296, dtype=torch.int8, device=card)
+        q = torch.zeros(8, 1296, dtype=torch.bfloat16, device=card)
+    elif bad == "cls":
+        kw = {"cls": 32}
+    elif bad == "rows":
+        kw = {"cls": 3000}
+    elif bad == "aux_shape":
+        aux = aux[:, :2048].contiguous()
+    elif bad == "dtype":
+        comp = comp.half()
+    elif bad == "unaligned":
+        comp = torch.zeros(4096 * 32 + 8, dtype=torch.int8, device=card)[8:].view(4096, 32)
+    elif bad == "cpu_aux":
+        aux = aux.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        cm.classmax_scan_split(comp, aux, q, **kw)
+
+
+def test_splitflat_on_card_matches_cpu(card):
+    from shine_tpu_torch import SplitFlatIndex
+    from shine_tpu_torch.ops import classmax as cm
+
+    ds = synthetic_dataset(n=20_000, dim=32, num_queries=300, seed=6,
+                           compute_gt=False)
+    fns = (cm.classmax_scan_split, cm.classmax_topk_scan_split)
+    for comp_dtype in ("bf16", "int8"):
+        cpu = SplitFlatIndex(ds.base, comp_dtype=comp_dtype, device="cpu")
+        gpu = SplitFlatIndex(ds.base, comp_dtype=comp_dtype)  # the card by default
+        assert gpu.device.type == "cuda"
+        for knobs in ({}, {"kb": 32, "keep2": True}, {"kb": 64, "keep2": True},
+                      {"kb": 16}):
+            a, da = cpu.search(ds.queries, 10, **knobs)
+            before = sum(f.launches for f in fns)
+            b, db = gpu.search(ds.queries, 10, **knobs)
+            assert sum(f.launches for f in fns) > before
+            assert (a == b).mean() >= 0.99
+            same = a == b
+            np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
