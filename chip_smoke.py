@@ -44,6 +44,26 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
  11. SplitFlatIndex end to end: 256 queries on the CPU and the card at the
      auto knobs, bf16 and int8.
 
+Phases 12 and 13 run on a second set, 4,194,304 x 128 (10,000 queries, L2,
+seed 7), the JAX package's smallest measured routed operating point, with
+exact ground truth on the card:
+
+ 12. RoutedSplitIndex: the clustered build on the card from the raw rows at
+     the command line's defaults (cap_target=4096, cls=1024, int8, slack
+     1.05, assign_r=8, seed 1234; the base stays resident), its stage
+     times and assignment-rank histogram; all queries at batch 4096 on
+     three routes (the auto knobs: probes=32, T=64, shared=192, kk=80,
+     fallback 0.5; tile=32; a starved grant, shared=32, whose fallback
+     spill runs T=16 tiles), recall@10, QPS after a warm-up batch,
+     coverage, the spill and K4's launches by form; a one-batch profile
+     at the auto knobs; then 256 queries on the CPU (twins) and the card;
+ 13. K4 against its plain twin at each route's own inputs (the auto and
+     tile=32 routes' first batch, the starved route's spill batch), on
+     the index's int8 table and a bf16 table packed in the same order,
+     L2 and IP; CUDA-event timings of the kernel, the twin and a bf16
+     torch.bmm of each group's queries against its gathered blocks (the
+     yardstick, gather untimed, never called by the port).
+
 Every count of kernel launches is set to 0 just before the run it reads.
 Each kernel's entry in the JSON table pairs those launches with the time,
 error and bound taken at the shape its route ran. Any failure raises. On
@@ -64,13 +84,22 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from shine_tpu_torch import FastFlatIndex, HNSWIndex, SplitFlatIndex, native
-from shine_tpu_torch.config import HNSWParams, SearchParams
+from shine_tpu_torch import (
+    FastFlatIndex,
+    HNSWIndex,
+    RoutedSplitIndex,
+    SplitFlatIndex,
+    build_routed_split,
+    native,
+)
+from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
+from shine_tpu_torch.models import routed_split as rs
 from shine_tpu_torch.models.hnsw import _extend_query, quantize_rows
 from shine_tpu_torch.ops import _build
 from shine_tpu_torch.ops import classmax as cm
+from shine_tpu_torch.ops import scan_routed as k4
 from shine_tpu_torch.ops.distance import check_precision, exact_knn
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table
@@ -144,6 +173,25 @@ K3_FUNCS = {
 }
 
 
+# the routed set and build: the JAX package's 4.19M operating point
+# (models/routed_split.py:_auto_probes) at the command line's defaults
+# (shine_tpu/cli.py:368-372)
+RN = 4_194_304
+ROUTED_BUILD = dict(cap_target=4096, cls=1024, comp_dtype="int8", cap_slack=1.05,
+                    assign_r=8, seed=1234)
+# the RoutedSplitIndex routes: the auto knobs (T=64), tile=32 (T=32), and a
+# starved grant whose fallback spill runs T=16 tiles
+ROUTED_ROUTES = (
+    ("auto", {}),
+    ("tile32", {"tile": 32}),
+    ("starved", {"shared": 32}),
+)
+ROUTED_MIN_RECALL = 0.90
+# K4's scores are K3's (scl * <q, comp> + nrm from 128 bf16 products on the
+# same kind of rows), summed in another order than the twin's: K3's bound
+K4_ATOL = K3_ATOL
+
+
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -185,6 +233,8 @@ def reset_launches() -> None:
     for fn, _, _ in K3_FUNCS.values():
         fn.launches = 0
         fn.form_launches.clear()
+    k4.routed_classmax_scan.launches = 0
+    k4.routed_classmax_scan.form_launches.clear()
 
 
 def kernel_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> list[dict]:
@@ -620,14 +670,19 @@ def profile_batch(index, queries: np.ndarray, what: str) -> None:
     """Device time by kernel over one batch of B queries at the auto knobs
     (torch.profiler, after a warm-up batch), and the card's busy share of
     the batch's host span."""
+    pre = index.preload(queries[:B], batch_size=B)
+    profile_run(lambda: index.search_device(pre, 10, batch_size=B), what)
+
+
+def profile_run(run, what: str) -> None:
+    """``profile_batch`` of any one-batch call ``run``."""
     from torch.profiler import ProfilerActivity, profile
 
-    pre = index.preload(queries[:B], batch_size=B)
-    index.search_device(pre, 10, batch_size=B)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search_device(pre, 10, batch_size=B)
+        run()
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t0) * 1e3
     # device events only: an operator's row repeats its kernels' time
@@ -692,6 +747,235 @@ def split_phases(ds, gt, dev) -> list[dict]:
                 "kb": kb,
                 "cases": cases[(fn, keep2)],
             })
+    return kernels
+
+
+def serve_routed(index: RoutedSplitIndex, ds, gt) -> dict[str, dict]:
+    """All queries through each routed route; returns each route's knobs,
+    K4 launches by form and spilled queries, with recall, QPS and coverage
+    logged; fails on recall, on a route that launched no K4, and on a
+    starved route that spilled nothing."""
+    served = {}
+    pre = index.preload(ds.queries, batch_size=B)
+    probes = rs._auto_probes(index.C)
+    for route, knobs in ROUTED_ROUTES:
+        T, P = rs._auto_knobs(index.C, probes, knobs.get("tile", 0), knobs.get("shared", 0))
+        index.search(ds.queries[:B], 10, batch_size=B, **knobs)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ids, _ = index.search(ds.queries, 10, batch_size=B, preloaded=pre, **knobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forms = {f"{dt},T{t}": n for (dt, t), n in k4.routed_classmax_scan.form_launches.items()}
+        recall = recall_at_k(ids, gt, 10)
+        log(f"[routed] {route}: probes={probes} T={T} shared={P} kk={min(80, index.cls)} "
+            f"recall@10={recall:.4f} qps={NQ / wall:.1f} wall={wall:.3f} s "
+            f"coverage={index.last_coverage:.4f} fallback={index.last_fallback} "
+            f"K4 launches={forms}")
+        if recall < ROUTED_MIN_RECALL:
+            raise AssertionError(f"routed {route}: recall@10 {recall:.4f} < "
+                                 f"{ROUTED_MIN_RECALL}")
+        if not forms.get(f"int8,T{T}"):
+            raise AssertionError(f"routed {route}: K4 at T={T} never launched")
+        if route == "starved" and not (index.last_fallback and forms.get("int8,T16")):
+            raise AssertionError("routed starved: the fallback spill never ran")
+        served[route] = {"T": T, "P": P, "probes": probes, "forms": forms,
+                         "spill": index.last_spill.copy(), "recall": recall,
+                         "qps": NQ / wall, "coverage": index.last_coverage,
+                         "fallback": index.last_fallback}
+    return served
+
+
+def routed_end_to_end(ds, gpu: RoutedSplitIndex) -> None:
+    q = ds.queries[:E2E_QUERIES]
+    cpu = RoutedSplitIndex(
+        *(t.cpu() for t in (gpu.centroids, gpu.comp, gpu.aux_r, gpu.gid)),
+        gpu.n, gpu.dim, gpu.metric, cls=gpu.cls, cap=gpu.cap,
+        base_dev=gpu.base_dev.cpu(), sqnorms=gpu.sqnorms.cpu())
+    t0 = time.perf_counter()
+    a_ids, a_d = cpu.search(q, 10, batch_size=E2E_QUERIES)
+    log(f"[e2e] routed auto on the CPU (twins): {time.perf_counter() - t0:.2f} s")
+    b_ids, b_d = gpu.search(q, 10, batch_size=E2E_QUERIES)
+    _compare(a_ids, a_d, b_ids, b_d, "routed auto", FLAT_ATOL)
+
+
+def _k4_inputs(index: RoutedSplitIndex, ds, served, dev) -> list[tuple]:
+    """(route, T, affinity-sorted queries, cols) of each route's K4 launch:
+    the auto and tile=32 routes' first batch, the starved route's spill
+    batch (its spilled queries, zero-padded to the spill's bucket)."""
+    q_all = torch.from_numpy(ds.queries).to(dev)
+    out = []
+    for route in ("auto", "tile32", "starved"):
+        sv = served[route]
+        q, T, P = q_all[:B], sv["T"], sv["P"]
+        if route == "starved":
+            need = torch.from_numpy(sv["spill"]).to(dev)
+            T, P, bucket = rs._spill_plan(len(need), sv["probes"], index.C)
+            q = torch.zeros((bucket, D), dtype=torch.float32, device=dev)
+            q[:len(need)] = q_all[need]
+        perm, _, cols, _, _ = rs.route_batch(index.centroids, q, metric=METRIC_L2,
+                                             p=sv["probes"], P=P, T=T, C=index.C)
+        out.append((route, T, q[perm], cols))
+    return out
+
+
+def _k4_bound(cols: torch.Tensor, C: int, cap: int, T: int, elt: int, cls: int
+              ) -> tuple[float, str, float]:
+    """The work the call needs: the bf16 products of each group's T queries
+    with the real (not pad) clusters its columns name, at width D; the
+    bytes of every cluster the batch is granted read once (rows and their
+    nrm and scl), the queries and the outputs. Also the bytes the groups
+    read between them (each group its own P blocks)."""
+    G, P = cols.shape
+    real = int((cols < C).sum())
+    uniq = int(torch.unique(cols[cols < C]).numel())
+    row_bytes = D * elt + 8
+    nbytes = uniq * cap * row_bytes + G * T * D * 2 + G * T * cls * 8 + cols.numel() * 4
+    flops = 2.0 * T * real * cap * D
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16)
+    return bms, by, G * P * cap * row_bytes
+
+
+def _k4_library_ms(comp, aux_r, q, cols, T: int, cap: int) -> float:
+    """The yardstick: a bf16 torch.bmm of each group's queries against its
+    gathered (and, for int8, widened) blocks, in chunks of about 1 GB of
+    blocks; the gathers are not timed."""
+    G, P = cols.shape
+    dpc = comp.shape[1]
+    comp3 = comp[: aux_r.shape[0] * cap].view(aux_r.shape[0], cap, dpc)
+    per = max(1, (1 << 30) // (P * cap * dpc * 2))
+    total = 0.0
+    for g0 in range(0, G, per):
+        c = cols[g0:g0 + per].long()
+        blk = comp3[c].view(c.shape[0], P * cap, dpc).to(torch.bfloat16)
+        qg = q[g0 * T:(g0 + c.shape[0]) * T].view(c.shape[0], T, dpc)
+        total += cuda_ms(lambda: torch.bmm(qg, blk.transpose(1, 2)), reps=3, warmup=1)
+        del blk
+    return total
+
+
+def _k4_case(comp, aux_r, q_s, cols, T: int, cap: int, cls: int, what: str,
+             timed: bool) -> dict:
+    """K4 against its twin on one table and one route's inputs: the score
+    error, and rows equal wherever the twin's winner is clear: a lane whose
+    row differs must hold a row that scores within K4_ATOL of the twin's
+    best. Times kernel, twin and yardstick when ``timed``."""
+    q = pack_split_query(q_s, comp.shape[1])
+    kw = {"T": T, "cap": cap, "cls": cls}
+    best, rows = k4.routed_classmax_scan(comp, aux_r, q, cols, **kw)
+    torch.cuda.synchronize()
+    want_b, want_r = k4.routed_classmax_scan_ref(comp, aux_r, q, cols, **kw)
+    err = float((best - want_b).abs().max())
+    if err > K4_ATOL:
+        raise AssertionError(f"K4 {what}: scores differ by {err} > {K4_ATOL}")
+    differ = rows != want_r
+    if bool(differ.any()):
+        b_i, l_i = torch.nonzero(differ, as_tuple=True)
+        r = rows[b_i, l_i].long()
+        g = b_i // T
+        trow = cols[g, r // cap].long() * cap + r % cap
+        c = cols[g, r // cap].long()
+        m = (r % cap) // cls
+        members = cap // cls
+        dots = (q[b_i].float() * comp[trow].float()).sum(1)
+        rescored = aux_r[c, members + m, l_i] * dots + aux_r[c, m, l_i]
+        if bool(((want_b[b_i, l_i] - rescored) > K4_ATOL).any()):
+            raise AssertionError(f"K4 {what}: rows differ where the twin's "
+                                 "winner is clear")
+    case = {"what": what, "T": T, "B": int(q.shape[0]), "P": int(cols.shape[1]),
+            "max_abs_err": err, "rows_differ": int(differ.sum())}
+    msg = f"[K4] {what}: max_abs_err={err:.3e} rows_differ={case['rows_differ']}"
+    if timed:
+        case["ms"] = cuda_ms(lambda: k4.routed_classmax_scan(comp, aux_r, q, cols, **kw),
+                             reps=10)
+        case["plain_ms"] = cuda_ms(
+            lambda: k4.routed_classmax_scan_ref(comp, aux_r, q, cols, **kw), reps=3,
+            warmup=1)
+        case["library_ms"] = _k4_library_ms(comp, aux_r, q, cols, T, cap)
+        case["bound_ms"], case["bound_by"], case["group_bytes"] = _k4_bound(
+            cols, aux_r.shape[0] - 1, cap, T, comp.element_size(), cls)
+        msg += (f" kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+                f"bmm {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+                f"({case['bound_by']}), per-group bytes {case['group_bytes'] / 1e9:.3f} GB")
+    log(msg)
+    return case
+
+
+def k4_vs_twin(index: RoutedSplitIndex, ds, served, dev) -> dict[tuple, list]:
+    """Phase 13: K4 against its twin on every route's inputs, on the int8
+    table of the index and on bf16 and IP tables packed in its order."""
+    inputs = _k4_inputs(index, ds, served, dev)
+    cases: dict[tuple, list] = {}
+    for comp_dtype, metric in (("int8", METRIC_L2), ("bf16", METRIC_L2),
+                               ("int8", METRIC_IP), ("bf16", METRIC_IP)):
+        if (comp_dtype, metric) == ("int8", METRIC_L2):
+            comp, aux_r = index.comp, index.aux_r
+        else:
+            comp, aux_r = rs.pack_clustered(index.base_dev, index.gid, metric,
+                                            cap=index.cap, cls=index.cls,
+                                            comp_dtype=comp_dtype)
+        mname = "l2" if metric == METRIC_L2 else "ip"
+        for route, T, q_s, cols in inputs:
+            case = _k4_case(comp, aux_r, q_s, cols, T, index.cap, index.cls,
+                            f"{comp_dtype} {mname} {route} T={T}",
+                            timed=metric == METRIC_L2)
+            case.update(comp_dtype=comp_dtype, metric=mname, route=route)
+            cases.setdefault((comp_dtype, T), []).append(case)
+        del comp, aux_r
+        torch.cuda.empty_cache()
+    return cases
+
+
+def routed_phases(dev) -> list[dict]:
+    """Phases 12-13 on the 4.19M set; K4's entries of the kernel table,
+    one a form (int8 table, T), each at the route that launched it."""
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(n=RN, dim=D, num_queries=NQ, seed=SEED, compute_gt=False)
+    log(f"[data] {RN} x {D}, {NQ} queries: {time.perf_counter() - t0:.2f} s")
+    base_t = torch.from_numpy(ds.base).to(dev)
+    t0 = time.perf_counter()
+    gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
+    gt = gt.cpu().numpy()
+    log(f"[routed] exact fp32 ground truth on the card: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    index = build_routed_split(RN, D, base_dev=base_t, log=lambda m: log(f"[routed] {m}"),
+                               **ROUTED_BUILD)
+    torch.cuda.synchronize()
+    log(f"[routed] build on the card: {time.perf_counter() - t0:.2f} s, C={index.C} "
+        f"cap={index.cap} comp {tuple(index.comp.shape)} {index.comp.dtype} aux_r "
+        f"{tuple(index.aux_r.shape)}")
+    served = serve_routed(index, ds, gt)
+    profile_run(lambda: index.search(ds.queries[:B], 10, batch_size=B), "routed auto")
+    routed_end_to_end(ds, index)
+    cases = k4_vs_twin(index, ds, served, dev)
+    kernels = []
+    for route in ("auto", "tile32", "starved"):
+        T = 16 if route == "starved" else served[route]["T"]
+        at = cases[("int8", T)]
+        main = next(c for c in at if c["metric"] == "l2")
+        kernels.append({
+            "name": f"routed_classmax_scan[int8,T{T}]",
+            "route": "cuda",
+            "source": "shine_tpu_torch/csrc/classmax_scan.cu",
+            "replaces": "shine_tpu/ops/pallas_scan_routed.py:106",
+            "launches": served[route]["forms"][f"int8,T{T}"],
+            "max_abs_err": max(c["max_abs_err"] for c in at),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "routed_route": route,
+            "T": T,
+            "B": main["B"],
+            "P": main["P"],
+            "recall@10": served[route]["recall"],
+            "qps": served[route]["qps"],
+            "cases": at + cases[("bf16", T)],
+        })
+    del index, base_t
+    torch.cuda.empty_cache()
     return kernels
 
 
@@ -764,6 +1048,8 @@ def main() -> None:
     del flat
     torch.cuda.empty_cache()
     k3_kernels = split_phases(ds, gt, dev)
+    del ds, gt
+    k4_kernels = routed_phases(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     kernels = [{
@@ -802,7 +1088,7 @@ def main() -> None:
             "kb": kb,
             "cases": k2_cases[name],
         })
-    kernels += k3_kernels
+    kernels += k3_kernels + k4_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,119 @@
+"""Time the class-max kernels K2 and K3 of two checkouts of the PyTorch port
+in one process, on one CUDA card, in turns.
+
+    python scripts/torch_classmax_ab.py --base DIR [--reps 10]
+
+DIR is another checkout of this repository (for example the parent commit,
+unpacked with ``git archive``). Each checkout's ``csrc`` is built into its
+own library by its own ``shine_tpu_torch.ops._build``; the tables and
+queries are this checkout's, at chip_smoke.py's 1M x 128 shapes (B=4096,
+cls=2048). For each form (K2 keep1 and keep2, K3 bf16 and int8, keep1 and
+keep2) the two libraries run in the order base, this, this, base, each
+timed as the median of ``--reps`` CUDA-event timings after a warm-up, and
+their outputs must agree bit for bit. Prints one JSON line a form and the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from shine_tpu_torch.io import synthetic_dataset  # noqa: E402
+from shine_tpu_torch.ops import _build  # noqa: E402
+from shine_tpu_torch.ops import classmax as cm  # noqa: E402
+from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table  # noqa: E402
+from shine_tpu_torch.ops.scan_split import (  # noqa: E402
+    SPLIT_QUANTUM,
+    pack_split_query,
+    pack_split_tables,
+)
+
+N, D, B, CLS = 1_000_000, 128, 4096, 2048
+_BUILD_ONE = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "from shine_tpu_torch.ops import _build; _build.load(); "
+              "print(_build.lib_path())")
+
+
+def build_lib(checkout: str) -> ctypes.CDLL:
+    """The kernel library of ``checkout``, built by its own builder, with
+    the K2 and K3 entry points bound (their C signatures are the same in
+    every checkout that has them)."""
+    path = subprocess.run([sys.executable, "-c", _BUILD_ONE, checkout], check=True,
+                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    lib = ctypes.CDLL(path)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.shine_classmax_scan.restype = i32
+    lib.shine_classmax_scan.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp]
+    lib.shine_classmax_scan_split.restype = i32
+    lib.shine_classmax_scan_split.argtypes = [vp, i32, vp, vp, i64, i32, i32, i32, i32,
+                                              vp, vp, vp, vp, vp]
+    return lib
+
+
+def cuda_ms(fn, reps: int) -> float:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", required=True, help="the other checkout")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    dev = torch.device("cuda:0")
+    libs = {"base": build_lib(os.path.abspath(args.base)), "this": build_lib(REPO)}
+    ds = synthetic_dataset(n=N, dim=D, num_queries=B, seed=7, compute_gt=False)
+    ext = pack_ext_table(ds.base, 0, -(-N // QUANTUM) * QUANTUM, device=dev)
+    q_ext = pack_ext_query(torch.from_numpy(ds.queries).to(dev), ext.shape[1]).to(
+        torch.bfloat16)
+    forms = [(f"classmax_scan keep{2 if k2 else 1}", lambda k2=k2: (
+        cm.classmax2_scan if k2 else cm.classmax_scan)(ext, q_ext, cls=CLS))
+        for k2 in (False, True)]
+    for dt in ("bf16", "int8"):
+        comp, aux = pack_split_tables(ds.base, 0, -(-N // SPLIT_QUANTUM) * SPLIT_QUANTUM,
+                                      comp_dtype=dt, device=dev)
+        q = pack_split_query(torch.from_numpy(ds.queries).to(dev), comp.shape[1])
+        forms += [(f"classmax_scan_split {dt} keep{2 if k2 else 1}",
+                   lambda comp=comp, aux=aux, q=q, k2=k2: cm.classmax_scan_split(
+                       comp, aux, q, cls=CLS, keep2=k2)) for k2 in (False, True)]
+    for name, run in forms:
+        ms, outs = {"base": [], "this": []}, {}
+        for side in ("base", "this", "this", "base"):
+            _build._lib = libs[side]
+            outs[side] = run()
+            ms[side].append(cuda_ms(run, args.reps))
+        same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
+        print(json.dumps({"form": name, "base_ms": ms["base"], "this_ms": ms["this"],
+                          "outputs_equal": same}), flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the two libraries disagree")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

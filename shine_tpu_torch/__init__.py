@@ -1,24 +1,28 @@
 """shine_tpu_torch: the PyTorch/CUDA port of shine_tpu for one NVIDIA H100.
 
-Serves batched HNSW k-NN queries and near-exact brute-force queries. The
-graph is built by the port's own native builder (``graph``, ``native``);
-the HNSW search runs in torch with the candidate gather-and-score step in
-a hand-written CUDA kernel (``csrc/gather_score.cu``); ``FastFlatIndex``
-scans a packed bf16 table and ``SplitFlatIndex`` a split bf16 or int8
-table with the hand-written class-max kernels (``csrc/classmax_scan.cu``).
-Entry points run on the CUDA card unless the caller names another device;
-on the CPU each kernel's plain torch twin runs instead. This package
-imports neither JAX nor the JAX package.
+Serves batched HNSW k-NN queries, near-exact brute-force queries and
+cluster-pruned (routed) queries. The graph is built by the port's own
+native builder (``graph``, ``native``); the HNSW search runs in torch with
+the candidate gather-and-score step in a hand-written CUDA kernel
+(``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
+``SplitFlatIndex`` a split bf16 or int8 table and ``RoutedSplitIndex`` the
+clusters its query tiles ask for in a clustered split table, with the
+hand-written class-max kernels (``csrc/classmax_scan.cu``). Entry points
+run on the CUDA card unless the caller names another device; on the CPU
+each kernel's plain torch twin runs instead. This package imports neither
+JAX nor the JAX package.
 """
 
 from shine_tpu_torch.config import HNSWParams, SearchParams
 from shine_tpu_torch.convert import (
     device_graph_from_jax,
     fastflat_from_jax,
+    routed_split_from_jax,
     splitflat_from_jax,
 )
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
+from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
 
 __all__ = [
     "HNSWParams",
@@ -27,7 +31,10 @@ __all__ = [
     "FlatIndex",
     "FastFlatIndex",
     "SplitFlatIndex",
+    "RoutedSplitIndex",
+    "build_routed_split",
     "device_graph_from_jax",
     "fastflat_from_jax",
     "splitflat_from_jax",
+    "routed_split_from_jax",
 ]

@@ -1,11 +1,13 @@
 """Carry the JAX package's index state over to the port.
 
 The JAX ``DeviceGraph`` (graph lists and stored rows), the JAX
-``FastFlatIndex`` (packed table, rows, norms, permutation) and the JAX
-``SplitFlatIndex`` (component table, aux, rows, norms, permutation) are
-this system's state. ``device_graph_from_jax``, ``fastflat_from_jax`` and
-``splitflat_from_jax`` take their fields as numpy arrays, so that both
-packages serve one index, and import nothing of JAX.
+``FastFlatIndex`` (packed table, rows, norms, permutation), the JAX
+``SplitFlatIndex`` (component table, aux, rows, norms, permutation) and the
+JAX ``RoutedSplitIndex`` (centroids, clustered tables, row ids, base) are
+this system's state. ``device_graph_from_jax``, ``fastflat_from_jax``,
+``splitflat_from_jax`` and ``routed_split_from_jax`` take their fields as
+numpy arrays, so that both packages serve one index, and import nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.models.flat import FastFlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import DeviceGraph
+from shine_tpu_torch.models.routed_split import RoutedSplitIndex
+from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import ext_width
 from shine_tpu_torch.ops.scan_split import comp_width
 
@@ -138,3 +143,38 @@ def splitflat_from_jax(
         dim=dim)
     _attach_rows(self, arrays, device)
     return self
+
+
+def routed_split_from_jax(
+    arrays: Mapping[str, np.ndarray | None],
+    *,
+    n: int,
+    dim: int,
+    metric: str | int,
+    cls: int,
+    cap: int | None = None,
+    device: torch.device | str | None = None,
+) -> RoutedSplitIndex:
+    """The port's RoutedSplitIndex holding the JAX RoutedSplitIndex's
+    state, on ``device`` (the CUDA card unless another is given):
+    ``centroids``, ``comp`` (ml_dtypes bf16, carried as raw bits, or
+    int8), ``aux_r``, ``gid`` and the f32 ``base`` as numpy, and optionally
+    its ``sqnorms`` (else computed from the base). ``comp`` is cut to the
+    port's width; the columns dropped are the JAX package's zero lane
+    padding, and its ingest-pad rows past (C+1)*cap are kept."""
+    device = resolve_device(device)
+    mid = metric_id(metric)
+    comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
+    base = _to_torch(np.asarray(arrays["base"], np.float32)).to(device)
+    if arrays.get("sqnorms") is not None:
+        sq = _to_torch(np.asarray(arrays["sqnorms"], np.float32)).to(device)
+    elif mid == METRIC_L2:
+        sq = squared_norms(base)
+    else:
+        sq = torch.zeros(n, dtype=torch.float32, device=device)
+    return RoutedSplitIndex(
+        _to_torch(np.asarray(arrays["centroids"], np.float32)).to(device),
+        _to_torch(comp).to(device),
+        _to_torch(np.asarray(arrays["aux_r"], np.float32)).to(device),
+        _to_torch(np.asarray(arrays["gid"], np.int32)).to(device),
+        n, dim, mid, cls=cls, cap=cap, base_dev=base, sqnorms=sq)

@@ -1,5 +1,6 @@
 // classmax_scan: the brute-force class-max scans of FastFlatIndex (K2) and
-// SplitFlatIndex (K3), and their exact top-kb select over the class lanes.
+// SplitFlatIndex (K3), their exact top-kb select over the class lanes, and
+// the routed scan of RoutedSplitIndex (K4, below).
 //
 // K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
 // classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
@@ -68,8 +69,28 @@
 // bf16 (int8 -> f32 -> bf16 is exact for |x| <= 128) into one bf16 tile of
 // the K2 layout, behind one more barrier, and the mma read that tile.
 //
+// K4 replaces shine_tpu/ops/pallas_scan_routed.py: routed_classmax_scan
+// (_kernel_routed), RoutedSplitIndex's scan over a cluster-major split table
+// ((C+1)*cap rows, the last cluster a pad cluster whose nrm is -3e38) with
+// its aux in the routed layout aux_r (C+1, 2*cap/cls, cls). The B = G*T
+// queries come in groups of T (16, 32 or 64); group g scores only the P
+// clusters of cols[g] (G, P), and its class-max walks code = p*(cap/cls) + m
+// in increasing order, so the earliest code wins a tie; rows = code*cls +
+// lane. It is the same kernel with another address map: a CTA holds one
+// group (a query tile of 32 or 64, zero rows past T) and 64 classes, and the
+// rows of member m of cluster cols[g, p], with their nrm and scl runs of
+// aux_r, stream through K3's ring. Columns that name the pad cluster C are
+// skipped: its rows score -3e38 and never enter, so the result is the same,
+// and a tile whose queries share clusters leaves many such columns (at the
+// auto knobs of a 4.19M x 128 set, ~56% of them). What bounds it: the bf16
+// operations 2*T*cap*128 a granted real column, against the unique bytes of
+// the clusters a batch is granted at 3.35 TB/s; the G*P*cap*136 bytes of its
+// per-group reads (6.8 GB at B=4096, P=192, cap=4096, int8) fall to the L2
+// cache only where groups share clusters. Its times are in PERF.md.
+//
 // Left for later: wgmma with TMA-fed tiles, holding the query fragments in
-// registers across members, and a fused select.
+// registers across members, a fused select, and for K4 more queries a CTA
+// and an order of groups that shares clusters in the L2 cache.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -172,14 +193,23 @@ size_t scan_smem_bytes(int wq, int dp, int kind) {
   return bytes;
 }
 
+// K4's walk: group blockIdx.x's T queries over the P clusters of its row of
+// cols, cap / cls members each
+struct Route {
+  const int32_t* cols;  // (G, P)
+  int T, P, cap, mc;    // mc = cap / cls
+  int pad;              // the pad cluster C, skipped: its rows score -3e38
+};
+
 // keep1 is capped at 128 registers a thread so that two CTAs share an SM and
 // their per-member barriers interleave; keep2's state needs ~226, one CTA.
-template <int WQ, bool KEEP2, int KIND>
+template <int WQ, bool KEEP2, int KIND, bool ROUTED>
 __global__ void __launch_bounds__(WQ * 2 * 32, KEEP2 ? 1 : 2)
 classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                 const uint16_t* __restrict__ q, float* __restrict__ best,
                 int32_t* __restrict__ rows, float* __restrict__ best2,
-                int32_t* __restrict__ rows2, int B, int dp, int cls, int members) {
+                int32_t* __restrict__ rows2, int B, int dp, int cls, int members,
+                const Route rt) {
   constexpr bool kSplit = KIND != kExt;
   constexpr bool kI8 = KIND == kSplitI8;
   constexpr int kThreads = WQ * 2 * 32;
@@ -194,28 +224,56 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   float* a_s = reinterpret_cast<float*>(r_s + (kI8 ? kStages * kTC * kRStride : 0));
   const int64_t n_pad = int64_t(members) * cls;
 
-  const int q0 = blockIdx.x * TQ;
+  const int q0 = blockIdx.x * (ROUTED ? rt.T : TQ);
   const int lane0 = blockIdx.y * kTC;
   const int tid = threadIdx.x;
   const Chunks ch(dp);
-  const int64_t stages = int64_t(members) * ch.nk;
+  // K4 walks only the members of the group's real clusters: a column that
+  // names the pad cluster scores -3e38 on every row, which never enters
+  const int32_t* cols_g = ROUTED ? rt.cols + int64_t(blockIdx.x) * rt.P : nullptr;
+  auto skip_pad = [&](int mm) {
+    if constexpr (ROUTED)
+      while (mm < members && __ldg(cols_g + mm / rt.mc) == rt.pad) mm += rt.mc;
+    return mm;
+  };
+  auto walked = [&]() {
+    if constexpr (ROUTED) {
+      int real = 0;
+      for (int p = 0; p < rt.P; ++p) real += __ldg(cols_g + p) != rt.pad;
+      return real * rt.mc;
+    }
+    return members;
+  };
+  const int64_t stages = int64_t(walked()) * ch.nk;
 
-  // the query tile, once; rows past B are zero (their results are dropped)
+  // the query tile, once; rows past B (K4: past the group's T) are zero
+  // (their results are dropped)
   const int qpieces = dp / 8;
   for (int i = tid; i < TQ * qpieces; i += kThreads) {
     const int r = i / qpieces, p = i - r * qpieces;
     uint16_t* dst = q_s + r * qstride + p * 8;
-    if (q0 + r < B)
+    if (ROUTED ? r < rt.T : q0 + r < B)
       cp_async16(dst, q + int64_t(q0 + r) * dp + p * 8);
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
 
   // stage (member m, column chunk kc): rows m*cls + lane0 .. +63 (and their
-  // nrm, scl), into ring slot `slot`
+  // nrm, scl), into ring slot `slot`. K4's member m = p*mc + mm is member mm
+  // of cluster c = cols[g, p]: rows c*cap + mm*cls + lane0 .., its nrm and
+  // scl at aux_r[c, mm, lane0 ..] and aux_r[c, mc + mm, lane0 ..]
   auto load_stage = [&](int m, int kc, int slot) {
     const int c0 = kc * ch.w;
-    const int64_t row0 = int64_t(m) * cls + lane0;
+    int64_t row0;
+    const float* aux_c = nullptr;
+    if constexpr (ROUTED) {
+      const int p = m / rt.mc, mm = m - p * rt.mc;
+      const int64_t c = __ldg(rt.cols + int64_t(blockIdx.x) * rt.P + p);
+      row0 = c * rt.cap + int64_t(mm) * cls + lane0;
+      aux_c = aux + (c * 2 * rt.mc + mm) * cls + lane0;
+    } else {
+      row0 = int64_t(m) * cls + lane0;
+    }
     if constexpr (kI8) {
       const int pieces = min(ch.w, dp - c0) / 16;
       const int8_t* src = static_cast<const int8_t*>(table) + row0 * dp + c0;
@@ -237,7 +295,12 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
       // 16 pieces of 4 f32 for nrm (aux[0]), 16 for scl (aux[1])
       for (int i = tid; i < 2 * kTC / 4; i += kThreads) {
         const int plane = i / (kTC / 4), p = i - plane * (kTC / 4);
-        cp_async16(a_s + (slot * 2 + plane) * kTC + p * 4, aux + plane * n_pad + row0 + p * 4);
+        const float* src;
+        if constexpr (ROUTED)
+          src = aux_c + plane * int64_t(rt.mc) * cls + p * 4;
+        else
+          src = aux + plane * n_pad + row0 + p * 4;
+        cp_async16(a_s + (slot * 2 + plane) * kTC + p * 4, src);
       }
     }
   };
@@ -264,9 +327,9 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
 
   // the load cursor runs kStages - 1 stages ahead of the compute cursor;
   // the query copies ride in the first group
-  int lm = 0, lkc = 0, lslot = 0;
+  int lm = skip_pad(0), lkc = 0, lslot = 0;
   auto advance = [&](int& mm, int& kk, int& slot) {
-    if (++kk == ch.nk) { kk = 0; ++mm; }
+    if (++kk == ch.nk) { kk = 0; mm = skip_pad(mm + 1); }
     if (++slot == kStages) slot = 0;
   };
 #pragma unroll
@@ -283,7 +346,7 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                     ((lane >> 3) & 1) * 8;
   const int g = lane >> 2, t = lane & 3;
 
-  int m = 0, kc = 0, slot = 0;
+  int m = skip_pad(0), kc = 0, slot = 0;
   for (int64_t s = 0; s < stages; ++s) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage s landed; the slot read in stage s-1 is free
@@ -380,8 +443,9 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int qi = q0 + wq * kWarpQ + mt * 16 + g + 8 * h;
-      if (qi >= B) continue;
+      const int lr = wq * kWarpQ + mt * 16 + g + 8 * h;
+      const int qi = q0 + lr;
+      if (ROUTED ? lr >= rt.T : qi >= B) continue;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = lane0 + wc * 32 + nt * 8 + 2 * t;
@@ -400,20 +464,45 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     }
 }
 
-template <int WQ, bool KEEP2, int KIND>
+template <int WQ, bool KEEP2, int KIND, bool ROUTED = false>
 int launch_scan(const void* table, const float* aux, const uint16_t* q, float* best,
                 int32_t* rows, float* best2, int32_t* rows2, int B, int dp, int cls,
-                int members, cudaStream_t stream) {
+                int members, cudaStream_t stream, const Route rt = Route{}) {
   const size_t smem = scan_smem_bytes(WQ, dp, KIND);
-  auto kernel = classmax_kernel<WQ, KEEP2, KIND>;
+  auto kernel = classmax_kernel<WQ, KEEP2, KIND, ROUTED>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return int(e);
   constexpr int TQ = WQ * kWarpQ;
-  const dim3 grid((B + TQ - 1) / TQ, cls / kTC);
+  // K4: one CTA row a group of T queries
+  const dim3 grid(ROUTED ? B / rt.T : (B + TQ - 1) / TQ, cls / kTC);
   kernel<<<grid, WQ * 2 * 32, smem, stream>>>(table, aux, q, best, rows, best2, rows2, B, dp,
-                                              cls, members);
+                                              cls, members, rt);
   return int(cudaGetLastError());
+}
+
+// K4: the query tile is 32 (T <= 32) or 64 (T <= 64); a T=16 group fills half
+// of a 32-query tile with zero rows, never written.
+template <int KIND>
+int dispatch_routed(const void* comp, const void* aux_r, const void* q, const void* cols,
+                    int C, int G, int T, int P, int dpc, int cap, int cls, void* best,
+                    void* rows, void* stream) {
+  if (dpc % 16 || cls % kTC || cap % cls || G <= 0 || P <= 0 || T <= 0 || T > 2 * kWarpQ)
+    return int(cudaErrorInvalidValue);
+  const int wq = T > kWarpQ ? 2 : 1;
+  if (scan_smem_bytes(wq, dpc, KIND) > 232448) return int(cudaErrorInvalidValue);
+  const Route rt{static_cast<const int32_t*>(cols), T, P, cap, cap / cls, C};
+  const auto* a = static_cast<const float*>(aux_r);
+  const auto* qq = static_cast<const uint16_t*>(q);
+  auto* b1 = static_cast<float*>(best);
+  auto* r1 = static_cast<int32_t*>(rows);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int members = P * (cap / cls);
+  if (wq == 1)
+    return launch_scan<1, false, KIND, true>(comp, a, qq, b1, r1, nullptr, nullptr, G * T,
+                                             dpc, cls, members, s, rt);
+  return launch_scan<2, false, KIND, true>(comp, a, qq, b1, r1, nullptr, nullptr, G * T, dpc,
+                                           cls, members, s, rt);
 }
 
 // Checks the shape, picks the query tile (128, else 64 when the queries of
@@ -519,6 +608,24 @@ extern "C" int shine_classmax_scan_split(const void* comp, int comp_int8, const 
                                    rows2, stream);
   return dispatch_scan<kSplitBf16>(comp, aux, q, n_pad, B, dpc, cls, keep2, best, rows, best2,
                                    rows2, stream);
+}
+
+// K4. comp ((C+1)*cap or more rows, dpc) bf16 (comp_int8 = 0) or int8 (1),
+// cluster-major; aux_r (C+1, 2*cap/cls, cls) f32, nrm rows then scl rows,
+// cluster C a pad cluster (comp 0, nrm -3e38), which the walk skips; q
+// (G*T, dpc) bf16; cols (G, P) i32, each in 0..C; best/rows (G*T, cls)
+// f32/i32, rows = code*cls + lane with code = p*(cap/cls) + member. Needs
+// dpc % 16 == 0, cls % 64 == 0, cap % cls == 0, 1 <= T <= 64 and 16-byte
+// aligned comp, aux_r and q.
+extern "C" int shine_classmax_scan_routed(const void* comp, int comp_int8, const void* aux_r,
+                                          const void* q, const void* cols, int C, int G, int T,
+                                          int P, int dpc, int cap, int cls, void* best,
+                                          void* rows, void* stream) {
+  if (comp_int8)
+    return dispatch_routed<kSplitI8>(comp, aux_r, q, cols, C, G, T, P, dpc, cap, cls, best,
+                                     rows, stream);
+  return dispatch_routed<kSplitBf16>(comp, aux_r, q, cols, C, G, T, P, dpc, cap, cls, best,
+                                     rows, stream);
 }
 
 // Top-kb lanes of best (B, cls) per query, in (value desc, lane asc) order,

@@ -1,4 +1,9 @@
-from shine_tpu_torch.io.checkpoint import load_graph, save_graph
+from shine_tpu_torch.io.checkpoint import (
+    load_graph,
+    load_routed_split,
+    save_graph,
+    save_routed_split,
+)
 from shine_tpu_torch.io.datasets import Dataset, synthetic_dataset
 from shine_tpu_torch.io.recall import brute_force_knn, recall_at_k
 
@@ -9,4 +14,6 @@ __all__ = [
     "recall_at_k",
     "save_graph",
     "load_graph",
+    "save_routed_split",
+    "load_routed_split",
 ]

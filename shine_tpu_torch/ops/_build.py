@@ -147,6 +147,24 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp,  # rows2 (B, cls) i32 or null
         vp,  # cudaStream_t
     ]
+    lib.shine_classmax_scan_routed.restype = i32
+    lib.shine_classmax_scan_routed.argtypes = [
+        vp,  # comp ((C+1)*cap or more, dpc) bf16 | int8
+        i32,  # comp is int8
+        vp,  # aux_r (C+1, 2*cap/cls, cls) f32
+        vp,  # q (G*T, dpc) bf16
+        vp,  # cols (G, P) i32
+        i32,  # C, the pad cluster
+        i32,  # G
+        i32,  # T
+        i32,  # P
+        i32,  # dpc
+        i32,  # cap
+        i32,  # cls
+        vp,  # best (G*T, cls) f32
+        vp,  # rows (G*T, cls) i32
+        vp,  # cudaStream_t
+    ]
     lib.shine_classmax_select.restype = i32
     lib.shine_classmax_select.argtypes = [
         vp,  # best (B, cls) f32

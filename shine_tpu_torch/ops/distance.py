@@ -48,6 +48,23 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
     return (x * x).sum(dim=-1)
 
 
+def pairwise_distance(
+    queries: torch.Tensor,  # (B, d)
+    points: torch.Tensor,  # (N, d)
+    metric: int = METRIC_L2,
+    *,
+    points_sqnorm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The full (B, N) f32 distance tile: squared L2, or 1 - <q, p>."""
+    q = queries.to(torch.float32)
+    p = points.to(torch.float32)
+    dots = matmul_nt(q, p)
+    if metric == METRIC_IP:
+        return 1.0 - dots
+    pn = points_sqnorm if points_sqnorm is not None else squared_norms(p)
+    return squared_norms(q)[:, None] - 2.0 * dots + pn[None, :]
+
+
 def exact_knn(
     base: torch.Tensor,  # (N, d) f32
     queries: torch.Tensor,  # (B, d) f32

@@ -44,14 +44,19 @@ def _clean_env():
     "shine_tpu_torch.convert",
     "shine_tpu_torch.graph.soa",
     "shine_tpu_torch.io",
+    "shine_tpu_torch.io.checkpoint",
     "shine_tpu_torch.models.flat",
     "shine_tpu_torch.models.hnsw",
+    "shine_tpu_torch.models.ivf",
+    "shine_tpu_torch.models.routed_split",
     "shine_tpu_torch.native",
     "shine_tpu_torch.ops.classmax",
     "shine_tpu_torch.ops.gather_score",
     "shine_tpu_torch.ops.scan",
+    "shine_tpu_torch.ops.scan_routed",
     "shine_tpu_torch.ops.scan_split",
     "shine_tpu_torch.ops.distance",
+    "shine_tpu_torch.parallel.placement",
     "chip_smoke",
 ])
 def test_imports_with_jax_blocked(module):

@@ -1,4 +1,4 @@
-"""The CUDA kernels (gather_score, K1; the class-max scans, K2 and K3)
+"""The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4)
 against their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
@@ -381,3 +381,171 @@ def test_splitflat_on_card_matches_cpu(card):
             assert (a == b).mean() >= 0.99
             same = a == b
             np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
+
+
+# --- the routed class-max scan (K4) --------------------------------------------
+
+def _k4_tables(rng, d, comp_dtype, dev, T, G, P, integer=True, C=9, cap=512, cls=256):
+    """Clustered split tables of C clusters (some slots empty) plus the pad
+    cluster C on ``dev``, G*T bf16 queries and a (G, P) column table whose
+    first row names the pad cluster and whose last row names it P-1 times
+    (a group with one granted cluster). Integer rows as ``_k3_tables``."""
+    from shine_tpu_torch.models.routed_split import pack_clustered
+    from shine_tpu_torch.ops.scan_split import pack_split_query
+
+    n = C * cap - 100
+    if integer:
+        v = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+        v[:, 0] = np.where(rng.random(n) < 0.5, -127.0, 127.0)
+        q = rng.integers(-4, 5, size=(G * T, d)).astype(np.float32)
+    else:
+        v = rng.normal(size=(n, d)).astype(np.float32)
+        q = rng.normal(size=(G * T, d)).astype(np.float32)
+    gid = np.full((C + 1) * cap, -1, np.int32)
+    gid[np.sort(rng.choice(C * cap, n, replace=False))] = rng.permutation(n)
+    comp, aux_r = pack_clustered(torch.from_numpy(v).to(dev), torch.from_numpy(gid).to(dev),
+                                 0, cap=cap, cls=cls, comp_dtype=comp_dtype)
+    cols = np.stack([rng.choice(C + 1, P, replace=False) for _ in range(G)]).astype(np.int32)
+    cols[0, 0] = C
+    cols[-1] = C
+    cols[-1, rng.integers(0, P)] = rng.integers(0, C)
+    q = pack_split_query(torch.from_numpy(q).to(dev), comp.shape[1])
+    return comp, aux_r, q, torch.from_numpy(cols).to(dev), cap, cls
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("T", [16, 32, 64])
+def test_routed_kernel_integers_bit_for_bit(card, d, comp_dtype, T):
+    """Exact integer scores: K4 equals its twin bit for bit, ties, pad
+    rows, the pad cluster and a group with one granted cluster included."""
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan, routed_classmax_scan_ref
+
+    rng = np.random.default_rng(d + T)
+    comp, aux_r, q, cols, cap, cls = _k4_tables(rng, d, comp_dtype, card, T, G=5, P=4)
+    before = routed_classmax_scan.launches
+    form = (comp_dtype, T)
+    form_before = routed_classmax_scan.form_launches.get(form, 0)
+    got = routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+    torch.cuda.synchronize()
+    assert routed_classmax_scan.launches == before + 1
+    assert routed_classmax_scan.form_launches[form] == form_before + 1
+    want = routed_classmax_scan_ref(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("T", [48, 8])
+def test_routed_kernel_ragged_groups(card, T):
+    """Groups that fill a 64- or 32-query tile only in part: each group's
+    rows are written from its own columns and no other group's rows are
+    touched; comp carries ingest-pad rows past the clusters."""
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan, routed_classmax_scan_ref
+
+    rng = np.random.default_rng(T)
+    comp, aux_r, q, cols, cap, cls = _k4_tables(rng, 128, "int8", card, T, G=3, P=5)
+    comp = torch.cat([comp, torch.full((2 * cap, comp.shape[1]), 7, dtype=comp.dtype,
+                                       device=card)])
+    got = routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+    want = routed_classmax_scan_ref(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+def test_routed_kernel_gaussian(card, comp_dtype):
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan, routed_classmax_scan_ref
+
+    rng = np.random.default_rng(5)
+    comp, aux_r, q, cols, cap, cls = _k4_tables(rng, 128, comp_dtype, card, 64, G=6, P=6,
+                                                integer=False)
+    best, rows = routed_classmax_scan(comp, aux_r, q, cols, T=64, cap=cap, cls=cls)
+    want_b, want_r = routed_classmax_scan_ref(comp, aux_r, q, cols, T=64, cap=cap, cls=cls)
+    torch.testing.assert_close(best, want_b, rtol=0, atol=K2_ATOL)
+    assert (rows == want_r).float().mean() > 0.99
+
+
+def test_routed_empty_batch_launches_nothing(card):
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan
+
+    comp = torch.zeros(2 * 512, 32, dtype=torch.int8, device=card)
+    aux_r = torch.ones(2, 4, 256, device=card)
+    aux_r[1, :2] = -3e38  # cluster 1 is the pad cluster
+    q = torch.zeros(0, 32, dtype=torch.bfloat16, device=card)
+    cols = torch.zeros(0, 3, dtype=torch.int32, device=card)
+    before = routed_classmax_scan.launches
+    got = routed_classmax_scan(comp, aux_r, q, cols, T=16, cap=512, cls=256)
+    assert routed_classmax_scan.launches == before
+    assert all(g.shape == (0, 256) and g.is_cuda for g in got)
+
+
+@pytest.mark.parametrize("bad", ["none", "width", "wide", "cls", "T", "cols_range",
+                                 "cols_dtype", "aux_shape", "dtype", "unaligned",
+                                 "cpu_cols", "pad_row"])
+def test_routed_kernel_rejects_what_it_cannot_take(card, bad):
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan
+
+    C, cap, cls, T, G = 3, 512, 256, 16, 2
+    comp = torch.zeros((C + 1) * cap, 32, dtype=torch.int8, device=card)
+    aux_r = torch.ones(C + 1, 4, cls, device=card)
+    aux_r[C, :2] = -3e38  # the pad cluster
+    q = torch.zeros(G * T, 32, dtype=torch.bfloat16, device=card)
+    cols = torch.zeros(G, 3, dtype=torch.int32, device=card)
+    if bad == "none":  # the inputs above are good: the kernel runs
+        routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+        return
+    if bad == "width":
+        comp, q = comp[:, :24].contiguous(), q[:, :24].contiguous()
+    elif bad == "wide":
+        comp = torch.zeros((C + 1) * cap, 1296, dtype=torch.int8, device=card)
+        q = torch.zeros(G * T, 1296, dtype=torch.bfloat16, device=card)
+    elif bad == "cls":
+        cls, aux_r = 32, torch.full((C + 1, 32, 32), -3e38, device=card)
+    elif bad == "T":
+        T, q = 128, torch.zeros(G * 128, 32, dtype=torch.bfloat16, device=card)
+    elif bad == "cols_range":
+        cols[1, 2] = C + 1
+    elif bad == "cols_dtype":
+        cols = cols.long()
+    elif bad == "aux_shape":
+        aux_r = aux_r[:, :2].contiguous()
+    elif bad == "dtype":
+        comp = comp.half()
+    elif bad == "unaligned":
+        comp = torch.zeros((C + 1) * cap * 32 + 8, dtype=torch.int8,
+                           device=card)[8:].view(-1, 32)
+    elif bad == "cpu_cols":
+        cols = cols.cpu()
+    elif bad == "pad_row":
+        comp[C * cap + 7, 3] = 1
+    with pytest.raises((TypeError, ValueError)):
+        routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+
+
+def test_routed_index_on_card_matches_cpu(card):
+    from shine_tpu_torch import RoutedSplitIndex, build_routed_split
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan
+
+    ds = synthetic_dataset(n=20_000, dim=32, num_queries=300, seed=6, compute_gt=False)
+    cpu = build_routed_split(20_000, 32, base_dev=torch.from_numpy(ds.base),
+                             cap_target=512, cls=128, train_size=8192, seed=3)
+    gpu = RoutedSplitIndex(*(t.to(card) for t in (cpu.centroids, cpu.comp, cpu.aux_r,
+                                                   cpu.gid)),
+                           cpu.n, cpu.dim, cpu.metric, cls=cpu.cls, cap=cpu.cap,
+                           base_dev=cpu.base_dev.to(card), sqnorms=cpu.sqnorms.to(card))
+    for knobs in ({}, {"probes": 8, "tile": 32, "shared": 16},
+                  {"probes": 8, "tile": 64, "shared": 10, "fallback": 0.6}):
+        a, da = cpu.search(ds.queries, 10, batch_size=128, **knobs)
+        before = routed_classmax_scan.launches
+        b, db = gpu.search(ds.queries, 10, batch_size=128, **knobs)
+        assert routed_classmax_scan.launches > before
+        assert gpu.last_fallback == cpu.last_fallback
+        assert (a == b).mean() >= 0.99
+        same = a == b
+        np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
+    # the build itself on the card
+    built = build_routed_split(20_000, 32, base_dev=torch.from_numpy(ds.base).to(card),
+                               cap_target=512, cls=128, train_size=8192, seed=3)
+    assert built.comp.is_cuda and built.C == cpu.C
+    ids, _ = built.search(ds.queries, 10, batch_size=128)
+    assert (ids >= 0).all()
