@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and g++; builds everything from this checkout
+Needs one CUDA card, nvcc, g++ and scipy; builds everything from this checkout
 into build/ (the CUDA kernels, one nvcc per source, all at once, beside
 the native graph builder's g++). Phases, on one SIFT1M-shaped synthetic
 set (1M x 128, 10,000 queries, L2, seed 7), generated once:
@@ -20,8 +20,9 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
      kernels, twins and the bare bf16 product (torch.matmul, the
      yardstick the port never calls);
   5. HNSW: the native build at M=16, ef_construction=200, search with
-     k=10, ef=96, frontier=8 at batch 4096 on f32 rows, then bf16 rows;
-     recall@10 against an exact fp32 brute force on the card;
+     k=10, ef=96, frontier=8 at batch 4096 on f32 rows, then bf16 rows,
+     after a warm-up pass; recall@10 against an exact fp32 brute force on
+     the card;
   6. HNSW end to end: 256 queries on the CPU (twins) and the card;
   7. FastFlatIndex: all queries at batch 4096 through each of the four
      scan routes (the auto knobs, bench's keep2 point, keep2 at kb=64,
@@ -44,6 +45,27 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
  11. SplitFlatIndex end to end: 256 queries on the CPU and the card at the
      auto knobs, bf16 and int8.
 
+Phases 14-18 (run between phases 8 and 9, on the same set) port the
+scan-speed graph build and the block-max scans:
+
+ 14. K5 and K6 against their plain twins on FastFlat's packed table
+     (1,003,520 x 144, 3,520 pad rows), B=4096, L2 and IP: bit for bit on
+     an integer table of that shape (ties inside and across blocks), to a
+     stated tolerance on the set's rows; CUDA-event timings of the kernels,
+     the twins and the bare bf16 product;
+ 15. FastFlatIndex through the block-max route (K5, what the JAX package
+     runs under interpret): all queries at batch 4096 and the auto kb,
+     recall@10, QPS after a warm-up batch, K5's launches; then 256 queries
+     on the CPU (twins) and the card;
+ 16. fast_build_graph on the card, the rows resident (M=16): pool 0 (k=32,
+     keep2 at cls=1024, K2b) and pool 200 (ef_construction parity), each
+     build's stage times, sweep plan and launches, each graph served as in
+     phase 5 (f32 rows) beside the native graph;
+ 17. the same build through the block-max sweep (K5), its recall within
+     0.01 of the pool-0 graph's;
+ 18. the build at 8192 x 16 on the CPU (twins) and on the card: equal levels
+     and entry point, overlapping layer-0 lists, the same recall.
+
 Phases 12 and 13 run on a second set, 4,194,304 x 128 (10,000 queries, L2,
 seed 7), the JAX package's smallest measured routed operating point, with
 exact ground truth on the card:
@@ -57,6 +79,9 @@ exact ground truth on the card:
      spill runs T=16 tiles), recall@10, QPS after a warm-up batch,
      coverage, the spill and K4's launches by form; a one-batch profile
      at the auto knobs; then 256 queries on the CPU (twins) and the card;
+     then a second build of the same seed, which must place every row as
+     the first did (ROADMAP C9: equal r0, centroids and layout, the same
+     starved spill);
  13. K4 against its plain twin at each route's own inputs (the auto and
      tile=32 routes' first batch, the starved route's spill batch), on
      the index's int8 table and a bf16 table packed in the same order,
@@ -96,8 +121,10 @@ from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParam
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
 from shine_tpu_torch.models import routed_split as rs
+from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.hnsw import _extend_query, quantize_rows
 from shine_tpu_torch.ops import _build
+from shine_tpu_torch.ops import blockmax as bm
 from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops import scan_routed as k4
 from shine_tpu_torch.ops.distance import check_precision, exact_knn
@@ -228,6 +255,8 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 
 def reset_launches() -> None:
     gather_score.launches = 0
+    bm.blockmax_scan.launches = 0
+    bm.blockmax_scan2.launches = 0
     for fn, _, _ in K2_FORMS.values():
         fn.launches = 0
     for fn, _, _ in K3_FUNCS.values():
@@ -409,14 +438,14 @@ def k2_vs_twin(base: np.ndarray, queries: np.ndarray, dev,
     return cases, library_ms
 
 
-def serve(graph, ds, gt, rows: str, dev) -> int:
+def serve(graph, ds, gt, rows: str, dev, what: str = "native") -> tuple[int, float, float]:
     """Search all queries on ``rows`` rows; check recall and the kernel's
-    launches in that run, and return the launch count."""
+    launches in that run, and return (launches, recall@10, QPS)."""
     t0 = time.perf_counter()
     index = HNSWIndex(graph, rows=rows, device=dev)
     torch.cuda.synchronize()
     log(f"[hnsw] upload {rows} rows: {time.perf_counter() - t0:.2f} s")
-    index.search(ds.queries[:B], SEARCH, batch_size=B)  # warm-up batch
+    index.search(ds.queries, SEARCH, batch_size=B)  # warm-up pass
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -425,7 +454,7 @@ def serve(graph, ds, gt, rows: str, dev) -> int:
     wall = time.perf_counter() - t0
     launches = gather_score.launches
     recall = recall_at_k(ids, gt, 10)
-    log(f"[hnsw] {rows}: recall@10={recall:.4f} qps={NQ / wall:.1f} "
+    log(f"[hnsw] {what} graph, {rows}: recall@10={recall:.4f} qps={NQ / wall:.1f} "
         f"wall={wall:.3f} s mean_hops={index.last_hops / NQ:.2f} "
         f"mean_dist_comps={index.last_dists / NQ:.1f} "
         f"beam_steps={index.last_steps} kernel_launches={launches}")
@@ -434,7 +463,7 @@ def serve(graph, ds, gt, rows: str, dev) -> int:
     if launches < index.last_steps or launches == 0:
         raise AssertionError(
             f"{rows}: {launches} kernel launches for {index.last_steps} beam steps")
-    return launches
+    return launches, recall, NQ / wall
 
 
 def _compare(a_ids, a_d, b_ids, b_d, what: str, atol: float = ATOL) -> None:
@@ -466,7 +495,9 @@ def serve_flat(index: FastFlatIndex, ds, gt, plan) -> dict[str, int]:
     launches = {}
     pre = index.preload(ds.queries, batch_size=B)
     for route, knobs, kernel, cls, kb in plan:
-        index.search(ds.queries[:B], 10, batch_size=B, **knobs)  # warm-up
+        # warm-up: one pass of every query (one batch left the first
+        # route's timed pass at a sixth of its speed after the native build)
+        index.search(ds.queries, 10, batch_size=B, preloaded=pre, **knobs)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -927,6 +958,46 @@ def k4_vs_twin(index: RoutedSplitIndex, ds, served, dev) -> dict[tuple, list]:
     return cases
 
 
+def _routed_build(base_t) -> tuple[RoutedSplitIndex, float]:
+    """The routed build at ROUTED_BUILD, its log lines, and the share of
+    rows placed in their first choice (r0) that it reports."""
+    lines = []
+
+    def say(m):
+        lines.append(m)
+        log(f"[routed] {m}")
+
+    t0 = time.perf_counter()
+    index = build_routed_split(RN, D, base_dev=base_t, log=say, **ROUTED_BUILD)
+    torch.cuda.synchronize()
+    log(f"[routed] build on the card: {time.perf_counter() - t0:.2f} s, C={index.C} "
+        f"cap={index.cap} comp {tuple(index.comp.shape)} {index.comp.dtype} aux_r "
+        f"{tuple(index.aux_r.shape)}")
+    r0 = next(float(m.split("r0=")[1].split()[0]) for m in lines if "r0=" in m)
+    return index, r0
+
+
+def routed_rebuild_is_identical(index: RoutedSplitIndex, r0: float, served, base_t,
+                                ds) -> None:
+    """ROADMAP C9: a second build of the same seed on the card places every
+    row as the first did (the k-means sums no longer use float atomics):
+    equal r0, equal centroids and layout, and the starved route spills the
+    same queries."""
+    again, r0_again = _routed_build(base_t)
+    again.search(ds.queries, 10, batch_size=B, **dict(ROUTED_ROUTES)["starved"])
+    spill, spill_again = served["starved"]["spill"], again.last_spill
+    log(f"[routed] C9, two builds of seed {ROUTED_BUILD['seed']}: r0 {r0:.4f} and "
+        f"{r0_again:.4f}; starved spill {len(spill)} and {len(spill_again)} queries; "
+        f"centroids equal {torch.equal(index.centroids, again.centroids)}, layout equal "
+        f"{torch.equal(index.gid, again.gid)}")
+    if (r0 != r0_again or not np.array_equal(spill, spill_again)
+            or not torch.equal(index.centroids, again.centroids)
+            or not torch.equal(index.gid, again.gid)):
+        raise AssertionError("C9: two routed builds of one seed differ on the card")
+    del again
+    torch.cuda.empty_cache()
+
+
 def routed_phases(dev) -> list[dict]:
     """Phases 12-13 on the 4.19M set; K4's entries of the kernel table,
     one a form (int8 table, T), each at the route that launched it."""
@@ -938,16 +1009,11 @@ def routed_phases(dev) -> list[dict]:
     gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
     gt = gt.cpu().numpy()
     log(f"[routed] exact fp32 ground truth on the card: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    index = build_routed_split(RN, D, base_dev=base_t, log=lambda m: log(f"[routed] {m}"),
-                               **ROUTED_BUILD)
-    torch.cuda.synchronize()
-    log(f"[routed] build on the card: {time.perf_counter() - t0:.2f} s, C={index.C} "
-        f"cap={index.cap} comp {tuple(index.comp.shape)} {index.comp.dtype} aux_r "
-        f"{tuple(index.aux_r.shape)}")
+    index, r0 = _routed_build(base_t)
     served = serve_routed(index, ds, gt)
     profile_run(lambda: index.search(ds.queries[:B], 10, batch_size=B), "routed auto")
     routed_end_to_end(ds, index)
+    routed_rebuild_is_identical(index, r0, served, base_t, ds)
     cases = k4_vs_twin(index, ds, served, dev)
     kernels = []
     for route in ("auto", "tile32", "starved"):
@@ -977,6 +1043,250 @@ def routed_phases(dev) -> list[dict]:
     del index, base_t
     torch.cuda.empty_cache()
     return kernels
+
+
+# --- phases 14-18: K5 and K6, FastFlat's block-max route, the scan-speed build
+
+K56_FORMS = {
+    "blockmax_scan": (bm.blockmax_scan, bm.blockmax_scan_ref,
+                      "shine_tpu/ops/pallas_scan.py:63",
+                      "shine_tpu_torch/csrc/blockmax_scan.cu"),
+    "blockmax_scan2": (bm.blockmax_scan2, bm.blockmax_scan2_ref,
+                       "shine_tpu/ops/pallas_scan2.py:94",
+                       "shine_tpu_torch/csrc/classmax_scan.cu"),
+}
+# K5 and K6 score K2's table with K2's products: K2's bound on the sum order
+K56_ATOL = K2_ATOL
+# the builds on the card: the scan-speed default (pool 0: k = 2M = 32), the
+# JAX package's construction-quality parity setting (pool = efc = 200), and
+# the block-max sweep; each graph is served as the native one is
+BUILDS = (("pool0", {}), ("pool200", {"pool": BUILD.ef_construction}),
+          ("blockmax", {"blockmax": True}))
+BLOCKMAX_BUILD_GAP = 0.01  # block-max graph's recall against the pool-0 one's
+# the CPU-against-card build: Gaussian rows, whose f32 sums differ by ulps
+# between the twins and the kernels and reorder a few near ties (the CPU
+# tests hold the same to the JAX package)
+SMALL_SET = dict(n=8192, dim=16, num_queries=256, seed=21)
+SMALL_BUILD = HNSWParams(M=8, ef_construction=50)
+SMALL_MIN_OVERLAP, SMALL_RECALL_GAP = 0.95, 0.01
+
+
+def _int_case(metric: int, n_pad: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The set's shape in integer entries (every score exact in f32): rows
+    with ties inside a block and across blocks, the n_pad - N pad rows of
+    FastFlat's table, B integer queries."""
+    rng = np.random.default_rng(SEED + metric)
+    v = rng.integers(-3, 4, size=(N, D)).astype(np.float32)
+    v[40:48] = v[39]
+    v[QUANTUM + 5] = v[5]
+    q = rng.integers(-3, 4, size=(B, D)).astype(np.float32)
+    ext = pack_ext_table(v, metric, n_pad, device=dev)
+    q_ext = pack_ext_query(torch.from_numpy(q).to(dev), ext.shape[1])
+    return ext, q_ext.to(torch.bfloat16)
+
+
+def _k56_bound(name: str, n_pad: int) -> tuple[float, str]:
+    """The work the function needs: the N real rows at width D+2, B queries,
+    and every output (K5: four (B, n_pad/128) planes; K6: two (B, n_pad/32))."""
+    width = D + 2
+    planes, per_col = (4, bm.BLK) if name == "blockmax_scan" else (2, bm.BLK2)
+    nbytes = N * width * 2 + B * width * 2 + B * (n_pad // per_col) * 4 * planes
+    return bound_ms(nbytes, 2.0 * B * N * width, PEAK_BF16)
+
+
+def _rows_near(ext, q, got_rows, want_rows, want_best, what: str) -> int:
+    """Rows equal to the twin's, except where the kernel's row scores within
+    K56_ATOL of the twin's best (near ties summed in another order).
+    Returns how many differ."""
+    differ = got_rows != want_rows
+    if bool(differ.any()):
+        b_i, c_i = torch.nonzero(differ, as_tuple=True)
+        r = got_rows[b_i, c_i].long()
+        rescored = (q[b_i].float() * ext[r].float()).sum(1)
+        if bool(((want_best[b_i, c_i] - rescored).abs() > K56_ATOL).any()):
+            raise AssertionError(f"{what}: rows differ where the twin's best is clear")
+    return int(differ.sum())
+
+
+def blockmax_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> tuple[dict, float]:
+    """Phase 14: K5 and K6 against their twins on FastFlat's packed table
+    (1,003,520 rows, 3,520 of them pad rows), B=4096, L2 and IP: bit for bit
+    on integer entries, to K56_ATOL on the set's rows; timed under L2 with
+    the bare bf16 product beside them. Returns each form's cases and the
+    yardstick's ms."""
+    n_pad = -(-N // QUANTUM) * QUANTUM
+    cases: dict[str, list] = {name: [] for name in K56_FORMS}
+    library_ms = None
+    for metric, mid in (("l2", METRIC_L2), ("ip", METRIC_IP)):
+        ext, q = _int_case(mid, n_pad, dev)
+        for name, (fn, ref, _, _) in K56_FORMS.items():
+            got = fn(ext, q)
+            torch.cuda.synchronize()
+            want = ref(ext, q)
+            if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"{name} {metric}: the kernel and the twin differ "
+                                     "on the integer table")
+            log(f"[K5/K6] {name} {metric}: integer table {tuple(ext.shape)} "
+                f"({n_pad - N} pad rows): bit for bit")
+            del got, want
+        ext = pack_ext_table(base, mid, n_pad, device=dev)
+        q = pack_ext_query(torch.from_numpy(queries[:B]).to(dev), ext.shape[1]).to(
+            torch.bfloat16)
+        for name, (fn, ref, _, _) in K56_FORMS.items():
+            got = fn(ext, q)
+            torch.cuda.synchronize()
+            want = ref(ext, q)
+            err = max(float((g - w).abs().max()) for g, w in zip(got[::2], want[::2]))
+            if err > K56_ATOL:
+                raise AssertionError(f"{name} {metric}: scores differ by {err} > {K56_ATOL}")
+            differ = _rows_near(ext, q, got[1], want[1], want[0], name)
+            if name == "blockmax_scan":  # runner-ups that entered
+                real = want[2] > -3e38
+                differ += _rows_near(ext, q, torch.where(real, got[3], want[3]), want[3],
+                                     want[2], name)
+            case = {"metric": metric, "max_abs_err": err, "rows_differ": differ}
+            msg = f"[K5/K6] {name} {metric}: max_abs_err={err:.3e} rows_differ={differ}"
+            if metric == "l2":
+                case["ms"] = cuda_ms(lambda: fn(ext, q), reps=10)
+                case["plain_ms"] = cuda_ms(lambda: ref(ext, q), reps=3, warmup=1)
+                case["bound_ms"], case["bound_by"] = _k56_bound(name, n_pad)
+                msg += (f" kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+                        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+            cases[name].append(case)
+            log(msg)
+            del got, want
+        if metric == "l2":
+            def product():
+                for lo in range(0, n_pad, 65_536):
+                    torch.matmul(q, ext[lo:lo + 65_536].T)
+            library_ms = cuda_ms(product, reps=10)
+            log(f"[K5/K6] torch.matmul bf16 ({B}, {ext.shape[1]}) x ({n_pad}, "
+                f"{ext.shape[1]})^T in 65,536-row chunks: {library_ms:.4f} ms")
+        del ext, q
+        torch.cuda.empty_cache()
+    return cases, library_ms
+
+
+def serve_blockmax(flat: FastFlatIndex, ds, gt) -> dict:
+    """Phase 15: all queries through FastFlat's block-max route (K5, the
+    route the JAX package takes under interpret) at the auto kb; recall,
+    QPS after a warm-up batch, K5's launches (no class-max launch); then
+    256 queries on the CPU (twins) against the card."""
+    flat.blockmax = True
+    pre = flat.preload(ds.queries, batch_size=B)
+    flat.search(ds.queries, 10, batch_size=B, preloaded=pre)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, _ = flat.search(ds.queries, 10, batch_size=B, preloaded=pre)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bm.blockmax_scan.launches
+    classmax = sum(fn.launches for fn, _, _ in K2_FORMS.values())
+    recall = recall_at_k(ids, gt, 10)
+    kb = flat._resolve_knobs(0, 0, None, None, False)[0]
+    log(f"[flat] blockmax: kb={kb} blocks recall@10={recall:.4f} qps={NQ / wall:.1f} "
+        f"wall={wall:.3f} s blockmax_scan launches={launches} class-max launches={classmax}")
+    if recall < FLAT_MIN_RECALL:
+        raise AssertionError(f"fastflat blockmax: recall@10 {recall:.4f} < {FLAT_MIN_RECALL}")
+    if launches == 0 or classmax:
+        raise AssertionError(f"fastflat blockmax: {launches} K5 and {classmax} class-max "
+                             "launches")
+    q = ds.queries[:E2E_QUERIES]
+    cpu = FastFlatIndex(ds.base, blockmax=True, device="cpu")
+    t0 = time.perf_counter()
+    a_ids, a_d = cpu.search(q, 10, batch_size=E2E_QUERIES)
+    log(f"[e2e] fastflat blockmax on the CPU (twins): {time.perf_counter() - t0:.2f} s")
+    b_ids, b_d = flat.search(q, 10, batch_size=E2E_QUERIES)
+    _compare(a_ids, a_d, b_ids, b_d, "fastflat blockmax", FLAT_ATOL)
+    flat.blockmax = False
+    return {"launches": launches, "recall@10": recall, "qps": NQ / wall, "kb": kb}
+
+
+def _stage_line(timings: dict) -> str:
+    parts = []
+    for lv in timings["levels"]:
+        stages = " ".join(f"{k}={v:.2f}" for k, v in lv.items() if k != "n")
+        parts.append(f"n={lv['n']}: {stages}")
+    return "; ".join(parts)
+
+
+def build_phases(ds, gt, dev) -> dict:
+    """Phases 16-17: fast_build_graph on the card at 1M, M=16, the rows
+    resident: pool 0 and pool 200 through the class-max sweep, then the
+    block-max sweep (K5); each build's stage times, the sweep's plan and its
+    kernel launches, then its graph served as the native one is."""
+    base_t = torch.from_numpy(ds.base).to(dev)
+    out = {}
+    for name, kw in BUILDS:
+        torch.cuda.synchronize()
+        reset_launches()
+        t = {}
+        t0 = time.perf_counter()
+        graph = fast_build_graph(ds.base, BUILD, base_dev=base_t, timings=t, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: fn.launches for n, (fn, _, _) in K2_FORMS.items()}
+        counts.update({n: fn.launches for n, (fn, _, _, _) in K56_FORMS.items()})
+        counts = {k: v for k, v in counts.items() if v}
+        plan = t["plan"]
+        log(f"[build] {name}: {wall:.2f} s (stages {t['total']:.2f} s), "
+            f"top_level={graph.top_level}, upper vertices={int((graph.levels > 0).sum())}")
+        budget = "none" if plan["budget"] is None else f"{plan['budget'] / 1e9:.2f} GB"
+        log(f"[build]   sweep plan: layout={plan['layout']} batch={plan['batch']} "
+            f"kb={plan['kb']} keep2={plan['keep2']} cls={plan['cls']} planned "
+            f"{plan['total'] / 1e9:.3f} GB, budget {budget}")
+        log(f"[build]   stage seconds: {_stage_line(t)}; components="
+            f"{t['components']:.2f}; upper levels={t['upper_levels']:.2f}")
+        log(f"[build]   kernel launches in the build: {counts}")
+        sweep = "blockmax_scan" if kw.get("blockmax") else "classmax2_scan"
+        if counts.get(sweep, 0) < N // plan["batch"]:
+            raise AssertionError(f"build {name}: {sweep} launched "
+                                 f"{counts.get(sweep, 0)} times for the sweep")
+        _, recall, qps = serve(graph, ds, gt, "f32", dev, what=f"fast_build {name}")
+        out[name] = {"seconds": wall, "timings": {
+            "levels": t["levels"], "components": t["components"],
+            "upper_levels": t["upper_levels"]},
+            "plan": {k: v for k, v in plan.items()}, "launches": counts,
+            "recall@10": recall, "qps": qps}
+        del graph
+        torch.cuda.empty_cache()
+    gap = abs(out["blockmax"]["recall@10"] - out["pool0"]["recall@10"])
+    log(f"[build] block-max graph against the pool-0 graph: recall gap {gap:.4f} "
+        f"(stated {BLOCKMAX_BUILD_GAP})")
+    if gap > BLOCKMAX_BUILD_GAP:
+        raise AssertionError(f"block-max build: recall {out['blockmax']['recall@10']:.4f}"
+                             f" against {out['pool0']['recall@10']:.4f}")
+    del base_t
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_build_cpu_vs_card(dev) -> None:
+    """Phase 18: the same build at 8192 x 16 on the CPU (twins) and on the
+    card: equal levels and entry point, overlapping layer-0 lists, and the
+    same recall of 256 queries served from each."""
+    small = synthetic_dataset(**SMALL_SET)
+    base = torch.from_numpy(small.base)
+    cpu = fast_build_graph(small.base, SMALL_BUILD, base_dev=base)
+    gpu = fast_build_graph(small.base, SMALL_BUILD, base_dev=base.to(dev))
+    if not np.array_equal(cpu.levels, gpu.levels) or cpu.entry_point != gpu.entry_point:
+        raise AssertionError("small build: levels or entry point differ CPU/card")
+    hits = sum(np.intersect1d(a[a >= 0], b[b >= 0]).size
+               for a, b in zip(cpu.neighbors0, gpu.neighbors0))
+    overlap = hits / max(int((cpu.neighbors0 >= 0).sum()), 1)
+    recalls = []
+    for g in (cpu, gpu):
+        ids, _ = HNSWIndex(g, device=dev).search(
+            small.queries, SearchParams(k=10, ef=64), batch_size=256)
+        recalls.append(recall_at_k(ids, small.ground_truth, 10))
+    log(f"[e2e] fast_build 8192 x 16, CPU against card: levels and entry equal, "
+        f"layer-0 overlap {overlap:.4f} (stated {SMALL_MIN_OVERLAP}), recall@10 "
+        f"{recalls[0]:.4f} and {recalls[1]:.4f}, identical lists "
+        f"{np.array_equal(cpu.neighbors0, gpu.neighbors0)}")
+    if overlap < SMALL_MIN_OVERLAP or abs(recalls[0] - recalls[1]) > SMALL_RECALL_GAP:
+        raise AssertionError("small build: the CPU and card graphs differ too much")
 
 
 def main() -> None:
@@ -1035,8 +1345,11 @@ def main() -> None:
     log(f"[hnsw] exact fp32 ground truth on the card: "
         f"{time.perf_counter() - t0:.2f} s")
     k1_launches = 0
+    native_served = {}
     for rows in ("f32", "bf16"):
-        k1_launches += serve(graph, ds, gt, rows, dev)
+        launches, recall, qps = serve(graph, ds, gt, rows, dev)
+        k1_launches += launches
+        native_served[rows] = (recall, qps)
         torch.cuda.empty_cache()
     hnsw_end_to_end(graph, ds, dev)
     del graph
@@ -1045,8 +1358,14 @@ def main() -> None:
     k2_launches = serve_flat(flat, ds, gt, plan)
     profile_batch(flat, ds.queries, "fastflat auto")
     flat_end_to_end(ds, flat)
+    k56_cases, k56_library_ms = blockmax_vs_twin(ds.base, ds.queries, dev)
+    blockmax_served = serve_blockmax(flat, ds, gt)
     del flat
     torch.cuda.empty_cache()
+    builds = build_phases(ds, gt, dev)
+    log(f"[build] native graph (phase 5), f32: recall@10={native_served['f32'][0]:.4f} "
+        f"qps={native_served['f32'][1]:.1f} after {build_s:.2f} s of build")
+    small_build_cpu_vs_card(dev)
     k3_kernels = split_phases(ds, gt, dev)
     del ds, gt
     k4_kernels = routed_phases(dev)
@@ -1088,7 +1407,38 @@ def main() -> None:
             "kb": kb,
             "cases": k2_cases[name],
         })
+    for name, (_, _, replaces, source) in K56_FORMS.items():
+        main_k56 = next(c for c in k56_cases[name] if c["metric"] == "l2")
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": blockmax_served["launches"] if name == "blockmax_scan" else 0,
+            "max_abs_err": max(c["max_abs_err"] for c in k56_cases[name]),
+            "ms": main_k56["ms"],
+            "plain_ms": main_k56["plain_ms"],
+            "bound_ms": main_k56["bound_ms"],
+            "bound_by": main_k56["bound_by"],
+            "library_ms": k56_library_ms,
+            "build_launches": {b: builds[b]["launches"].get(name, 0) for b in builds},
+            "cases": k56_cases[name],
+        }
+        if name == "blockmax_scan":
+            entry.update({"flat_route": "blockmax", "kb": blockmax_served["kb"],
+                          "recall@10": blockmax_served["recall@10"],
+                          "qps": blockmax_served["qps"]})
+        else:
+            entry["note"] = ("no path of the JAX package calls blockmax_scan2 (only its "
+                             "own test does), so no path of the port launches it: 0 on "
+                             "every served path; held against its twin in phase 14")
+        kernels.append(entry)
     kernels += k3_kernels + k4_kernels
+    for k in kernels:  # the class-max sweeps of the builds
+        if k["name"] in K2_FORMS:
+            k["build_launches"] = {b: builds[b]["launches"].get(k["name"], 0)
+                                   for b in builds}
+    log(f"[build] summary {json.dumps(builds)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,16 @@
 
 Serves batched HNSW k-NN queries, near-exact brute-force queries and
 cluster-pruned (routed) queries. The graph is built by the port's own
-native builder (``graph``, ``native``); the HNSW search runs in torch with
+native builder (``graph``, ``native``) or at scan speed on the card
+(``models/fastbuild.py``: an exact kNN sweep through the class-max or
+block-max scans, a batched diversity select, the native reverse merge);
+the HNSW search runs in torch with
 the candidate gather-and-score step in a hand-written CUDA kernel
 (``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
 ``SplitFlatIndex`` a split bf16 or int8 table and ``RoutedSplitIndex`` the
 clusters its query tiles ask for in a clustered split table, with the
-hand-written class-max kernels (``csrc/classmax_scan.cu``). Entry points
+hand-written class-max kernels (``csrc/classmax_scan.cu``); FastFlat's
+block-max route runs ``csrc/blockmax_scan.cu``. Entry points
 run on the CUDA card unless the caller names another device; on the CPU
 each kernel's plain torch twin runs instead. This package imports neither
 JAX nor the JAX package.
@@ -20,6 +24,7 @@ from shine_tpu_torch.convert import (
     routed_split_from_jax,
     splitflat_from_jax,
 )
+from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
@@ -33,6 +38,7 @@ __all__ = [
     "SplitFlatIndex",
     "RoutedSplitIndex",
     "build_routed_split",
+    "fast_build_graph",
     "device_graph_from_jax",
     "fastflat_from_jax",
     "splitflat_from_jax",

@@ -109,13 +109,16 @@ def fastflat_from_jax(
     """The port's FastFlatIndex holding the JAX FastFlatIndex's state, on
     ``device`` (the CUDA card unless another is given): ``ext`` (ml_dtypes
     bf16, carried as raw bits), ``vectors``, ``sqnorms`` and ``perm``, as
-    numpy (``vectors`` and ``sqnorms`` None for a table-only index). The
+    numpy (``vectors`` and ``sqnorms`` None for a table-only index), and
+    the JAX index's ``interpret`` flag, which becomes the port's
+    ``blockmax`` route (the one that flag picks in the JAX package). The
     table is cut to the port's width; the columns dropped are the JAX
     package's zero lane padding. Both packages then answer the same
     queries from the same state."""
     device = resolve_device(device)
     ext = _cut_to_width(np.asarray(arrays["ext"]), ext_width(dim), "ext")
-    self = FastFlatIndex.from_ext(_to_torch(ext).to(device), n, metric, dim=dim)
+    self = FastFlatIndex.from_ext(_to_torch(ext).to(device), n, metric, dim=dim,
+                                  blockmax=bool(arrays.get("interpret", False)))
     _attach_rows(self, arrays, device)
     return self
 

@@ -1,6 +1,7 @@
 // classmax_scan: the brute-force class-max scans of FastFlatIndex (K2) and
-// SplitFlatIndex (K3), their exact top-kb select over the class lanes, and
-// the routed scan of RoutedSplitIndex (K4, below).
+// SplitFlatIndex (K3), their exact top-kb select over the class lanes, the
+// routed scan of RoutedSplitIndex (K4, below) and the chunked class-max of
+// blockmax_scan2 (K6, below).
 //
 // K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
 // classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
@@ -88,12 +89,25 @@
 // per-group reads (6.8 GB at B=4096, P=192, cap=4096, int8) fall to the L2
 // cache only where groups share clusters. Its times are in PERF.md.
 //
+// K6 replaces shine_tpu/ops/pallas_scan2.py: blockmax_scan2 (_kernel), K2's
+// class-max at cls = 128 restarted at every 4096-row chunk: column c*128 + p of
+// its (B, N_pad/32) outputs holds the best of rows c*4096 + m*128 + p, m =
+// 0..31, the first member winning a tie and member 0 entering whatever it
+// scores (the Pallas running max starts from it). It is the K2 kernel with a
+// chunked walk (CHUNKED): CTA z of the grid's third axis walks chunk z's 32
+// members, starts its running max at -inf, and writes its 128 classes at
+// columns z*128 ..; K2, K3 and K4 compile as before. What bounds it: K2's
+// operations (1.0768 ms at B = 4096 on 1M rows); its outputs are 1.03 GB,
+// 0.31 ms at 3.35 TB/s. No path of the JAX package calls it.
+//
 // Left for later: wgmma with TMA-fed tiles, holding the query fragments in
 // registers across members, a fused select, and for K4 more queries a CTA
 // and an order of groups that shares clusters in the L2 cache.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -109,40 +123,6 @@ constexpr float kNeg = -3e38f;
 
 // the table a scan reads: K2's packed bf16 ext, or K3's split comp + aux
 enum Kind { kExt = 0, kSplitBf16 = 1, kSplitI8 = 2 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a 4-register fragment: four 8x8 bf16 matrices, one row address per lane
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // One k-step's fragments of a warp's 32 x 32 tile: a[mt] the A fragment of
 // query rows mt*16 .. +15; b[np] the B fragments of table rows np*16 .. +15,
@@ -203,7 +183,10 @@ struct Route {
 
 // keep1 is capped at 128 registers a thread so that two CTAs share an SM and
 // their per-member barriers interleave; keep2's state needs ~226, one CTA.
-template <int WQ, bool KEEP2, int KIND, bool ROUTED>
+// CHUNKED is K6's walk: CTA z walks only the `members` members of row chunk
+// z (rows z*members*cls ..), the first member entering unconditionally, and
+// writes its classes at columns z*cls .. of a (B, gridDim.z*cls) output.
+template <int WQ, bool KEEP2, int KIND, bool ROUTED, bool CHUNKED = false>
 __global__ void __launch_bounds__(WQ * 2 * 32, KEEP2 ? 1 : 2)
 classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                 const uint16_t* __restrict__ q, float* __restrict__ best,
@@ -271,6 +254,8 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
       const int64_t c = __ldg(rt.cols + int64_t(blockIdx.x) * rt.P + p);
       row0 = c * rt.cap + int64_t(mm) * cls + lane0;
       aux_c = aux + (c * 2 * rt.mc + mm) * cls + lane0;
+    } else if constexpr (CHUNKED) {
+      row0 = (int64_t(blockIdx.z) * members + m) * cls + lane0;
     } else {
       row0 = int64_t(m) * cls + lane0;
     }
@@ -317,7 +302,9 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s1[mt][nt][i] = kNeg;
+        // K6's running max starts below every finite score, so that member
+        // 0 enters whatever it scores
+        s1[mt][nt][i] = CHUNKED ? -__int_as_float(0x7f800000) : kNeg;
         c1[mt][nt][i] = 0;
         if (KEEP2) {
           s2[mt][nt][i] = kNeg;
@@ -438,7 +425,11 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   cp_async_wait<0>();
 
   // accumulator cell (mt, nt, i): query wq*32 + mt*16 + g + 8*(i >= 2),
-  // class lane0 + wc*32 + nt*8 + 2t + (i & 1)
+  // class lane0 + wc*32 + nt*8 + 2t + (i & 1); K6 puts chunk z's classes
+  // at columns z*cls .. of rows gridDim.z*cls wide, its codes past z*members
+  const int64_t out_ld = CHUNKED ? int64_t(gridDim.z) * cls : cls;
+  const int out_col0 = CHUNKED ? blockIdx.z * cls : 0;
+  const int code0 = CHUNKED ? blockIdx.z * members : 0;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -449,11 +440,12 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = lane0 + wc * 32 + nt * 8 + 2 * t;
-        const int64_t o = int64_t(qi) * cls + col;
+        const int64_t o = int64_t(qi) * out_ld + out_col0 + col;
         *reinterpret_cast<float2*>(best + o) =
             make_float2(s1[mt][nt][2 * h], s1[mt][nt][2 * h + 1]);
         *reinterpret_cast<int2*>(rows + o) =
-            make_int2(c1[mt][nt][2 * h] * cls + col, c1[mt][nt][2 * h + 1] * cls + col + 1);
+            make_int2((code0 + c1[mt][nt][2 * h]) * cls + col,
+                      (code0 + c1[mt][nt][2 * h + 1]) * cls + col + 1);
         if (KEEP2) {
           *reinterpret_cast<float2*>(best2 + o) =
               make_float2(s2[mt][nt][2 * h], s2[mt][nt][2 * h + 1]);
@@ -464,18 +456,18 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     }
 }
 
-template <int WQ, bool KEEP2, int KIND, bool ROUTED = false>
+template <int WQ, bool KEEP2, int KIND, bool ROUTED = false, bool CHUNKED = false>
 int launch_scan(const void* table, const float* aux, const uint16_t* q, float* best,
                 int32_t* rows, float* best2, int32_t* rows2, int B, int dp, int cls,
-                int members, cudaStream_t stream, const Route rt = Route{}) {
+                int members, cudaStream_t stream, const Route rt = Route{}, int chunks = 1) {
   const size_t smem = scan_smem_bytes(WQ, dp, KIND);
-  auto kernel = classmax_kernel<WQ, KEEP2, KIND, ROUTED>;
+  auto kernel = classmax_kernel<WQ, KEEP2, KIND, ROUTED, CHUNKED>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return int(e);
   constexpr int TQ = WQ * kWarpQ;
   // K4: one CTA row a group of T queries
-  const dim3 grid(ROUTED ? B / rt.T : (B + TQ - 1) / TQ, cls / kTC);
+  const dim3 grid(ROUTED ? B / rt.T : (B + TQ - 1) / TQ, cls / kTC, chunks);
   kernel<<<grid, WQ * 2 * 32, smem, stream>>>(table, aux, q, best, rows, best2, rows2, B, dp,
                                               cls, members, rt);
   return int(cudaGetLastError());
@@ -527,6 +519,29 @@ int dispatch_scan(const void* table, const void* aux, const void* q, int64_t n_p
                 : launch_scan<4, true, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
   return wide ? launch_scan<2, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s)
               : launch_scan<4, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+}
+
+// K6: the class-max at cls = 128 of each 4096-row chunk (32 members), the
+// query tile 128, else 64 when the queries of 128 do not fit.
+int dispatch_chunked(const void* ext, const void* q, int64_t n_pad, int B, int dp, void* best,
+                     void* rows, void* stream) {
+  constexpr int kCls = 128, kMembers = 32;
+  const int64_t chunk = int64_t(kCls) * kMembers;
+  if (dp % 16 || n_pad % chunk || n_pad / chunk > 65535 || B <= 0)
+    return int(cudaErrorInvalidValue);
+  const int chunks = int(n_pad / chunk);
+  const auto* qq = static_cast<const uint16_t*>(q);
+  auto* b1 = static_cast<float*>(best);
+  auto* r1 = static_cast<int32_t*>(rows);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = scan_smem_bytes(4, dp, kExt) > 232448;
+  if (wide && scan_smem_bytes(2, dp, kExt) > 232448) return int(cudaErrorInvalidValue);
+  return wide ? launch_scan<2, false, kExt, false, true>(ext, nullptr, qq, b1, r1, nullptr,
+                                                        nullptr, B, dp, kCls, kMembers, s,
+                                                        Route{}, chunks)
+              : launch_scan<4, false, kExt, false, true>(ext, nullptr, qq, b1, r1, nullptr,
+                                                        nullptr, B, dp, kCls, kMembers, s,
+                                                        Route{}, chunks);
 }
 
 constexpr int kSelWarps = 4;
@@ -626,6 +641,15 @@ extern "C" int shine_classmax_scan_routed(const void* comp, int comp_int8, const
                                      rows, stream);
   return dispatch_routed<kSplitBf16>(comp, aux_r, q, cols, C, G, T, P, dpc, cap, cls, best,
                                      rows, stream);
+}
+
+// K6. ext (n_pad, dp) bf16, q (B, dp) bf16, best/rows (B, n_pad/32) f32/i32:
+// column c*128 + p holds the best of rows c*4096 + m*128 + p, m = 0..31, and
+// that row, the first member winning a tie. Needs dp % 16 == 0, n_pad % 4096
+// == 0 and 16-byte aligned ext and q.
+extern "C" int shine_blockmax_scan2(const void* ext, const void* q, int64_t n_pad, int B,
+                                    int dp, void* best, void* rows, void* stream) {
+  return dispatch_chunked(ext, q, n_pad, B, dp, best, rows, stream);
 }
 
 // Top-kb lanes of best (B, cls) per query, in (value desc, lane asc) order,

@@ -1,0 +1,46 @@
+// ptx.cuh: the PTX wrappers that the scan kernels share (classmax_scan.cu,
+// blockmax_scan.cu): cp.async copies into shared memory, ldmatrix fragment
+// loads and the bf16 m16n8k16 mma.sync with f32 accumulators.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a 4-register fragment: four 8x8 bf16 matrices, one row address per lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+}  // namespace

@@ -14,8 +14,11 @@ selected, and their rows are re-ranked exactly in f32. A true neighbour is
 lost only when a better one shares its class (~C(k,2)/cls); rows are
 shuffled at build so that class membership does not follow id order.
 ``FastFlatIndex`` scans the packed bf16 table (``ops/scan.py``, the K2
-kernel); ``SplitFlatIndex`` the split table, bf16 or int8 components with
-an f32 norm and scale a row (``ops/scan_split.py``, the K3 kernel), which
+kernel), or with ``blockmax`` through the block-max scan (K5, the best two
+rows of each 128-row block, ``ops/blockmax.py``): the route the JAX
+package's ``FastFlatIndex`` takes when it interprets on the CPU
+(``interpret=True``). ``SplitFlatIndex`` scans the split table, bf16 or
+int8 components with an f32 norm and scale a row (``ops/scan_split.py``, the K3 kernel), which
 holds a row in 256 (bf16) or 136 (int8) bytes at d=128. Without f32 rows
 ``SplitFlatIndex`` re-ranks from its own tables. The four scan routes are
 those of the JAX package: keep1 or keep2, the select fused into the kernel
@@ -29,6 +32,7 @@ import torch
 
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
+from shine_tpu_torch.ops import blockmax as bm
 from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops.beam import smallest_positions
 from shine_tpu_torch.ops.distance import (
@@ -201,25 +205,44 @@ def _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank):
     return rerank_topk(vectors, sqnorms, q, cand, k, metric)
 
 
+def _blockmax_candidates(ext, q_ext, kb: int):
+    """(vals, cand) of the block-max route: K5, the ``lax.top_k`` of the
+    block maxima over min(kb, N_pad/128) blocks (``top_k``), their best
+    rows, then their runner-ups, -1 where a runner-up's score is not above
+    NEG (the JAX package's ``fast_flat_search`` under ``interpret``)."""
+    m1, a1, m2, a2 = bm.blockmax_scan(ext, q_ext)
+    v1, sel = cm.top_k(m1, min(kb, m1.shape[1]))
+    v2 = torch.gather(m2, 1, sel)
+    cand2 = torch.where(v2 > NEG, torch.gather(a2, 1, sel), -1)
+    return (torch.cat([v1, v2], 1),
+            torch.cat([torch.gather(a1, 1, sel), cand2], 1))
+
+
 def fast_flat_search(
     ext, vectors, sqnorms, q_ext, q, *, k, kb, tq, tn, cls, metric,
     keep2=False, n=0, approx_sel=False, prerank=0, fused_sel=False,
+    blockmax=False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batch: class-max scan, select of kb classes, optional score
     trim, exact re-rank. (dists (B, k), ids (B, k)). ``approx_sel`` takes
     the exact select, as ``approx_max_k`` does off the TPU; an unfused
-    select is ``select_lanes``. Without f32 rows (``vectors`` None) the
-    re-rank reads the bf16 table and ``prerank`` is not applied, as in the
-    JAX package."""
-    kb_eff = min(kb, cls)
-    fused = fused_sel and not approx_sel
-    if fused:
-        scan = cm.classmax2_topk_scan if keep2 else cm.classmax_topk_scan
-        out = scan(ext, q_ext, kb=kb_eff, tq=tq, tn=tn, cls=cls)
+    select is ``select_lanes``. With ``blockmax`` the block-max route
+    (``_blockmax_candidates``) replaces the scan and the select, and
+    ``cls``, ``keep2``, ``approx_sel`` and ``fused_sel`` play no part.
+    Without f32 rows (``vectors`` None) the re-rank reads the bf16 table
+    and ``prerank`` is not applied, as in the JAX package."""
+    if blockmax:
+        vals, cand = _blockmax_candidates(ext, q_ext, kb)
     else:
-        scan = cm.classmax2_scan if keep2 else cm.classmax_scan
-        out = scan(ext, q_ext, tq=tq, tn=tn, cls=cls)
-    vals, cand = _candidates(out, kb_eff, fused)
+        kb_eff = min(kb, cls)
+        fused = fused_sel and not approx_sel
+        if fused:
+            scan = cm.classmax2_topk_scan if keep2 else cm.classmax_topk_scan
+            out = scan(ext, q_ext, kb=kb_eff, tq=tq, tn=tn, cls=cls)
+        else:
+            scan = cm.classmax2_scan if keep2 else cm.classmax_scan
+            out = scan(ext, q_ext, tq=tq, tn=tn, cls=cls)
+        vals, cand = _candidates(out, kb_eff, fused)
     limit = n or vectors.shape[0]
     cand = torch.where(cand < limit, cand, -1)  # pad rows and empty classes
     if vectors is None:
@@ -351,11 +374,14 @@ class _ClassMaxIndex:
 
 
 class FastFlatIndex(_ClassMaxIndex):
-    """Near-exact brute force through the class-max scan (K2), on
-    ``device``, the CUDA card unless another is given.
+    """Near-exact brute force through the class-max scan (K2), or with
+    ``blockmax`` through the block-max scan (K5), on ``device``, the CUDA
+    card unless another is given.
 
     The host constructor shuffles rows with numpy's permutation from
-    ``seed``, as the JAX package does, so both hold the same table."""
+    ``seed``, as the JAX package does, so both hold the same table.
+    ``blockmax`` is the route the JAX package's index takes under
+    ``interpret=True``; ``tn`` picks no tiling."""
 
     def __init__(
         self,
@@ -365,10 +391,12 @@ class FastFlatIndex(_ClassMaxIndex):
         tn: int = 1024,
         shuffle: bool = True,
         seed: int = 0,
+        blockmax: bool = False,
         device: torch.device | str | None = None,
     ):
         dev = resolve_device(device)
         self.metric = metric_id(metric)
+        self.blockmax = blockmax
         v = np.ascontiguousarray(vectors, dtype=np.float32)
         n, d = v.shape
         self.perm = None
@@ -388,7 +416,8 @@ class FastFlatIndex(_ClassMaxIndex):
 
     @classmethod
     def from_ext(cls, ext_dev: torch.Tensor, n: int, metric: str | int = "l2",
-                 *, dim: int | None = None, row_source=None) -> "FastFlatIndex":
+                 *, dim: int | None = None, row_source=None,
+                 blockmax: bool = False) -> "FastFlatIndex":
         """From a packed bf16 table alone: no f32 rows are kept and the
         re-rank reads the table (``rerank_topk_ext``). ``dim`` is the true
         dimension (the table is padded); it drives ``kb_auto``."""
@@ -396,6 +425,7 @@ class FastFlatIndex(_ClassMaxIndex):
             raise NotImplementedError(_ROW_SOURCE_MSG)
         self = cls.__new__(cls)
         self.metric = metric_id(metric)
+        self.blockmax = blockmax
         n_pad, dp = ext_dev.shape
         if n_pad % QUANTUM or n > n_pad:
             raise ValueError(f"the table needs rows % {QUANTUM} == 0 and n <= rows")
@@ -408,18 +438,18 @@ class FastFlatIndex(_ClassMaxIndex):
 
     @classmethod
     def from_device(cls, v_dev: torch.Tensor, metric: str | int = "l2", *,
-                    shuffle: bool | None = None,
-                    seed: int = 0) -> "FastFlatIndex":
-        """From rows already on a device; n must be a multiple of 4096.
-        The shuffle (on unless ``shuffle=False``: the transient row copy
+                    shuffle: bool | None = None, seed: int = 0,
+                    blockmax: bool = False) -> "FastFlatIndex":
+        """From rows already on a device. The table is padded to a multiple
+        of 4096 rows with pad rows (the JAX package asks n to be one). The
+        shuffle (on unless ``shuffle=False``: the transient row copy
         fits beside any table that fits the card) is a ``torch.Generator``
         permutation from ``seed``, which is not the JAX package's
         ``jax.random`` one: the two hold the same rows in other orders."""
         self = cls.__new__(cls)
         self.metric = metric_id(metric)
+        self.blockmax = blockmax
         n, d = v_dev.shape
-        if n % QUANTUM:
-            raise ValueError(f"from_device requires n % {QUANTUM} == 0")
         v = v_dev.to(torch.float32)
         self.perm = self._perm_dev = None
         if shuffle or shuffle is None:
@@ -457,7 +487,7 @@ class FastFlatIndex(_ClassMaxIndex):
             self.ext, self.vectors, self.sqnorms, q_ext, qj, k=k, kb=kb,
             tq=tq, tn=max(self.tn, cls), cls=cls, metric=self.metric,
             keep2=keep2, n=self.n, approx_sel=approx_sel, prerank=prerank,
-            fused_sel=fused_sel)
+            fused_sel=fused_sel, blockmax=self.blockmax)
 
     def cost_counters(self, nq: int, k: int = 10, *, kb: int = 0,
                       batch_size: int = 4096) -> dict:
@@ -518,15 +548,13 @@ class SplitFlatIndex(_ClassMaxIndex):
     def from_device(cls, v_dev: torch.Tensor, metric: str | int = "l2", *,
                     comp_dtype: str = "bf16",
                     keep_base: bool = True) -> "SplitFlatIndex":
-        """From rows already on a device (n % 4096 == 0), packed there with
-        no shuffle, as in the JAX package, and padded to SPLIT_QUANTUM
-        rows. With ``keep_base=False`` the f32 rows are dropped and the
-        re-rank reads the split tables."""
+        """From rows already on a device, packed there with no shuffle, as
+        in the JAX package, and padded to SPLIT_QUANTUM rows (the JAX
+        package asks n to be a multiple of 4096). With ``keep_base=False``
+        the f32 rows are dropped and the re-rank reads the split tables."""
         self = cls.__new__(cls)
         self.metric = metric_id(metric)
         n, d = v_dev.shape
-        if n % QUANTUM:
-            raise ValueError(f"from_device requires n % {QUANTUM} == 0")
         v = v_dev.to(torch.float32)
         comp, aux = pack_split_device(v, self.metric, comp_dtype=comp_dtype)
         self.comp, self.aux = pad_split_tables(

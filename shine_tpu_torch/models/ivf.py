@@ -18,7 +18,12 @@ import numpy as np
 import torch
 
 from shine_tpu_torch.ops.beam import smallest_positions
-from shine_tpu_torch.ops.distance import matmul_nt, pairwise_distance, squared_norms
+from shine_tpu_torch.ops.distance import (
+    cluster_sums,
+    matmul_nt,
+    pairwise_distance,
+    squared_norms,
+)
 
 
 def _capacity_assign_host(
@@ -110,21 +115,20 @@ def _draw_init_ids(n: int, k: int, seed: int) -> torch.Tensor:
 def _lloyd_chunked(points: torch.Tensor, *, k: int, iters: int, seed: int,
                    chunk: int = 8192) -> torch.Tensor:
     """Lloyd iterations that never hold the (n, k) distance tile: each
-    chunk's (chunk, k) scores live for one step and the centroid sums add
-    up by ``index_add_``. Random-row init. n must be a multiple of
-    ``chunk``. Returns (k, d) f32 centroids."""
+    chunk's (chunk, k) scores live for one step; the centroid sums are
+    ``cluster_sums`` of the step's assignment, the same on every run.
+    Random-row init. n must be a multiple of ``chunk``. Returns (k, d) f32
+    centroids."""
     n, d = points.shape
     xs = points.to(torch.float32)
     cents = xs[_draw_init_ids(n, k, seed).to(xs.device)]
     for _ in range(iters):
         csq = squared_norms(cents)
-        sums = torch.zeros_like(cents)
-        counts = torch.zeros(k, dtype=torch.float32, device=xs.device)
-        for lo in range(0, n, chunk):
-            x = xs[lo:lo + chunk]
-            a = torch.argmin(csq[None, :] - 2.0 * matmul_nt(x, cents), dim=1)
-            sums.index_add_(0, a, x)
-            counts.index_add_(0, a, torch.ones_like(a, dtype=torch.float32))
+        assign = torch.cat([
+            torch.argmin(csq[None, :] - 2.0 * matmul_nt(xs[lo:lo + chunk], cents),
+                         dim=1)
+            for lo in range(0, n, chunk)])
+        sums, counts = cluster_sums(xs, assign, k)
         cents = torch.where(counts[:, None] > 0.5,
                             sums / counts.clamp_min(1.0)[:, None], cents)
     return cents
@@ -150,8 +154,7 @@ def _lloyd_balance_refine(points: torch.Tensor, cents: torch.Tensor, *,
         cho_d = torch.cat([p[1] for p in parts]).cpu().numpy()
         assign = torch.from_numpy(_capacity_assign_host(cho, cho_d, k, cap_t))
         assign = assign.to(xs.device)
-        sums = torch.zeros_like(cents).index_add_(0, assign, xs)
-        counts = torch.bincount(assign, minlength=k).to(torch.float32)
+        sums, counts = cluster_sums(xs, assign, k)
         cents = torch.where(counts[:, None] > 0.5,
                             sums / counts.clamp_min(1.0)[:, None], cents)
     return cents

@@ -35,6 +35,7 @@ import torch
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.models import ivf
 from shine_tpu_torch.ops.beam import dist_id_key, smallest_positions
+from shine_tpu_torch.ops.classmax import top_k
 from shine_tpu_torch.ops.distance import (
     matmul_nt,
     pairwise_distance,
@@ -56,18 +57,6 @@ _ROW_SOURCE_MSG = ("row_source (rows regenerated from a key) is not ported "
 
 def _round_up(x: int, q: int) -> int:
     return -(-x // q) * q
-
-
-def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` over the last axis of f32 ``x``: (values, positions
-    (int64)), largest first, the lower position first among equal values,
-    and +0.0 above -0.0 (the float's total order, as ``lax.top_k`` takes
-    it; ``ops/classmax.select_lanes`` ties the two zeros instead)."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    okey = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    pos = torch.arange(x.shape[-1], device=x.device).expand_as(x)
-    sel = torch.topk((-okey << 32) + pos, k, dim=-1, largest=False).indices
-    return torch.gather(x, -1, sel), sel
 
 
 def _route_cols(probes_s: torch.Tensor, C: int, P: int):
@@ -221,22 +210,24 @@ class RoutedSplitIndex:
     def recenter_routing(self, *, chunk: int = 262_144) -> None:
         """Replace each routing centroid with the mean of the rows its
         cluster holds (read from the resident base by ``gid``); a cluster
-        that holds none keeps its centroid."""
+        that holds none keeps its centroid. A cluster's rows are one run of
+        ``cap`` slots, so each mean is a plain row sum over the run, the
+        same on every run (no float atomics); ``chunk`` bounds the rows
+        gathered at once (at least one cluster)."""
         C, cap = self.C, self.cap
         d = self.centroids.shape[1]
-        dev = self.device
-        sums = torch.zeros((C + 1, d), dtype=torch.float32, device=dev)
-        counts = torch.zeros(C + 1, dtype=torch.float32, device=dev)
-        total = (C + 1) * cap
-        for lo in range(0, total, chunk):
-            ids = self.gid[lo:min(lo + chunk, total)]
+        per = max(1, chunk // cap)  # clusters a step
+        sums = torch.zeros((C, d), dtype=torch.float32, device=self.device)
+        counts = torch.zeros(C, dtype=torch.float32, device=self.device)
+        for c0 in range(0, C, per):
+            c1 = min(c0 + per, C)
+            ids = self.gid[c0 * cap:c1 * cap].view(c1 - c0, cap)
             valid = (ids >= 0).to(torch.float32)
             x = self.base_dev[ids.clamp_min(0).long()].to(torch.float32)
-            cl = (torch.arange(lo, lo + ids.shape[0], device=dev) // cap).clamp_max(C)
-            sums.index_add_(0, cl, x * valid[:, None])
-            counts.index_add_(0, cl, valid)
+            sums[c0:c1] = (x * valid[..., None]).sum(dim=1)
+            counts[c0:c1] = valid.sum(dim=1)
         self.centroids = torch.where(
-            counts[:C, None] > 0, sums[:C] / counts[:C, None].clamp_min(1.0),
+            counts[:, None] > 0, sums / counts[:, None].clamp_min(1.0),
             self.centroids)
 
     def preload(self, queries: np.ndarray, *, batch_size: int = 2048):

@@ -3,8 +3,9 @@
 ``hnsw_builder.cc`` is compiled with g++ at first use into
 ``build/shine_tpu_torch/`` under the repository root (beside the CUDA
 kernel library), keyed on a hash of the source and the flags, so an edit
-triggers a rebuild and nothing is written beside the source. Only the
-builder (``shine_hnsw_build``) is bound.
+triggers a rebuild and nothing is written beside the source. The builder
+(``shine_hnsw_build``) and the reverse-edge merge of the scan-speed build
+(``shine_reverse_merge``, through ``reverse_merge``) are bound.
 """
 
 from __future__ import annotations
@@ -78,6 +79,38 @@ def load() -> ctypes.CDLL:
             i32p,  # upper_neighbors
             i64p,  # meta
         ]
+        lib.shine_reverse_merge.restype = ctypes.c_int
+        lib.shine_reverse_merge.argtypes = [
+            i32p,  # fwd_sel (n, M)
+            f32p,  # fwd_d (n, M)
+            i32p,  # ids (n,)
+            ctypes.c_int64,  # n
+            ctypes.c_int,  # M
+            ctypes.c_int,  # cap_c
+            i32p,  # cand_out (n, cap_c)
+            f32p,  # cd_out (n, cap_c)
+            ctypes.c_int,  # threads (0 = all cores)
+        ]
         _lib = lib
         return _lib
+
+
+def reverse_merge(fwd_sel: np.ndarray, fwd_d: np.ndarray, ids: np.ndarray,
+                  cap_c: int, threads: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """The native reverse-edge merge, bit-identical to
+    ``models/fastbuild.py:_reverse_merge_np`` at any thread count: a counting
+    sort by destination and small per-row sorts instead of three global
+    lexsorts. Returns (cand (n, cap_c) int32, dists (n, cap_c) f32)."""
+    lib = load()
+    n, M = fwd_sel.shape
+    fwd_sel = np.ascontiguousarray(fwd_sel, np.int32)
+    fwd_d = np.ascontiguousarray(fwd_d, np.float32)
+    ids = np.ascontiguousarray(ids, np.int32)
+    cand = np.empty((n, cap_c), np.int32)
+    cd = np.empty((n, cap_c), np.float32)
+    rc = lib.shine_reverse_merge(fwd_sel, fwd_d, ids, n, M, cap_c, cand, cd,
+                                 threads)
+    if rc != 0:
+        raise ValueError(f"shine_reverse_merge failed (rc={rc})")
+    return cand, cd
 

@@ -3,8 +3,9 @@
 // graphs without importing the JAX package. The code below this header must
 // stay equal to that file's, so that both packages build the same graph from
 // the same inputs (tests/test_torch_graph.py holds them to it at threads=1).
-// Only the builder is copied: that file's host search and reverse-edge merge,
-// which nothing in the port calls, are left out.
+// The builder and the reverse-edge merge of the scan-speed build
+// (models/fastbuild.py) are copied; that file's host search, which nothing in
+// the port calls, is left out.
 //
 // Clean-room C++20 implementation of the HNSW construction semantics of the
 // reference engine (src/hnsw/hnsw.hh:40-251): geometric level draw with
@@ -411,6 +412,132 @@ int shine_hnsw_build(const float* vecs, int64_t n, int d, int M, int efc,
   meta[1] = b.top_level();
   meta[2] = b.upper_used();
   return b.overflowed() ? 1 : 0;
+}
+
+// Host reverse-edge merge for the fastbuild pipeline — the C++ twin of
+// models/fastbuild.py:_reverse_merge (semantics MUST stay bit-identical;
+// tests/test_torch_fastbuild.py asserts exact equality on adversarial ties).
+// Per vertex: candidates = forward edges ∪ incoming reverse edges, incoming
+// ranked by (dist, src) with at most cap_c granted, the union sorted by
+// (dist, id) ascending with -1 pads last, adjacent-duplicate ids dropped.
+// numpy's three global lexsorts over the (n*M,) edge list are O(E log E)
+// with big constants; here: one stable counting sort by destination row + per-row
+// small sorts. Edges whose destination is not in `ids` are skipped (the
+// callers never produce one: forward edges point within the level set).
+int shine_reverse_merge(const int32_t* fwd_sel, const float* fwd_d,
+                        const int32_t* ids, int64_t n, int M, int cap_c,
+                        int32_t* cand_out, float* cd_out, int threads) {
+  if (n <= 0 || M <= 0 || cap_c <= 0) return 1;
+  if (threads <= 0)
+    threads = std::max(1u, std::thread::hardware_concurrency());
+  int32_t max_id = 0;
+  for (int64_t i = 0; i < n; ++i) max_id = std::max(max_id, ids[i]);
+  std::vector<int32_t> row_of((size_t)max_id + 1, -1);
+  for (int64_t i = 0; i < n; ++i) row_of[(size_t)ids[i]] = (int32_t)i;
+
+  const int64_t E = n * (int64_t)M;
+  // pass 1: incoming degree per destination row
+  std::vector<int64_t> off(n + 1, 0);
+  for (int64_t e = 0; e < E; ++e) {
+    int32_t v = fwd_sel[e];
+    if (v < 0 || v > max_id) continue;
+    int32_t r = row_of[(size_t)v];
+    if (r >= 0) ++off[r + 1];
+  }
+  for (int64_t i = 0; i < n; ++i) off[i + 1] += off[i];
+  struct Inc {
+    float d;
+    int32_t src;
+  };
+  std::vector<Inc> inc((size_t)off[n]);
+  std::vector<int64_t> fill(off.begin(), off.end() - 1);
+  // pass 2: bucket-fill in forward edge order (stable within a row)
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t u = ids[i];
+    const int64_t base = i * (int64_t)M;
+    for (int j = 0; j < M; ++j) {
+      int32_t v = fwd_sel[base + j];
+      if (v < 0 || v > max_id) continue;
+      int32_t r = row_of[(size_t)v];
+      if (r < 0) continue;
+      inc[(size_t)fill[r]++] = {fwd_d[base + j], u};
+    }
+  }
+
+  struct Ent {
+    float d;
+    int32_t key;  // id with -1 -> INT32_MAX (pads sort last)
+    int32_t id;
+  };
+  // NOTE on stability: numpy's lexsorts are stable, but every tie the
+  // comparator cannot split is a fully identical element (key encodes
+  // id; an (d, src) tie in `inc` is a duplicate edge), so plain
+  // std::sort (no per-call allocation, unlike stable_sort) produces
+  // bit-identical output.
+  const auto by_dist_key = [](const Ent& a, const Ent& b) {
+    if (a.d != b.d) return a.d < b.d;
+    return a.key < b.key;
+  };
+  const int W = cap_c + M;
+  // per-row work is independent after the counting sort (each thread
+  // sorts only its own rows' buckets) -> bit-identical at any thread
+  // count
+  const auto worker = [&](int64_t lo, int64_t hi) {
+    std::vector<Ent> row((size_t)W);
+    for (int64_t i = lo; i < hi; ++i) {
+      // incoming, ranked by (dist, src) in place in its bucket — like
+      // np.lexsort((src, dists, rows)) within one row group
+      std::sort(inc.begin() + off[i], inc.begin() + off[i + 1],
+                [](const Inc& a, const Inc& b) {
+                  if (a.d != b.d) return a.d < b.d;
+                  return a.src < b.src;
+                });
+      const int n_in = (int)std::min<int64_t>(off[i + 1] - off[i], cap_c);
+      // assemble: forward first, then granted incoming, then pads
+      const int64_t base = i * (int64_t)M;
+      for (int j = 0; j < M; ++j) {
+        int32_t c = fwd_sel[base + j];
+        // fwd_d kept verbatim at -1 pads (numpy does not mask it; the
+        // callers always pass inf there — select_heuristic's pad value)
+        row[j] = {fwd_d[base + j], c < 0 ? INT32_MAX : c, c};
+      }
+      const Inc* in_s = inc.data() + off[i];
+      for (int j = 0; j < n_in; ++j)
+        row[M + j] = {in_s[j].d, in_s[j].src, in_s[j].src};
+      for (int j = M + n_in; j < W; ++j)
+        row[j] = {INFINITY, INT32_MAX, -1};
+      std::sort(row.begin(), row.end(), by_dist_key);
+      // adjacent-duplicate ids -> dropped; compacting the survivors
+      // left and padding the tail IS the numpy "pad + re-lexsort": the
+      // array is sorted, survivors keep relative order, and a pad
+      // (inf, INT32_MAX) never sorts before one.
+      int w = 0;
+      const int64_t out = i * (int64_t)cap_c;
+      for (int j = 0; j < W && w < cap_c; ++j) {
+        if (j > 0 && row[j].id == row[j - 1].id) continue;
+        cand_out[out + w] = row[j].id;
+        cd_out[out + w] = row[j].d;
+        ++w;
+      }
+      for (; w < cap_c; ++w) {
+        cand_out[out + w] = -1;
+        cd_out[out + w] = INFINITY;
+      }
+    }
+  };
+  if (threads == 1) {
+    worker(0, n);
+  } else {
+    std::vector<std::thread> pool;
+    const int64_t step = (n + threads - 1) / threads;
+    for (int t = 0; t < threads; ++t) {
+      const int64_t lo = t * step;
+      if (lo >= n) break;
+      pool.emplace_back(worker, lo, std::min(n, lo + step));
+    }
+    for (auto& th : pool) th.join();
+  }
+  return 0;
 }
 
 }  // extern "C"

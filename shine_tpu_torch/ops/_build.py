@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
-them at once, and the objects are linked into one shared library with a
-plain C interface, loaded with ctypes. No PyTorch header is included, so
-the build takes seconds, not the minutes that
-``torch.utils.cpp_extension.load`` needs. The library lands in
-``build/shine_tpu_torch/`` under the repository root, keyed on a hash of
-the sources, and is built at first use: nothing happens at import.
+them at once (the ``csrc/*.cuh`` headers they share ride along), and the
+objects are linked into one shared library with a plain C interface,
+loaded with ctypes. No PyTorch header is included, so the build takes
+seconds, not the minutes that ``torch.utils.cpp_extension.load`` needs.
+The library lands in ``build/shine_tpu_torch/`` under the repository
+root, keyed on a hash of the sources and headers, and is built at first
+use: nothing happens at import.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def _sources() -> list[str]:
 
 def lib_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -163,6 +164,30 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32,  # cls
         vp,  # best (G*T, cls) f32
         vp,  # rows (G*T, cls) i32
+        vp,  # cudaStream_t
+    ]
+    lib.shine_blockmax_scan.restype = i32
+    lib.shine_blockmax_scan.argtypes = [
+        vp,  # ext (N_pad, dp) bf16
+        vp,  # q (B, dp) bf16
+        i64,  # N_pad
+        i32,  # B
+        i32,  # dp
+        vp,  # max1 (B, N_pad/128) f32
+        vp,  # arg1 (B, N_pad/128) i32
+        vp,  # max2 (B, N_pad/128) f32
+        vp,  # arg2 (B, N_pad/128) i32
+        vp,  # cudaStream_t
+    ]
+    lib.shine_blockmax_scan2.restype = i32
+    lib.shine_blockmax_scan2.argtypes = [
+        vp,  # ext (N_pad, dp) bf16
+        vp,  # q (B, dp) bf16
+        i64,  # N_pad
+        i32,  # B
+        i32,  # dp
+        vp,  # max1 (B, N_pad/32) f32
+        vp,  # arg1 (B, N_pad/32) i32
         vp,  # cudaStream_t
     ]
     lib.shine_classmax_select.restype = i32

@@ -107,6 +107,20 @@ def select_lanes(best: torch.Tensor, kb: int) -> tuple[torch.Tensor, torch.Tenso
     return torch.gather(best, 1, sel), sel
 
 
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis of f32 ``x``: (values, positions
+    (int64)), largest first, the lower position first among equal values,
+    and +0.0 above -0.0 (the float's total order, as ``lax.top_k`` takes
+    it; ``select_lanes`` ties the two zeros instead). The routed select and
+    the block-max route take it, as their JAX counterparts take
+    ``lax.top_k``."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    okey = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    pos = torch.arange(x.shape[-1], device=x.device).expand_as(x)
+    sel = torch.topk((-okey << 32) + pos, k, dim=-1, largest=False).indices
+    return torch.gather(x, -1, sel), sel
+
+
 def _topk_ref(ext, q_ext, cls, kb, keep2, aux=None):
     out = _classmax_ref(ext, q_ext, cls, keep2, aux)
     vals, sel = select_lanes(out[0], kb)

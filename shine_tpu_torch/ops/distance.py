@@ -48,6 +48,30 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
     return (x * x).sum(dim=-1)
 
 
+_ONE_HOT_CELLS = 1 << 25  # (rows x clusters) f32 cells of one one-hot slice
+
+
+def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sums (k, d) f32, counts (k,) f32) of the rows of ``x`` by cluster
+    ``assign`` (n,), summed in an order that is the same on every run: a
+    one-hot product in full fp32 over slices of rows, the slices added in
+    row order. ``index_add_``'s float atomics on a card add in another order
+    on each run, and one flipped argmin changes every later Lloyd step. The
+    counts are integer, exact."""
+    check_precision()
+    x = x.to(torch.float32)
+    a = assign.to(torch.int64)
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
+    lane = torch.arange(k, device=x.device)
+    rows = max(1, _ONE_HOT_CELLS // max(k, 1))
+    for lo in range(0, x.shape[0], rows):
+        one_hot = (a[lo:lo + rows, None] == lane[None, :]).to(torch.float32)
+        sums += one_hot.T @ x[lo:lo + rows]
+    counts = torch.bincount(a, minlength=k).to(torch.float32)
+    return sums, counts
+
+
 def pairwise_distance(
     queries: torch.Tensor,  # (B, d)
     points: torch.Tensor,  # (N, d)

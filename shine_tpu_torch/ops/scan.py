@@ -70,11 +70,11 @@ def pack_ext_table(vectors: np.ndarray, metric: int, n_pad: int, *,
 
 
 def pack_ext_device(v: torch.Tensor, metric: int) -> torch.Tensor:
-    """The packed table of rows already on a device, with no pad rows
-    (the caller keeps n a multiple of QUANTUM); the norm is the port's
+    """The packed table of rows already on a device, padded with pad rows
+    to a multiple of QUANTUM (none when n is one); the norm is the port's
     full-fp32 ``squared_norms``."""
     t = -squared_norms(v) if metric == METRIC_L2 else None
-    return _pack(v, t, metric, v.shape[0], v.device)
+    return _pack(v, t, metric, -(-v.shape[0] // QUANTUM) * QUANTUM, v.device)
 
 
 def pack_ext_query(q: torch.Tensor, dp: int) -> torch.Tensor:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from shine_tpu_torch.config import METRIC_L2
-from shine_tpu_torch.ops.distance import pairwise_distance
+from shine_tpu_torch.ops.distance import cluster_sums, pairwise_distance
 
 
 def _draw_first(n: int, seed: int) -> int:
@@ -42,14 +42,14 @@ def _init_centroids(points: torch.Tensor, k: int, seed: int) -> torch.Tensor:
 def _lloyd(points: torch.Tensor, *, k: int, iters: int, seed: int
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``iters`` Lloyd iterations from the farthest-point init, one (n, k)
-    distance tile each; an empty cluster keeps its centre. Returns
+    distance tile each; an empty cluster keeps its centre; the sums are
+    ``cluster_sums``', the same on every run. Returns
     (centroids (k, d) f32, assignment (n,) int32)."""
     points = points.to(torch.float32)
     cents = _init_centroids(points, k, seed)
     for _ in range(iters):
         assign = torch.argmin(pairwise_distance(points, cents, METRIC_L2), dim=1)
-        counts = torch.bincount(assign, minlength=k).to(torch.float32)
-        sums = torch.zeros_like(cents).index_add_(0, assign, points)
+        sums, counts = cluster_sums(points, assign, k)
         cents = torch.where(counts[:, None] > 0,
                             sums / counts.clamp_min(1.0)[:, None], cents)
     assign = torch.argmin(pairwise_distance(points, cents, METRIC_L2), dim=1)

@@ -1,10 +1,12 @@
 """The port's brute-force indexes (shine_tpu_torch.models.flat) and their
 re-rank helpers (shine_tpu_torch.ops.distance) against shine_tpu.models.flat
-and shine_tpu.ops.distance. FastFlatIndex is held against the JAX route of
-``fast_flat_search`` (the keep1/keep2, fused/unfused scan branches) built by
-hand from the interpret-mode Pallas kernels, ``lax.top_k`` and
-``rerank_topk``, because the JAX FastFlatIndex itself takes the block-max
-kernel (K5) when it interprets on the CPU."""
+and shine_tpu.ops.distance. FastFlatIndex's class-max routes are held
+against the JAX route of ``fast_flat_search`` (the keep1/keep2,
+fused/unfused scan branches) built by hand from the interpret-mode Pallas
+kernels, ``lax.top_k`` and ``rerank_topk``, because the JAX FastFlatIndex
+itself takes the block-max kernel (K5) when it interprets on the CPU. The
+port's own block-max route (``blockmax=True``) is held against that JAX
+index directly in tests/test_torch_blockmax.py."""
 
 import jax
 import jax.numpy as jnp

@@ -45,11 +45,14 @@ def _clean_env():
     "shine_tpu_torch.graph.soa",
     "shine_tpu_torch.io",
     "shine_tpu_torch.io.checkpoint",
+    "shine_tpu_torch.models.build",
+    "shine_tpu_torch.models.fastbuild",
     "shine_tpu_torch.models.flat",
     "shine_tpu_torch.models.hnsw",
     "shine_tpu_torch.models.ivf",
     "shine_tpu_torch.models.routed_split",
     "shine_tpu_torch.native",
+    "shine_tpu_torch.ops.blockmax",
     "shine_tpu_torch.ops.classmax",
     "shine_tpu_torch.ops.gather_score",
     "shine_tpu_torch.ops.scan",

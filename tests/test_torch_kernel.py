@@ -549,3 +549,135 @@ def test_routed_index_on_card_matches_cpu(card):
     assert built.comp.is_cuda and built.C == cpu.C
     ids, _ = built.search(ds.queries, 10, batch_size=128)
     assert (ids >= 0).all()
+
+
+# --- K5 and K6: the block-max scans ------------------------------------------
+
+def _int_table(rng, n, n_pad, d, metric, dev, B=200):
+    """Packed table of integer rows (ties inside and across blocks; rows past
+    n are pad rows) and integer queries: every score is exact in f32."""
+    from shine_tpu_torch.ops.scan import pack_ext_query, pack_ext_table
+
+    v = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    v[40:48] = v[39]
+    v[300] = v[2]
+    q = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    ext = pack_ext_table(v, metric, n_pad, device=dev)
+    q_ext = pack_ext_query(torch.from_numpy(q).to(dev), ext.shape[1])
+    return ext, q_ext.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("metric", [0, 1])
+def test_blockmax_kernels_integers_bit_for_bit(card, d, metric):
+    """K5 and K6 equal their twins bit for bit on integer tables, pad rows,
+    an all-pad tail, in-block ties and a ragged batch included."""
+    from shine_tpu_torch.ops import blockmax as bm
+
+    rng = np.random.default_rng(d + 7 * metric)
+    ext, q = _int_table(rng, 9000, 16384, d, metric, card, B=77)
+    for fn, ref in ((bm.blockmax_scan, bm.blockmax_scan_ref),
+                    (bm.blockmax_scan2, bm.blockmax_scan2_ref)):
+        before = fn.launches
+        got = fn(ext, q)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = ref(ext, q)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+def test_blockmax_kernels_gaussian(card, d):
+    from shine_tpu_torch.ops import blockmax as bm
+
+    rng = np.random.default_rng(11 * d)
+    ext, q = _k2_case(rng, 16384, d, 256, card, pad_rows=1000)
+    m1, a1, m2, a2 = bm.blockmax_scan(ext, q)
+    w1, wa1, w2, wa2 = bm.blockmax_scan_ref(ext, q)
+    torch.testing.assert_close(m1, w1, rtol=0, atol=K2_ATOL)
+    torch.testing.assert_close(m2, w2, rtol=0, atol=K2_ATOL)
+    clear = (w1 - w2) > K2_ATOL  # the winner is unambiguous
+    assert clear[w2 > -3e38].float().mean() > 0.5  # of the blocks with real rows
+    assert torch.equal(a1[clear], wa1[clear])
+    c1, r1 = bm.blockmax_scan2(ext, q)
+    v1, s1 = bm.blockmax_scan2_ref(ext, q)
+    torch.testing.assert_close(c1, v1, rtol=0, atol=K2_ATOL)
+    assert (r1 == s1).float().mean() > 0.99
+
+
+def test_blockmax_empty_batch_launches_nothing(card):
+    from shine_tpu_torch.ops import blockmax as bm
+
+    ext = torch.zeros(4096, 32, dtype=torch.bfloat16, device=card)
+    q = torch.zeros(0, 32, dtype=torch.bfloat16, device=card)
+    for fn, width in ((bm.blockmax_scan, 32), (bm.blockmax_scan2, 128)):
+        before = fn.launches
+        got = fn(ext, q)
+        assert fn.launches == before
+        assert all(g.shape == (0, width) and g.is_cuda for g in got)
+
+
+@pytest.mark.parametrize("bad", ["width", "wide", "rows", "dtype", "cpu_q",
+                                 "unaligned", "strided"])
+def test_blockmax_kernels_reject_what_they_cannot_take(card, bad):
+    from shine_tpu_torch.ops import blockmax as bm
+
+    ext = torch.zeros(8192, 32, dtype=torch.bfloat16, device=card)
+    q = torch.zeros(8, 32, dtype=torch.bfloat16, device=card)
+    if bad == "width":
+        ext, q = ext[:, :24].contiguous(), q[:, :24].contiguous()
+    elif bad == "wide":
+        ext = torch.zeros(4096, 1328, dtype=torch.bfloat16, device=card)
+        q = torch.zeros(8, 1328, dtype=torch.bfloat16, device=card)
+    elif bad == "rows":
+        ext = ext[:4000]
+    elif bad == "dtype":
+        ext = ext.half()
+    elif bad == "cpu_q":
+        q = q.cpu()
+    elif bad == "unaligned":
+        ext = torch.zeros(8192 * 32 + 4, dtype=torch.bfloat16,
+                          device=card)[4:].view(8192, 32)
+    elif bad == "strided":
+        ext = torch.zeros(8192, 64, dtype=torch.bfloat16, device=card)[:, :32]
+    for fn in (bm.blockmax_scan, bm.blockmax_scan2):
+        with pytest.raises((TypeError, ValueError)):
+            fn(ext, q)
+
+
+# --- ROADMAP C9: the routed build's sums are the same on every run ------------
+
+def test_routed_build_sums_are_deterministic_on_the_card(card):
+    """Two runs of each k-means helper and of recenter_routing on the card,
+    same inputs and seed: bit-identical centroids and assignments."""
+    from shine_tpu_torch import build_routed_split
+    from shine_tpu_torch.models import ivf
+    from shine_tpu_torch.parallel import placement
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(65_536, 64)).astype(np.float32)).to(card)
+
+    def twice(fn):
+        a, b = fn(), fn()
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+        return a
+
+    cents = twice(lambda: ivf._lloyd_chunked(x, k=300, iters=8, seed=5))
+    twice(lambda: placement._lloyd(cents, k=24, iters=15, seed=5))
+    twice(lambda: ivf._lloyd_balance_refine(x, cents, k=300, rounds=2))
+    ds = synthetic_dataset(n=65_536, dim=32, num_queries=8, seed=4, compute_gt=False)
+    base = torch.from_numpy(ds.base).to(card)
+    built = [build_routed_split(65_536, 32, base_dev=base, cap_target=512, cls=128,
+                                train_size=16_384, seed=3) for _ in range(2)]
+    assert torch.equal(built[0].gid, built[1].gid)
+    assert torch.equal(built[0].centroids, built[1].centroids)
+
+    def recentred():
+        built[0].recenter_routing(chunk=8192)
+        return built[0].centroids.clone()
+
+    twice(recentred)
