@@ -3,11 +3,12 @@
 // routed scan of RoutedSplitIndex (K4, below) and the chunked class-max of
 // blockmax_scan2 (K6, below).
 //
-// K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
-// classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
-// classmax2_topk_scan (_kernel2_topk, with _topk_epilogue). K3 replaces
-// shine_tpu/ops/pallas_scan_split.py: classmax_scan_split and
-// classmax_topk_scan_split (_kernel_split, keep2 or not). For query b and
+// K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel) and
+// classmax_topk_scan (_kernel_topk), and the select of classmax2_topk_scan
+// (_topk_epilogue). K3 replaces shine_tpu/ops/pallas_scan_split.py:
+// classmax_scan_split and classmax_topk_scan_split (_kernel_split) without
+// keep2. The keep2 forms (classmax2_scan's _kernel2, _kernel2_topk, K3 with
+// keep2) enter here and run the kernel of classmax2_scan.cu. For query b and
 // class c (row r belongs to class r % cls), with bf16 queries q (B, dp):
 //
 //   K2 score(b, r) = sum_j q[b, j] * ext[r, j]     (packed bf16 table ext
@@ -22,10 +23,8 @@
 //                    (-3e38, row c)); K3's pad rows (comp 0, scl 1, nrm
 //                    -3e38) score exactly -3e38
 //   rows[b, c]     = that row
-//   best2/rows2    = with KEEP2, the best of the class's other rows, by the
-//                    demotion rule of _kernel2: the old winner drops to the
-//                    runner-up slot when beaten; a challenger takes the slot
-//                    only if it beats the runner-up and not the winner.
+//   best2/rows2    = with keep2 (classmax2_scan.cu), the best of the
+//                    class's other rows, by the demotion rule of _kernel2
 //
 // The select kernel then takes, per query, the kb lanes of largest best in
 // (value descending, lane ascending) order and gathers rows (and best2,
@@ -40,16 +39,15 @@
 // (67 TFLOP/s f32) it would take ~16 ms, hence bf16 mma.sync with f32
 // accumulation. K2 measured
 // by chip_smoke.py at that shape (cls=2048, NVIDIA H100 80GB HBM3, 700.00 W):
-// 5.3811 ms without keep2 (5.0x the bound), 11.5302 ms with it; K3's times
-// are in PERF.md.
+// 5.3811 ms (5.0x the bound); K3's times are in PERF.md.
 //
 // What the design does about it. The Pallas kernel kept a (tq, cls) state in
 // VMEM for the whole sweep; a Hopper SM has no such store, so the sweep is
 // cut the other way. Class c = row % cls means that member m of a run of
 // classes lane0 .. lane0+63 is the contiguous block of rows m*cls + lane0 ..
 // m*cls + lane0 + 63. Each CTA owns a (TQ queries) x (64 classes) tile and
-// keeps its running best and member code (and the runner-up pair) in
-// registers, laid out as the mma accumulators are: every thread holds 32
+// keeps its running best and member code in registers, laid out as the mma
+// accumulators are: every thread holds 32
 // (query, class) cells. It walks m = 0 .. N_pad/cls - 1 in order, so the
 // earliest row still wins. For each m the 64 table rows stream through a
 // 3-stage cp.async ring in shared memory (in column chunks of at most 160
@@ -57,9 +55,8 @@
 // TQ x 64 scores come out of m16n8k16 mma.sync, and the max update runs on
 // the accumulators. Rows (= code*cls + lane) are written once, at the end.
 // The query tile is 128 (8 warps, 4 x 2 of 32 x 32) while the queries fit in
-// shared memory beside the ring, else 64 (4 warps); without keep2 two CTAs
-// run on each SM. Fragments come from
-// shared memory by ldmatrix, those of the next 16 columns while the mma of
+// shared memory beside the ring, else 64 (4 warps); two CTAs run on each
+// SM. Fragments come from shared memory by ldmatrix, those of the next 16 columns while the mma of
 // the current ones run; shared-memory rows are padded by 8 bf16 so that the
 // eight row addresses of each 8x8 matrix hit distinct banks.
 //
@@ -100,14 +97,19 @@
 // operations (1.0768 ms at B = 4096 on 1M rows); its outputs are 1.03 GB,
 // 0.31 ms at 3.35 TB/s. No path of the JAX package calls it.
 //
-// Left for later: wgmma with TMA-fed tiles, holding the query fragments in
-// registers across members, a fused select, and for K4 more queries a CTA
-// and an order of groups that shares clusters in the L2 cache.
+// Left for later: the wgmma ring of classmax2_scan.cu for these walks too,
+// a fused select, and for K4 more queries a CTA and an order of groups that
+// shares clusters in the L2 cache.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ptx.cuh"
+
+// The keep2 scan, in classmax2_scan.cu (kind: Kind below).
+int classmax2_dispatch(int kind, const void* table, const void* aux, const void* q,
+                       int64_t n_pad, int B, int dp, int cls, void* best, void* rows,
+                       void* best2, void* rows2, void* stream);
 
 namespace {
 
@@ -181,17 +183,16 @@ struct Route {
   int pad;              // the pad cluster C, skipped: its rows score -3e38
 };
 
-// keep1 is capped at 128 registers a thread so that two CTAs share an SM and
-// their per-member barriers interleave; keep2's state needs ~226, one CTA.
+// Capped at 128 registers a thread so that two CTAs share an SM and their
+// per-member barriers interleave.
 // CHUNKED is K6's walk: CTA z walks only the `members` members of row chunk
 // z (rows z*members*cls ..), the first member entering unconditionally, and
 // writes its classes at columns z*cls .. of a (B, gridDim.z*cls) output.
-template <int WQ, bool KEEP2, int KIND, bool ROUTED, bool CHUNKED = false>
-__global__ void __launch_bounds__(WQ * 2 * 32, KEEP2 ? 1 : 2)
+template <int WQ, int KIND, bool ROUTED, bool CHUNKED = false>
+__global__ void __launch_bounds__(WQ * 2 * 32, 2)
 classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                 const uint16_t* __restrict__ q, float* __restrict__ best,
-                int32_t* __restrict__ rows, float* __restrict__ best2,
-                int32_t* __restrict__ rows2, int B, int dp, int cls, int members,
+                int32_t* __restrict__ rows, int B, int dp, int cls, int members,
                 const Route rt) {
   constexpr bool kSplit = KIND != kExt;
   constexpr bool kI8 = KIND == kSplitI8;
@@ -294,8 +295,8 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   const int wq = warp >> 1, wc = warp & 1;
 
   float acc[2][4][4];
-  float s1[2][4][4], s2[2][4][4];
-  int32_t c1[2][4][4], c2[2][4][4];
+  float s1[2][4][4];
+  int32_t c1[2][4][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -306,10 +307,6 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
         // 0 enters whatever it scores
         s1[mt][nt][i] = CHUNKED ? -__int_as_float(0x7f800000) : kNeg;
         c1[mt][nt][i] = 0;
-        if (KEEP2) {
-          s2[mt][nt][i] = kNeg;
-          c2[mt][nt][i] = 0;
-        }
       }
 
   // the load cursor runs kStages - 1 stages ahead of the compute cursor;
@@ -405,18 +402,9 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float v = acc[mt][nt][i];
-            if (!KEEP2) {
-              if (v > s1[mt][nt][i]) {
-                s1[mt][nt][i] = v;
-                c1[mt][nt][i] = m;
-              }
-            } else {
-              const bool win = v > s1[mt][nt][i];
-              const bool second = !win && v > s2[mt][nt][i];
-              s2[mt][nt][i] = win ? s1[mt][nt][i] : (second ? v : s2[mt][nt][i]);
-              c2[mt][nt][i] = win ? c1[mt][nt][i] : (second ? m : c2[mt][nt][i]);
-              s1[mt][nt][i] = win ? v : s1[mt][nt][i];
-              c1[mt][nt][i] = win ? m : c1[mt][nt][i];
+            if (v > s1[mt][nt][i]) {
+              s1[mt][nt][i] = v;
+              c1[mt][nt][i] = m;
             }
           }
     }
@@ -446,30 +434,24 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
         *reinterpret_cast<int2*>(rows + o) =
             make_int2((code0 + c1[mt][nt][2 * h]) * cls + col,
                       (code0 + c1[mt][nt][2 * h + 1]) * cls + col + 1);
-        if (KEEP2) {
-          *reinterpret_cast<float2*>(best2 + o) =
-              make_float2(s2[mt][nt][2 * h], s2[mt][nt][2 * h + 1]);
-          *reinterpret_cast<int2*>(rows2 + o) =
-              make_int2(c2[mt][nt][2 * h] * cls + col, c2[mt][nt][2 * h + 1] * cls + col + 1);
-        }
       }
     }
 }
 
-template <int WQ, bool KEEP2, int KIND, bool ROUTED = false, bool CHUNKED = false>
+template <int WQ, int KIND, bool ROUTED = false, bool CHUNKED = false>
 int launch_scan(const void* table, const float* aux, const uint16_t* q, float* best,
-                int32_t* rows, float* best2, int32_t* rows2, int B, int dp, int cls,
-                int members, cudaStream_t stream, const Route rt = Route{}, int chunks = 1) {
+                int32_t* rows, int B, int dp, int cls, int members, cudaStream_t stream,
+                const Route rt = Route{}, int chunks = 1) {
   const size_t smem = scan_smem_bytes(WQ, dp, KIND);
-  auto kernel = classmax_kernel<WQ, KEEP2, KIND, ROUTED, CHUNKED>;
+  auto kernel = classmax_kernel<WQ, KIND, ROUTED, CHUNKED>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return int(e);
   constexpr int TQ = WQ * kWarpQ;
   // K4: one CTA row a group of T queries
   const dim3 grid(ROUTED ? B / rt.T : (B + TQ - 1) / TQ, cls / kTC, chunks);
-  kernel<<<grid, WQ * 2 * 32, smem, stream>>>(table, aux, q, best, rows, best2, rows2, B, dp,
-                                              cls, members, rt);
+  kernel<<<grid, WQ * 2 * 32, smem, stream>>>(table, aux, q, best, rows, B, dp, cls, members,
+                                              rt);
   return int(cudaGetLastError());
 }
 
@@ -491,34 +473,31 @@ int dispatch_routed(const void* comp, const void* aux_r, const void* q, const vo
   auto s = static_cast<cudaStream_t>(stream);
   const int members = P * (cap / cls);
   if (wq == 1)
-    return launch_scan<1, false, KIND, true>(comp, a, qq, b1, r1, nullptr, nullptr, G * T,
-                                             dpc, cls, members, s, rt);
-  return launch_scan<2, false, KIND, true>(comp, a, qq, b1, r1, nullptr, nullptr, G * T, dpc,
-                                           cls, members, s, rt);
+    return launch_scan<1, KIND, true>(comp, a, qq, b1, r1, G * T, dpc, cls, members, s, rt);
+  return launch_scan<2, KIND, true>(comp, a, qq, b1, r1, G * T, dpc, cls, members, s, rt);
 }
 
-// Checks the shape, picks the query tile (128, else 64 when the queries of
-// 128 do not fit beside the ring) and launches.
+// Checks the shape, sends keep2 to classmax2_scan.cu, else picks the query
+// tile (128, else 64 when the queries of 128 do not fit beside the ring) and
+// launches.
 template <int KIND>
 int dispatch_scan(const void* table, const void* aux, const void* q, int64_t n_pad, int B,
                   int dp, int cls, int keep2, void* best, void* rows, void* best2,
                   void* rows2, void* stream) {
   if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
+  if (keep2)
+    return classmax2_dispatch(KIND, table, aux, q, n_pad, B, dp, cls, best, rows, best2, rows2,
+                              stream);
   const int members = int(n_pad / cls);
   const auto* a = static_cast<const float*>(aux);
   const auto* qq = static_cast<const uint16_t*>(q);
   auto* b1 = static_cast<float*>(best);
   auto* r1 = static_cast<int32_t*>(rows);
-  auto* b2 = static_cast<float*>(best2);
-  auto* r2 = static_cast<int32_t*>(rows2);
   auto s = static_cast<cudaStream_t>(stream);
   const bool wide = scan_smem_bytes(4, dp, KIND) > 232448;
   if (wide && scan_smem_bytes(2, dp, KIND) > 232448) return int(cudaErrorInvalidValue);
-  if (keep2)
-    return wide ? launch_scan<2, true, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s)
-                : launch_scan<4, true, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
-  return wide ? launch_scan<2, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s)
-              : launch_scan<4, false, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, s);
+  return wide ? launch_scan<2, KIND>(table, a, qq, b1, r1, B, dp, cls, members, s)
+              : launch_scan<4, KIND>(table, a, qq, b1, r1, B, dp, cls, members, s);
 }
 
 // K6: the class-max at cls = 128 of each 4096-row chunk (32 members), the
@@ -536,12 +515,10 @@ int dispatch_chunked(const void* ext, const void* q, int64_t n_pad, int B, int d
   auto s = static_cast<cudaStream_t>(stream);
   const bool wide = scan_smem_bytes(4, dp, kExt) > 232448;
   if (wide && scan_smem_bytes(2, dp, kExt) > 232448) return int(cudaErrorInvalidValue);
-  return wide ? launch_scan<2, false, kExt, false, true>(ext, nullptr, qq, b1, r1, nullptr,
-                                                        nullptr, B, dp, kCls, kMembers, s,
-                                                        Route{}, chunks)
-              : launch_scan<4, false, kExt, false, true>(ext, nullptr, qq, b1, r1, nullptr,
-                                                        nullptr, B, dp, kCls, kMembers, s,
-                                                        Route{}, chunks);
+  return wide ? launch_scan<2, kExt, false, true>(ext, nullptr, qq, b1, r1, B, dp, kCls,
+                                                  kMembers, s, Route{}, chunks)
+              : launch_scan<4, kExt, false, true>(ext, nullptr, qq, b1, r1, B, dp, kCls,
+                                                  kMembers, s, Route{}, chunks);
 }
 
 constexpr int kSelWarps = 4;

@@ -18,7 +18,8 @@ and the sum rounded once each.
 
 Each function takes the JAX signature; ``tq`` and ``tn`` are accepted and
 pick no tiling. CPU tensors take the plain twin (``*_ref``), CUDA tensors
-launch the hand-written kernel in ``csrc/classmax_scan.cu`` or raise;
+launch the hand-written kernel in ``csrc/classmax_scan.cu`` (the keep2
+forms: ``csrc/classmax2_scan.cu``) or raise;
 each wrapper counts its launches in ``<wrapper>.launches`` (the K3
 wrappers also by (comp dtype, keep2) in ``<wrapper>.form_launches``).
 """
@@ -41,12 +42,15 @@ _KERNEL_MAX_DPC = 1280  # the same for a split table, beside its aux ring
 
 
 def _max_first(dd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Max over dim 1 of (B, M, cls) and the first index reaching it."""
+    """Max over dim 1 of (B, M, cls) and the first index reaching it; the
+    value is the first index's own, so that of +0.0 and -0.0 tied the
+    earlier one's sign is kept, as the strict > keeps it."""
     mx = dd.amax(dim=1)
     idx = torch.arange(dd.shape[1], dtype=torch.int32, device=dd.device)
     first = torch.where(dd == mx[:, None, :], idx[None, :, None],
                         dd.shape[1]).amin(dim=1)
-    return mx, first.to(torch.int32)
+    return (torch.gather(dd, 1, first[:, None, :].long()).squeeze(1),
+            first.to(torch.int32))
 
 
 def _classmax_ref(ext: torch.Tensor, q_ext: torch.Tensor, cls: int,

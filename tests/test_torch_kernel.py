@@ -1,5 +1,5 @@
-"""The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4)
-against their plain twins, on a card.
+"""The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4,
+the keep2 scan's edges; K5 and K6) against their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -382,6 +382,124 @@ def test_splitflat_on_card_matches_cpu(card):
             same = a == b
             np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
 
+
+# --- the keep2 kernel's edges (csrc/classmax2_scan.cu) -------------------------
+
+_KEEP2_FORMS = ("ext", "bf16", "int8")
+
+
+def _keep2_inputs(rng, form, n_pad, dp, B, dev, same_rows=False, q_low=-4):
+    """Integer inputs of one keep2 form: K2's table ("ext"), or K3's comp
+    (bf16 or int8) with an aux of integer nrm, scl in {1, 2, -1} and about
+    5% pad rows (comp 0, scl 1, nrm -3e38); every score is exact in f32.
+    ``same_rows`` makes every row (and its aux) the same."""
+    v = rng.integers(-4, 5, size=(n_pad, dp)).astype(np.float32)
+    q = rng.integers(q_low, 5, size=(B, dp)).astype(np.float32)
+    q_t = torch.from_numpy(q).to(dev).to(torch.bfloat16)
+    if same_rows:
+        v[:] = v[0]
+    if form == "ext":
+        return (torch.from_numpy(v).to(dev).to(torch.bfloat16),), q_t
+    aux = np.stack([rng.integers(-8, 9, n_pad),
+                    rng.choice([1.0, 2.0, -1.0], n_pad)]).astype(np.float32)
+    if not same_rows:
+        pad = rng.random(n_pad) < 0.05
+        v[pad] = 0.0
+        aux[0, pad], aux[1, pad] = -3e38, 1.0
+    else:
+        aux[:] = aux[:, :1]
+    comp = torch.from_numpy(v.astype(np.int8) if form == "int8" else v).to(dev)
+    if form == "bf16":
+        comp = comp.to(torch.bfloat16)
+    return (comp, torch.from_numpy(aux).to(dev)), q_t
+
+
+def _keep2_pair(form, tables, q, cls):
+    """(kernel, twin) outputs of the keep2 scan of ``form``."""
+    from shine_tpu_torch.ops import classmax as cm
+
+    if form == "ext":
+        return (cm.classmax2_scan(tables[0], q, cls=cls),
+                cm.classmax2_scan_ref(tables[0], q, cls=cls))
+    return (cm.classmax_scan_split(*tables, q, cls=cls, keep2=True),
+            cm.classmax_scan_split_ref(*tables, q, cls=cls, keep2=True))
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", _KEEP2_FORMS)
+@pytest.mark.parametrize("case", ["one_member", "cls64", "B1", "B65"])
+def test_keep2_kernel_edges_bit_for_bit(card, form, case):
+    """One member (n_pad == cls), one class tile (cls = 64), B = 1 and B = 65
+    (one query past a consumer warpgroup): bit for bit against the twin."""
+    n_pad, cls, B = {"one_member": (256, 256, 100), "cls64": (4096, 64, 130),
+                     "B1": (4096, 256, 1), "B65": (4096, 256, 65)}[case]
+    rng = np.random.default_rng(len(case) + 10 * len(form))
+    tables, q = _keep2_inputs(rng, form, n_pad, 128, B, card)
+    got, want = _keep2_pair(form, tables, q, cls)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("form", _KEEP2_FORMS)
+def test_keep2_kernel_all_scores_equal(card, form):
+    """Every row scores the same: the winner is member 0 and the runner-up
+    the second-earliest row, member 1."""
+    rng = np.random.default_rng(5)
+    cls = 256
+    tables, q = _keep2_inputs(rng, form, 4096, 64, 70, card, same_rows=True)
+    got, want = _keep2_pair(form, tables, q, cls)
+    _same_bits(got, want)
+    lane = torch.arange(cls, dtype=torch.int32, device=card).expand(70, cls)
+    assert torch.equal(got[1], lane) and torch.equal(got[3], lane + cls)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_keep2_kernel_signed_zero_ties(card, form):
+    """Scores of +0.0 and -0.0 (a zero row's scl * 0 + nrm with nrm = +-0
+    and scl = +-1) tie: the earliest row wins with its own sign, the next
+    one is the runner-up, as the strict > keeps them."""
+    rng = np.random.default_rng(17)
+    n_pad, dp, cls = 4096, 32, 256
+    (comp, aux), q = _keep2_inputs(rng, form, n_pad, dp, 90, card, q_low=0)
+    zero = torch.from_numpy(rng.random(n_pad) < 0.5).to(card)
+    zero[:cls] = True  # member 0 is all zero rows: every class has a zero score
+    comp[zero] = 0
+    aux[0] = torch.where(zero, 0.0, -1000.0)
+    sign = torch.from_numpy(rng.random(n_pad) < 0.5).to(card)
+    aux[0] = torch.where(zero & sign, -0.0, aux[0])
+    aux[1] = torch.where(torch.from_numpy(rng.random(n_pad) < 0.5).to(card), -1.0, 1.0)
+    got, want = _keep2_pair(form, (comp, aux), q, cls)
+    _same_bits(got, want)
+    assert (got[0] == 0).all() and torch.signbit(got[0]).any()
+    assert (~torch.signbit(got[0])).any() and torch.signbit(got[2]).any()
+
+
+@pytest.mark.parametrize("form", _KEEP2_FORMS)
+@pytest.mark.parametrize("dp", [400, 912])
+def test_keep2_kernel_wide_widths(card, form, dp):
+    """Column-chunked members on the narrow 64-query tile: dp = 400 (two
+    chunks) and dp = 912 (four), each with a narrower last chunk."""
+    rng = np.random.default_rng(dp + len(form))
+    tables, q = _keep2_inputs(rng, form, 2048, dp, 150, card)
+    got, want = _keep2_pair(form, tables, q, 256)
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("form", _KEEP2_FORMS)
+def test_keep2_kernel_launches_agree(card, form):
+    """Two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(23)
+    tables, q = _keep2_inputs(rng, form, 8192, 144, 300, card)
+    got, want = _keep2_pair(form, tables, q, 512)
+    again, _ = _keep2_pair(form, tables, q, 512)
+    _same_bits(got, again)
+    _same_bits(got, want)
 
 # --- the routed class-max scan (K4) --------------------------------------------
 
