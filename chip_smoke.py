@@ -762,8 +762,7 @@ def split_phases(ds, gt, dev) -> list[dict]:
             kernels.append({
                 "name": f"{fn}[{comp_dtype},keep{2 if keep2 else 1}]",
                 "route": "cuda",
-                "source": "shine_tpu_torch/csrc/" + (
-                    "classmax2_scan.cu" if keep2 else "classmax_scan.cu"),
+                "source": "shine_tpu_torch/csrc/classmax2_scan.cu",
                 "replaces": K3_FUNCS[fn][2],
                 "launches": launches[route],
                 "max_abs_err": max(c["max_abs_err"] for c in at),
@@ -1051,7 +1050,7 @@ def routed_phases(dev) -> list[dict]:
 K56_FORMS = {
     "blockmax_scan": (bm.blockmax_scan, bm.blockmax_scan_ref,
                       "shine_tpu/ops/pallas_scan.py:63",
-                      "shine_tpu_torch/csrc/blockmax_scan.cu"),
+                      "shine_tpu_torch/csrc/classmax2_scan.cu"),
     "blockmax_scan2": (bm.blockmax_scan2, bm.blockmax_scan2_ref,
                        "shine_tpu/ops/pallas_scan2.py:94",
                        "shine_tpu_torch/csrc/classmax_scan.cu"),
@@ -1394,8 +1393,7 @@ def main() -> None:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "shine_tpu_torch/csrc/" + (
-                "classmax2_scan.cu" if "classmax2" in name else "classmax_scan.cu"),
+            "source": "shine_tpu_torch/csrc/classmax2_scan.cu",
             "replaces": K2_FORMS[name][2],
             "launches": k2_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in at),

@@ -1,31 +1,45 @@
-"""Ablate the keep2 class-max scans on one CUDA card: what the keep2 update,
-the products and (in this checkout's kernel) each phase of a member cost.
+"""Ablate the scans of csrc/classmax2_scan.cu on one CUDA card: what the
+update, the products and the loads of each form cost, and what the cluster
+pair (two CTAs sharing each stage's load by TMA multicast) changes.
 
     python scripts/torch_classmax2_ablate.py --parent DIR [--reps 10]
+        [--variants this_unpaired,this_pair_all,...]
 
-DIR is the parent checkout, whose keep2 scan is the mma.sync kernel of
-csrc/classmax_scan.cu (unpack it with ``git archive``). Each variant is a
-copy of a checkout's ``shine_tpu_torch`` under ``build/ablate/`` with one
-edit to its kernel source; all are built at once, each by its own copy of
-``shine_tpu_torch.ops._build``. Variants:
+DIR is the parent checkout (unpack it with ``git archive``), timed as it
+is. Each variant is a copy of a checkout's ``shine_tpu_torch`` under
+``build/ablate/`` with edits to ``csrc/classmax2_scan.cu``; all are built
+at once, each by its own copy of ``shine_tpu_torch.ops._build``. Variants:
 
-    parent             the parent's keep2 kernel as it is
-    parent_no_update   its keep2 update replaced by a sum of the scores into
-                       one register (the mma stay live)
-    parent_no_mma      its mma.sync dropped, the update fed the fragments' bits
-    this               this checkout's kernel (csrc/classmax2_scan.cu)
-    this_no_update     its keep2 update replaced as above
-    this_no_wgmma      its wgmma not issued (the ring and the update run)
+    parent             the parent checkout as it is
+    this               this checkout's kernel (K2a/K2c and K3 bf16 keep1 as
+                       cluster pairs)
+    this_no_update     every update (keep1, keep2, K5's top two) replaced by
+                       a sum of the scores into one register (the products
+                       stay live)
+    this_no_wgmma      the wgmma not issued (the ring and the update run)
+    this_loads_only    both: the producer's loads and the ring alone
+    this_unpaired      no form as a cluster pair
+    this_unpaired_loads_only  the same, loads only
+    this_pair_all      every form of a bf16 table as a pair (keep2 and K5
+                       too; int8 has no pair form)
+    this_pair_release  the pairs' arrivals on the peer's empty barrier with
+                       release at cluster scope
+    this_loads_only_rowbox  loads only, the TMA box one piece of w columns a
+                       row (288 bytes at dp=144) instead of w/8 pieces of 16
+                       bytes (it lands row-major, which wgmma cannot read:
+                       loads only); dp <= 256 only
+    this_unpaired_loads_only_rowbox  the same without pairs
 
-The keep2 scans (K2b; K3 with keep2, bf16 and int8) run at chip_smoke.py's
-1M x 128 shapes (B=4096, cls=2048), each variant timed in the order of the
-list and back (median of ``--reps`` CUDA-event timings after a warm-up).
-The variants compute wrong results by design: nothing is compared. Then a
-copy of this checkout's kernel with clock64 counters reports, per member
-and CTA, the clocks its consumer warpgroups spend waiting for a full slot,
-issuing the wgmma, waiting for the previous member's wgmma, and updating.
-Prints one JSON line a form, the phase clocks, and the card's name, power
-limit and clocks.
+The forms (K2a keep1, K2b keep2, K5, K3 keep1 and keep2 in bf16 and int8)
+run at chip_smoke.py's 1M x 128 shapes (B=4096, cls=2048), each variant
+timed in the order of the list and back (median of ``--reps`` CUDA-event
+timings after a warm-up). The ablated variants compute wrong results by
+design: only the variants that change no result are compared with
+``this``, bit for bit. Then a copy of this checkout's kernel with clock64
+counters reports, per member and consumer warpgroup of K2a, K2b and K5,
+the clocks spent waiting for a full slot, issuing the wgmma, waiting for
+the previous member's wgmma, and updating. Prints one JSON line a form, the phase clocks, and the card's
+name, power limit and clocks.
 """
 
 from __future__ import annotations
@@ -43,9 +57,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from scripts.torch_classmax_ab import CLS, D, N, B, cuda_ms  # noqa: E402
+from scripts.torch_classmax_ab import CLS, D, N, B, bind_entries, cuda_ms  # noqa: E402
 from shine_tpu_torch.io import synthetic_dataset  # noqa: E402
 from shine_tpu_torch.ops import _build  # noqa: E402
+from shine_tpu_torch.ops import blockmax as bm  # noqa: E402
 from shine_tpu_torch.ops import classmax as cm  # noqa: E402
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table  # noqa: E402
 from shine_tpu_torch.ops.scan_split import (  # noqa: E402
@@ -54,43 +69,42 @@ from shine_tpu_torch.ops.scan_split import (  # noqa: E402
     pack_split_tables,
 )
 
-OLD, NEW = "classmax_scan.cu", "classmax2_scan.cu"
-_KEEP2_SELECTS = """              const bool win = v > s1[mt][nt][i];
-              const bool second = !win && v > s2[mt][nt][i];
-              s2[mt][nt][i] = win ? s1[mt][nt][i] : (second ? v : s2[mt][nt][i]);
-              c2[mt][nt][i] = win ? c1[mt][nt][i] : (second ? m : c2[mt][nt][i]);
-              s1[mt][nt][i] = win ? v : s1[mt][nt][i];
-              c1[mt][nt][i] = win ? m : c1[mt][nt][i];"""
-_MMA_LOOP = """      mma_tile(acc, a0, b0);
-      if (ks + 1 < nks) {
-        if (ks + 2 < nks) load_frags(a0, b0, qa + (ks + 2) * 16, eb + (ks + 2) * 16, qstride);
-        mma_tile(acc, a1, b1);
-      }"""
-_UPDATE_HEAD = "    if (kc == ch.nk - 1) {  // member m is scored: the running max update\n"
-_FRAG_BITS = """#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[mt][nt][i] = __uint_as_float(
-                (a0[mt][i] ^ b0[nt >> 1][(nt & 1) * 2 + (i & 1)] ^ a1[mt][i]) & 0x3fffffffu);
-"""
-_CELL = "      keep2_cell(v, code, s1[i], s2[i], c1[i], c2[i]);"
+SRC = "classmax2_scan.cu"
+NO_UPDATE = [
+    ("          keep2_cell(v, code, s1[i], s2[i], c1[i], c2[i]);", "          s1[i] += v;"),
+    ("          keep1_cell(v, code, s1[i], c1[i]);", "          s1[i] += v;"),
+    ("        keep2_cell(y[i], base + (i >> 2) * 8 + (i & 1), bv1[r], bv2[r], br1[r], br2[r]);",
+     "        bv1[r] += y[i];"),
+]
 _WGMMA = "    wgmma_run<16>(x, nks, da, db, 16, 16, kc > 0);"
+NO_WGMMA = [(_WGMMA, "    if (nks < 0)\n  " + _WGMMA)]
+_PAIRED = "  return FORM == kKeep1 && KIND != kSplitI8;\n"
+UNPAIRED = [(_PAIRED, "  return false;\n")]
+PAIR_ALL = [(_PAIRED, "  return KIND != kSplitI8;\n")]
+PAIR_RELEASE = [("mbarrier.arrive.shared::cluster.b64 _, [ra];",
+                 "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];")]
+ROWBOX = [("""  const cuuint64_t dims[4] = {e, 8, cuuint64_t(dp) / e, cuuint64_t(n_pad) / 8};
+  const cuuint64_t strides[3] = {cuuint64_t(dp) * elt, 16, cuuint64_t(dp) * elt * 8};
+  const cuuint32_t box[4] = {cuuint32_t(e), 8, cuuint32_t(w / e), cuuint32_t(groups)};""",
+           """  const cuuint64_t dims[4] = {cuuint64_t(dp), 8, 1, cuuint64_t(n_pad) / 8};
+  const cuuint64_t strides[3] = {cuuint64_t(dp) * elt, cuuint64_t(dp) * elt * 8,
+                                 cuuint64_t(dp) * elt * 8};
+  const cuuint32_t box[4] = {cuuint32_t(w), 8, 1, cuuint32_t(groups)};
+  (void)e;""")]
 
-# (variant, checkout, source, [(old text, new text)])
+# (variant, checkout, [(old text, new text)])
 VARIANTS = [
-    ("parent", "parent", OLD, []),
-    ("parent_no_update", "parent", OLD, [(_KEEP2_SELECTS, "              s1[0][0][0] += v;")]),
-    ("parent_no_mma", "parent", OLD, [
-        (_MMA_LOOP, """      if (ks + 1 < nks) {
-        if (ks + 2 < nks) load_frags(a0, b0, qa + (ks + 2) * 16, eb + (ks + 2) * 16, qstride);
-      }"""),
-        (_UPDATE_HEAD, _UPDATE_HEAD + _FRAG_BITS)]),
-    ("this", "this", NEW, []),
-    ("this_no_update", "this", NEW, [(_CELL, "      s1[i] += v;")]),
-    ("this_no_wgmma", "this", NEW, [(_WGMMA, "    if (nks < 0)\n  " + _WGMMA)]),
+    ("parent", "parent", []),
+    ("this", "this", []),
+    ("this_no_update", "this", NO_UPDATE),
+    ("this_no_wgmma", "this", NO_WGMMA),
+    ("this_loads_only", "this", NO_UPDATE + NO_WGMMA),
+    ("this_unpaired", "this", UNPAIRED),
+    ("this_unpaired_loads_only", "this", UNPAIRED + NO_UPDATE + NO_WGMMA),
+    ("this_pair_all", "this", PAIR_ALL),
+    ("this_pair_release", "this", PAIR_RELEASE),
+    ("this_loads_only_rowbox", "this", NO_UPDATE + NO_WGMMA + ROWBOX),
+    ("this_unpaired_loads_only_rowbox", "this", UNPAIRED + NO_UPDATE + NO_WGMMA + ROWBOX),
 ]
 
 # clock64 counters around the consumer's phases, summed over CTAs
@@ -117,59 +131,73 @@ for _note, _acc in (("m-1, in acc_a", "acc_a, m - 1"), ("m, in acc_b", "acc_b, m
         f"          t_wait += b - a;\n          update({_acc}, prev);\n"
         "          release(prev);\n          t_upd += clock64() - b;\n        }\n"))
 PHASES.append((
-    "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    const int qi = q0 + wg * 64",
+    "  if constexpr (!kBlockWalk) {\n#pragma unroll\n    for (int h = 0; h < 2; ++h) {",
     "  if ((tid & 127) == 0) {\n    atomicAdd(&g_phase[0], t_full);\n"
     "    atomicAdd(&g_phase[1], t_issue);\n    atomicAdd(&g_phase[2], t_wait);\n"
-    "    atomicAdd(&g_phase[3], t_upd);\n    atomicAdd(&g_phase[4], 1ull);\n  }\n"
-    "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    const int qi = q0 + wg * 64"))
+    "    atomicAdd(&g_phase[3], t_upd);\n    atomicAdd(&g_phase[4], 1ull);\n"
+    "    atomicAdd(&g_phase[5], (unsigned long long)count);\n  }\n"
+    "  if constexpr (!kBlockWalk) {\n#pragma unroll\n    for (int h = 0; h < 2; ++h) {"))
 
 _BUILD_ONE = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "from shine_tpu_torch.ops import _build; _build.load(); "
               "print(_build.lib_path())")
 
 
-def make_copy(name: str, checkout: str, source: str, edits: list) -> str:
+def make_copy(name: str, checkout: str, edits: list) -> str:
     """build/ablate/<name>/shine_tpu_torch: the checkout's package with the
-    edits made to csrc/<source>; raises if an edit's text is not there."""
+    edits made to csrc/classmax2_scan.cu; raises if an edit's text is not
+    there."""
     root = os.path.join(REPO, "build", "ablate", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(checkout, "shine_tpu_torch"),
                     os.path.join(root, "shine_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(root, "shine_tpu_torch", "csrc", source)
+    path = os.path.join(root, "shine_tpu_torch", "csrc", SRC)
     with open(path) as f:
         text = f.read()
     for old, new in edits:
         if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to edit is not in {source} once:\n{old}")
+            raise SystemExit(f"{name}: the text to edit is not in {SRC} once:\n{old}")
         text = text.replace(old, new)
     with open(path, "w") as f:
         f.write(text)
     return root
 
 
-def bind(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.shine_classmax_scan.restype = i32
-    lib.shine_classmax_scan.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp]
-    lib.shine_classmax_scan_split.restype = i32
-    lib.shine_classmax_scan_split.argtypes = [vp, i32, vp, vp, i64, i32, i32, i32, i32,
-                                              vp, vp, vp, vp, vp]
-    return lib
+def phase_clocks(lib: ctypes.CDLL, run) -> dict:
+    """The consumer's phase clocks a member and warpgroup over one launch."""
+    sym = ctypes.c_ulonglong * 8
+    lib.shine_phase_read.restype = ctypes.c_int
+    run()
+    torch.cuda.synchronize()
+    before = sym()
+    lib.shine_phase_read(ctypes.cast(before, ctypes.c_void_p))
+    run()
+    torch.cuda.synchronize()
+    after = sym()
+    lib.shine_phase_read(ctypes.cast(after, ctypes.c_void_p))
+    d = [a - b for a, b in zip(after, before)]
+    return {k: d[i] / d[5] for i, k in enumerate(("wait_full", "issue_wgmma", "wait_wgmma",
+                                                 "update_release"))}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, help="the parent checkout")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variants to time, 'phases' for the clock "
+                         "counters (default: all; 'this' always runs)")
     args = ap.parse_args()
+    wanted = ({name for name, _, _ in VARIANTS} | {"phases"} if args.variants is None
+              else {"this", *args.variants.split(",")})
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     checkouts = {"parent": os.path.abspath(args.parent), "this": REPO}
-    roots = {name: make_copy(name, checkouts[c], src, edits)
-             for name, c, src, edits in VARIANTS}
-    roots["phases"] = make_copy("phases", REPO, NEW, PHASES)
+    variants = [v for v in VARIANTS if v[0] in wanted]
+    roots = {name: make_copy(name, checkouts[c], edits) for name, c, edits in variants}
+    if "phases" in wanted:
+        roots["phases"] = make_copy("phases", REPO, PHASES)
     procs = {name: subprocess.Popen([sys.executable, "-c", _BUILD_ONE, root],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for name, root in roots.items()}
@@ -178,47 +206,41 @@ def main() -> None:
         out, err = p.communicate()
         if p.returncode:
             raise SystemExit(f"{name}: the build failed\n{err[-4000:]}")
-        libs[name] = bind(out.strip().splitlines()[-1])
+        libs[name] = bind_entries(ctypes.CDLL(out.strip().splitlines()[-1]))
 
     dev = torch.device("cuda:0")
     ds = synthetic_dataset(n=N, dim=D, num_queries=B, seed=7, compute_gt=False)
     ext = pack_ext_table(ds.base, 0, -(-N // QUANTUM) * QUANTUM, device=dev)
     q_ext = pack_ext_query(torch.from_numpy(ds.queries).to(dev), ext.shape[1]).to(
         torch.bfloat16)
-    forms = [("classmax2_scan", lambda: cm.classmax2_scan(ext, q_ext, cls=CLS))]
+    forms = [("classmax_scan keep1", lambda: cm.classmax_scan(ext, q_ext, cls=CLS)),
+             ("classmax2_scan", lambda: cm.classmax2_scan(ext, q_ext, cls=CLS)),
+             ("blockmax_scan", lambda: bm.blockmax_scan(ext, q_ext))]
     for dt in ("bf16", "int8"):
         comp, aux = pack_split_tables(ds.base, 0, -(-N // SPLIT_QUANTUM) * SPLIT_QUANTUM,
                                       comp_dtype=dt, device=dev)
         q = pack_split_query(torch.from_numpy(ds.queries).to(dev), comp.shape[1])
-        forms.append((f"classmax_scan_split {dt} keep2",
-                      lambda comp=comp, aux=aux, q=q: cm.classmax_scan_split(
-                          comp, aux, q, cls=CLS, keep2=True)))
-    names = [v[0] for v in VARIANTS]
+        forms += [(f"classmax_scan_split {dt} keep{2 if k2 else 1}",
+                   lambda comp=comp, aux=aux, q=q, k2=k2: cm.classmax_scan_split(
+                       comp, aux, q, cls=CLS, keep2=k2)) for k2 in (False, True)]
+    names = [v[0] for v in variants]
+    exact = [n for n in names if n in ("this", "this_unpaired", "this_pair_all",
+                                       "this_pair_release")]
     for form, run in forms:
-        ms = {}
+        ms, outs = {}, {}
         for name in names + names[::-1]:
             _build._lib = libs[name]
+            if name in exact:
+                outs[name] = run()
             ms.setdefault(name, []).append(cuda_ms(run, args.reps))
-        print(json.dumps({"form": form, "ms": ms}), flush=True)
+        equal = {n: all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(outs["this"], outs[n])) for n in exact[1:]}
+        print(json.dumps({"form": form, "ms": ms, "equal_to_this": equal}), flush=True)
 
-    # phase clocks of K2b, one launch after a warm-up
-    _build._lib = libs["phases"]
-    forms[0][1]()
-    torch.cuda.synchronize()
-    sym = ctypes.c_ulonglong * 8
-    lib = libs["phases"]
-    lib.shine_phase_read.restype = ctypes.c_int
-    before = sym()
-    lib.shine_phase_read(ctypes.cast(before, ctypes.c_void_p))
-    forms[0][1]()
-    torch.cuda.synchronize()
-    after = sym()
-    lib.shine_phase_read(ctypes.cast(after, ctypes.c_void_p))
-    d = [a - b for a, b in zip(after, before)]
-    per = d[4] * (ext.shape[0] // CLS)  # consumer warpgroups x members
-    print(json.dumps({"form": "classmax2_scan phases", "clocks_per_member": {
-        k: d[i] / per for i, k in enumerate(("wait_full", "issue_wgmma", "wait_wgmma",
-                                             "update_release"))}}), flush=True)
+    _build._lib = libs.get("phases")
+    for form, run in forms[:3] if "phases" in wanted else []:
+        print(json.dumps({"form": f"{form} phases",
+                          "clocks_per_member": phase_clocks(libs["phases"], run)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
 

@@ -1,5 +1,5 @@
-"""Time the class-max kernels K2 and K3 of two checkouts of the PyTorch port
-in one process, on one CUDA card, in turns.
+"""Time the class-max kernels K2 and K3 and the block-max kernel K5 of two
+checkouts of the PyTorch port in one process, on one CUDA card, in turns.
 
     python scripts/torch_classmax_ab.py --base DIR [--reps 10]
 
@@ -8,10 +8,10 @@ unpacked with ``git archive``). Each checkout's ``csrc`` is built into its
 own library by its own ``shine_tpu_torch.ops._build``; the tables and
 queries are this checkout's, at chip_smoke.py's 1M x 128 shapes (B=4096,
 cls=2048). For each form (K2 keep1 and keep2, K3 bf16 and int8, keep1 and
-keep2) the two libraries run in the order base, this, this, base, each
-timed as the median of ``--reps`` CUDA-event timings after a warm-up, and
-their outputs must agree bit for bit. Prints one JSON line a form and the
-card's name and power limit.
+keep2, K5 on K2's table) the two libraries run in the order base, this,
+this, base, each timed as the median of ``--reps`` CUDA-event timings after
+a warm-up, and their outputs must agree bit for bit (as int32 words).
+Prints one JSON line a form and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ sys.path.insert(0, REPO)
 
 from shine_tpu_torch.io import synthetic_dataset  # noqa: E402
 from shine_tpu_torch.ops import _build  # noqa: E402
+from shine_tpu_torch.ops import blockmax as bm  # noqa: E402
 from shine_tpu_torch.ops import classmax as cm  # noqa: E402
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table  # noqa: E402
 from shine_tpu_torch.ops.scan_split import (  # noqa: E402
@@ -45,20 +46,33 @@ _BUILD_ONE = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "print(_build.lib_path())")
 
 
-def build_lib(checkout: str) -> ctypes.CDLL:
-    """The kernel library of ``checkout``, built by its own builder, with
-    the K2 and K3 entry points bound (their C signatures are the same in
-    every checkout that has them)."""
-    path = subprocess.run([sys.executable, "-c", _BUILD_ONE, checkout], check=True,
-                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
-    lib = ctypes.CDLL(path)
+def bind_entries(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the K2, K3 and K5 entry points bound (their C signatures
+    are the same in every checkout that has them)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.shine_classmax_scan.restype = i32
     lib.shine_classmax_scan.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp]
     lib.shine_classmax_scan_split.restype = i32
     lib.shine_classmax_scan_split.argtypes = [vp, i32, vp, vp, i64, i32, i32, i32, i32,
                                               vp, vp, vp, vp, vp]
+    lib.shine_blockmax_scan.restype = i32
+    lib.shine_blockmax_scan.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp, vp]
     return lib
+
+
+def build_libs(checkouts: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """The kernel library of each checkout, built at once, each by its own
+    builder, bound."""
+    procs = {k: subprocess.Popen([sys.executable, "-c", _BUILD_ONE, path],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for k, path in checkouts.items()}
+    libs = {}
+    for k, p in procs.items():
+        out, err = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"{k}: the build failed\n{err[-4000:]}")
+        libs[k] = bind_entries(ctypes.CDLL(out.strip().splitlines()[-1]))
+    return libs
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -84,7 +98,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda:0")
-    libs = {"base": build_lib(os.path.abspath(args.base)), "this": build_lib(REPO)}
+    libs = build_libs({"base": os.path.abspath(args.base), "this": REPO})
     ds = synthetic_dataset(n=N, dim=D, num_queries=B, seed=7, compute_gt=False)
     ext = pack_ext_table(ds.base, 0, -(-N // QUANTUM) * QUANTUM, device=dev)
     q_ext = pack_ext_query(torch.from_numpy(ds.queries).to(dev), ext.shape[1]).to(
@@ -92,6 +106,7 @@ def main() -> None:
     forms = [(f"classmax_scan keep{2 if k2 else 1}", lambda k2=k2: (
         cm.classmax2_scan if k2 else cm.classmax_scan)(ext, q_ext, cls=CLS))
         for k2 in (False, True)]
+    forms.append(("blockmax_scan", lambda: bm.blockmax_scan(ext, q_ext)))
     for dt in ("bf16", "int8"):
         comp, aux = pack_split_tables(ds.base, 0, -(-N // SPLIT_QUANTUM) * SPLIT_QUANTUM,
                                       comp_dtype=dt, device=dev)
@@ -105,7 +120,8 @@ def main() -> None:
             _build._lib = libs[side]
             outs[side] = run()
             ms[side].append(cuda_ms(run, args.reps))
-        same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs["this"]))
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(outs["base"], outs["this"]))
         print(json.dumps({"form": name, "base_ms": ms["base"], "this_ms": ms["this"],
                           "outputs_equal": same}), flush=True)
         if not same:

@@ -8,10 +8,11 @@ block-max scans, a batched diversity select, the native reverse merge);
 the HNSW search runs in torch with
 the candidate gather-and-score step in a hand-written CUDA kernel
 (``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
-``SplitFlatIndex`` a split bf16 or int8 table and ``RoutedSplitIndex`` the
-clusters its query tiles ask for in a clustered split table, with the
-hand-written class-max kernels (``csrc/classmax_scan.cu``); FastFlat's
-block-max route runs ``csrc/blockmax_scan.cu``. Entry points
+``SplitFlatIndex`` a split bf16 or int8 table (the class-max scans of
+``csrc/classmax2_scan.cu``) and ``RoutedSplitIndex`` the clusters its
+query tiles ask for in a clustered split table (the routed scan of
+``csrc/classmax_scan.cu``); FastFlat's block-max route runs the block-max
+scan of ``csrc/classmax2_scan.cu``. Entry points
 run on the CUDA card unless the caller names another device; on the CPU
 each kernel's plain torch twin runs instead. This package imports neither
 JAX nor the JAX package.

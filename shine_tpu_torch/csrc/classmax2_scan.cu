@@ -1,31 +1,45 @@
-// classmax2_scan: the keep2 class-max scan, the class winners and their
-// runner-ups, on FastFlat's packed bf16 table (K2b, and K2d's scan before the
-// select kernel of classmax_scan.cu) and on SplitFlat's split table in bf16
-// or int8 (K3a/K3b with keep2).
+// classmax2_scan: the Hopper kernel of every brute-force scan over a packed or
+// split table: the class-max scans, keep1 and keep2, on FastFlat's packed bf16
+// table (K2a, K2b, and the scans of K2c and K2d before the select kernel of
+// classmax_scan.cu) and on SplitFlat's split table in bf16 or int8 (K3a/K3b,
+// keep1 and keep2), and the block-max scan (K5).
 //
-// It replaces shine_tpu/ops/pallas_scan3.py: classmax2_scan (_kernel2) and
-// classmax2_topk_scan (_kernel2_topk), and shine_tpu/ops/pallas_scan_split.py:
-// classmax_scan_split and classmax_topk_scan_split with keep2 (_kernel_split).
-// For query b and class c (row r belongs to class r % cls):
+// It replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel),
+// classmax2_scan (_kernel2), classmax_topk_scan (_kernel_topk) and
+// classmax2_topk_scan (_kernel2_topk); shine_tpu/ops/pallas_scan_split.py:
+// classmax_scan_split and classmax_topk_scan_split (_kernel_split); and
+// shine_tpu/ops/pallas_scan.py: blockmax_scan (_scan_kernel). For query b:
 //
 //   K2 score(b, r) = sum_j q[b, j] * ext[r, j]          (bf16 products, f32 sums)
 //   K3 score(b, r) = scl[r] * sum_j q[b, j] * comp[r, j] + nrm[r]
 //                    (product and sum rounded once each, no FMA; int8 comp is
 //                    widened to bf16 exactly; pad rows score exactly -3e38)
+//
+// The class-max scans, class c = r % cls:
 //   best/rows      = the best score of class c and its row, strict > in
 //                    increasing row order (the earliest row wins a tie), from
 //                    the start state (-3e38, code 0); rows = code*cls + c
-//   best2/rows2    = the runner-up by _kernel2's demotion rule: the old winner
-//                    drops to the runner-up slot when beaten; a challenger takes
-//                    the slot only if it beats the runner-up and not the winner.
-//                    The update keeps the select form: fmaxf/fminf may turn a
-//                    -0.0 tie into +0.0, which the strict > never does.
+//   best2/rows2    = keep2 only: the runner-up by _kernel2's demotion rule:
+//                    the old winner drops to the runner-up slot when beaten; a
+//                    challenger takes the slot only if it beats the runner-up
+//                    and not the winner. The update keeps the select form:
+//                    fmaxf/fminf may turn a -0.0 tie into +0.0, which the
+//                    strict > never does.
+// K5, each 128-row block j (rows 128j .. 128j + 127) of the packed table:
+//   max1/arg1      = the block's best score and its row, the lowest row
+//                    winning a tie (jnp.argmax)
+//   max2/arg2      = the best with the winner's score replaced by -3e38 (the
+//                    Pallas kernel's mask), its lowest row: a tied twin of the
+//                    winner is the runner-up, and a block whose other rows all
+//                    score below -3e38 (pad rows score bf16(-3e38) ~ -3.004e38)
+//                    gives (-3e38, arg1). Four (B, N_pad/128) planes.
 //
 // What bounds it on the H100: tensor-core operations. B=4096 queries against
-// the 1,000,000 real rows of a 1M x 128 set are 2*B*1e6*130 FLOP for K2 (width
-// d+2), 1.0768 ms at the data sheet's 989 TFLOP/s of dense bf16, and
+// the 1,000,000 real rows of a 1M x 128 set are 2*B*1e6*130 FLOP for K2 and K5
+// (width d+2), 1.0768 ms at the data sheet's 989 TFLOP/s of dense bf16, and
 // 2*B*1e6*128 for K3, 1.0602 ms; the tables (289 MB, 268 MB, 138 MB) take under
-// 0.09 ms at 3.35 TB/s. Its times are in PERF.md.
+// 0.09 ms at 3.35 TB/s, K5's four outputs (514 MB) 0.15 ms. Its times are in
+// PERF.md.
 //
 // What the design does about it. The keep2 state is 128 registers a thread
 // (winner, runner-up and their member codes for 32 cells), and its update costs
@@ -52,14 +66,41 @@
 //     cores work on m+1, then releases m's slot.
 //   - setmaxnreg moves registers from the producer (40) to the consumers
 //     (232) at 128 queries a CTA.
+// keep1 (FORM kKeep1) is the winner half of the keep2 update, and drops the
+// runner-up's 64 registers. K5 (kBlocks) is another walk of the same ring: a
+// 128-row block is two consecutive 64-row members (member m is rows 64m ..,
+// cls = 64, lane0 = 0), and CTA (x, y) walks the members of blocks y*run ..
+// y*run + run - 1. In wgmma's accumulator layout the four threads of a quad
+// hold all 64 rows of a member for their two query rows, so each thread keeps
+// a top two (score, row) a query row over both members in increasing row
+// order (keep2_cell's strict > keeps the lower row ahead on a tie), the quad
+// merges by two xor shuffles, and the mask rule above gives the Pallas
+// runner-up. Each warp owns 16 queries and all 128 rows of a block, so the
+// results go to a staging area of its own behind __syncwarp, and every 16
+// blocks the warp writes them as 64-byte runs of each of the four planes: no
+// CTA-wide barrier runs in the main loop.
+//
 // The loads are TMA, issued by one thread, because 16-byte cp.async pieces
 // issued by the whole producer warpgroup cost it about as many clocks of
 // address arithmetic a member as the consumers' whole step, on the
 // consumers' schedulers (PERF.md). Shared memory written by the generic proxy
 // (the widening, the query tile) is fenced (fence.proxy.async) before wgmma
 // reads it.
+//
+// Clusters (CL = 2): the two CTAs of a cluster hold neighbouring query tiles
+// and walk the same members. Each producer loads half of every stage's rows
+// (4 of its 8 row groups) with a TMA multicast into both CTAs, so each SM's
+// TMA unit moves half the 16-byte pieces of a stage, which set the pace of
+// the ring (PERF.md); a slot is refilled only once both CTAs' consumers have
+// released it (each consumer warp arrives on its own empty barrier and on its
+// peer's). A cluster barrier after the barriers' init and another before
+// exit keep each CTA's shared memory alive while its peer can still write
+// into it or arrive on its barriers. The keep1 forms of the bf16 tables run
+// as pairs; K5, int8 keep1 and keep2 measured slower or are kept as they
+// were (paired() below, PERF.md).
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
@@ -74,10 +115,17 @@ constexpr int kRaw = 3;          // int8: the producer's raw ring depth
 constexpr int kBarBytes = 256;   // full, empty[kMaxSlots]; raw_full, raw_empty[kRaw]
 constexpr int kSmemMax = 232448;
 constexpr float kNeg = -3e38f;
+constexpr int kBlk = 128;        // K5: rows a block, two members
+constexpr int kRun = 16;         // K5: blocks a warp stages between writes
+constexpr int kStageWords = 4 * 16 * kRun;  // K5: a warp's staging area, [plane][query][block]
+constexpr int kWaveCtas = 1024;  // K5: about the CTAs a launch aims for
 
 enum Kind { kExt = 0, kSplitBf16 = 1, kSplitI8 = 2 };
+// what a CTA keeps: each class's winner (K2a, K2c, K3 keep1), with its
+// runner-up (K2b, K2d, K3 keep2), or each 128-row block's top two (K5)
+enum Form { kKeep1 = 1, kKeep2 = 2, kBlocks = 3 };
 
-// --- mbarriers, proxy fences and wgmma -----------------------------------------
+// --- mbarriers, proxy fences, clusters and wgmma -------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
@@ -86,6 +134,19 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// arrive on the barrier at bar's offset in the shared memory of cluster CTA
+// peer. Without .release.cluster, as CUTLASS's pipelines arrive: the reads it
+// releases, wgmma's, are retired by wgmma.wait_group before it, and a release
+// at cluster scope took longer than the loads it let through (PERF.md).
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t peer) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(peer)
+      : "memory");
 }
 
 // arrive, and expect `bytes` more from the async copies that complete on bar
@@ -103,6 +164,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, uint64_t tmap, uint64_t* 
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(tmap), "r"(smem_addr(bar)), "r"(0), "r"(0), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same box into dst of both CTAs of the cluster, completing on the
+// barrier at bar's offset in each
+__device__ __forceinline__ void tma_load_4d_pair(void* dst, uint64_t tmap, uint64_t* bar,
+                                                 int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_addr(dst)),
+      "l"(tmap), "r"(smem_addr(bar)), "r"(0), "r"(0), "r"(c2), "r"(c3), "h"(uint16_t(3))
       : "memory");
 }
 
@@ -134,6 +206,19 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster, with release/acquire of shared memory
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -228,6 +313,47 @@ __device__ __forceinline__ void keep2_cell(float v, int code, float& s1, float& 
       : "f"(v), "r"(code));
 }
 
+// keep1: the winner half of keep2_cell
+__device__ __forceinline__ void keep1_cell(float v, int code, float& s1, int& c1) {
+  asm("{\n.reg .pred win;\n"
+      "setp.gt.f32 win, %2, %0;\n"
+      "selp.f32 %0, %2, %0, win;\n"
+      "selp.b32 %1, %3, %1, win;\n}\n"
+      : "+f"(s1), "+r"(c1)
+      : "f"(v), "r"(code));
+}
+
+// K5: the best two (score, row) of a set of rows, in (score descending, row
+// ascending) order; an empty slot is (-inf, INT_MAX)
+struct Top2 {
+  float v1;
+  int r1;
+  float v2;
+  int r2;
+};
+
+__device__ __forceinline__ bool ahead(float va, int ra, float vb, int rb) {
+  return va > vb || (va == vb && ra < rb);
+}
+
+// the top two of the union of two disjoint row sets
+__device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
+  const bool a_first = ahead(a.v1, a.r1, b.v1, b.r1);
+  const Top2& w = a_first ? a : b;
+  const Top2& l = a_first ? b : a;
+  Top2 o{w.v1, w.r1, w.v2, w.r2};
+  if (ahead(l.v1, l.r1, w.v2, w.r2)) {
+    o.v2 = l.v1;
+    o.r2 = l.r1;
+  }
+  return o;
+}
+
+__device__ __forceinline__ Top2 shfl_xor(const Top2& t, int mask) {
+  return Top2{__shfl_xor_sync(0xffffffffu, t.v1, mask), __shfl_xor_sync(0xffffffffu, t.r1, mask),
+              __shfl_xor_sync(0xffffffffu, t.v2, mask), __shfl_xor_sync(0xffffffffu, t.r2, mask)};
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -239,21 +365,25 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // The ring: nk column chunks of w columns a member (the last one narrower,
-// all multiples of 16), S slots.
+// all multiples of 16), S slots; K5: the blocks a CTA walks (run).
 struct Plan {
-  int nk, w, S;
+  int nk, w, S, run;
 };
 
 // Shared memory of a CTA: barriers, the query tile (64*nwg rows), S bf16 slots
-// of 64 rows x w, the split's S aux runs, the int8 raw ring.
-size_t smem_bytes(int nwg, int dp, int kind, int w, int S) {
+// of 64 rows x w, the split's S aux runs, the int8 raw ring, K5's staging.
+size_t smem_bytes(int nwg, int dp, int kind, int form, int w, int S) {
   size_t b = kBarBytes + size_t(nwg) * 64 * dp * 2 + size_t(S) * kTC * w * 2;
   if (kind != kExt) b += size_t(S) * 2 * kTC * sizeof(float);
   if (kind == kSplitI8) b += size_t(kRaw) * (kTC * w + 2 * kTC * sizeof(float));
+  if (form == kBlocks) b += size_t(nwg) * 4 * kStageWords * sizeof(uint32_t);
   return b;
 }
 
-template <int NWG, int KIND>
+// best/rows/best2/rows2: the (B, cls) outputs of the class-max forms (keep1
+// writes the first two), or K5's max1/arg1/max2/arg2 (B, members/2). The
+// class-max walk reads members n_pad/cls, K5's members of 64 rows (cls = 64).
+template <int NWG, int KIND, int FORM, int CL>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                  const uint16_t* __restrict__ q, float* __restrict__ best,
@@ -262,6 +392,9 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                  const Plan pl, const __grid_constant__ CUtensorMap tmap) {
   constexpr bool kSplit = KIND != kExt;
   constexpr bool kI8 = KIND == kSplitI8;
+  constexpr bool kBlockWalk = FORM == kBlocks;
+  constexpr bool kPair = CL == 2;
+  static_assert(!(kPair && kI8), "an int8 table's raw ring is not shared");
   constexpr int TQ = NWG * 64;
   const int nk = pl.nk, w = pl.w, S = pl.S;
   const int slot_bytes = kTC * w * 2;
@@ -273,16 +406,25 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   uint8_t* e_s = q_s + TQ * dp * 2;                   // S x [8][w/8][8 rows][8] bf16
   float* a_s = reinterpret_cast<float*>(e_s + S * slot_bytes);       // S x [nrm 64, scl 64]
   uint8_t* r_s = reinterpret_cast<uint8_t*>(a_s + (kSplit ? S * 2 * kTC : 0));  // kRaw raw
+  uint32_t* st_s = reinterpret_cast<uint32_t*>(r_s + (kI8 ? kRaw * raw_bytes : 0));  // K5
   const int64_t n_pad = int64_t(members) * cls;
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ, lane0 = blockIdx.y * kTC;
+  const int q0 = blockIdx.x * TQ;
+  // the class-max walk: every member, classes lane0 ..; K5: the members of
+  // blocks blockIdx.y*run .. (rows 64m .. of member m)
+  const int lane0 = kBlockWalk ? 0 : blockIdx.y * kTC;
+  const int m0 = kBlockWalk ? blockIdx.y * pl.run * 2 : 0;
+  const int count = kBlockWalk ? min(2 * pl.run, members - m0) : members;
+  // a cluster pair: this CTA's rank, the peer's, and the half of each stage's
+  // row groups this CTA's producer loads for both
+  const uint32_t rank = kPair ? cluster_rank() : 0, peer = rank ^ 1;
 
   uint64_t* raw_full = empty + kMaxSlots;  // int8: kRaw raw stages landed
   uint64_t* raw_empty = raw_full + kRaw;   // int8: kRaw raw stages widened
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full + s, kI8 ? 128 : 1);  // the TMA thread, or every widening thread
-      mbar_init(empty + s, NWG * 4);       // every consumer warp
+      mbar_init(empty + s, NWG * 4 * CL);  // every consumer warp (of both CTAs)
     }
     for (int s = 0; s < kRaw; ++s) {
       mbar_init(raw_full + s, 1);
@@ -304,6 +446,7 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   cp_async_wait_all();
   fence_proxy_async();
   __syncthreads();
+  if constexpr (kPair) cluster_sync();  // the peer's barriers are initialised
 
   const int wg = tid >> 7;
   if (wg == NWG) {
@@ -315,15 +458,20 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     uint32_t ph = 0;
     if constexpr (!kI8) {
       // one thread: a TMA load of the stage's 64 rows (K3: and two bulk
-      // copies of its nrm and scl) onto the slot's full barrier
+      // copies of its nrm and scl) onto the slot's full barrier; in a pair,
+      // of its half of the rows into both CTAs
       if (p == 0) {
-        for (int m = 0; m < members; ++m) {
+        for (int m = m0; m < m0 + count; ++m) {
           const int64_t row0 = int64_t(m) * cls + lane0;
           for (int kc = 0; kc < nk; ++kc) {
             const bool with_aux = kSplit && kc == nk - 1;
             mbar_wait(empty + slot, ph ^ 1);
             mbar_expect_tx(full + slot, slot_bytes + (with_aux ? 2 * kTC * 4 : 0));
-            tma_load_4d(e_s + slot * slot_bytes, tm, full + slot, kc * w / 8, int(row0 / 8));
+            if constexpr (kPair)
+              tma_load_4d_pair(e_s + slot * slot_bytes + rank * (slot_bytes / 2), tm,
+                               full + slot, kc * w / 8, int(row0 / 8) + 4 * rank);
+            else
+              tma_load_4d(e_s + slot * slot_bytes, tm, full + slot, kc * w / 8, int(row0 / 8));
             if (with_aux) {
               float* a = a_s + slot * 2 * kTC;
               bulk_load(a, aux + row0, kTC * 4, full + slot);
@@ -338,9 +486,9 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
       // ring; every thread widens its pieces into the bf16 slot. Raw piece
       // i = (g*(w/16) + c)*8 + r is row 8g + r, columns 16c ..; its two bf16
       // halves go to chunks 2c and 2c+1, at (i/8)*256 + (i%8)*16 and +128.
-      const int total = members * nk;
+      const int total = count * nk;
       auto raw_load = [&](int j) {
-        const int rs = j % kRaw, m = j / nk, kc = j - m * nk;
+        const int rs = j % kRaw, m = m0 + j / nk, kc = j - (j / nk) * nk;
         const int64_t row0 = int64_t(m) * cls + lane0;
         const bool with_aux = kc == nk - 1;
         mbar_wait(raw_empty + rs, ((j / kRaw) & 1) ^ 1);
@@ -384,6 +532,10 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
         if (++kc == nk) kc = 0;
       }
     }
+    if constexpr (kPair) {
+      __syncwarp();
+      cluster_sync();
+    }
     return;
   }
 
@@ -408,6 +560,10 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     c1[i] = 0;
     c2[i] = 0;
   }
+  // K5: the running top two of query rows g and g+8 over the block's rows
+  float bv1[2], bv2[2];
+  int br1[2], br2[2];
+  uint32_t* st = st_s + (wg * 4 + warp) * kStageWords;  // K5: this warp's staging
 
   int slot = 0, prev = 0;
   uint32_t ph = 0;
@@ -424,27 +580,99 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
   };
   auto release = [&](int s) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + s);
+    if (lane == 0) {
+      mbar_arrive(empty + s);
+      if constexpr (kPair) mbar_arrive_peer(empty + s, peer);
+    }
+  };
+  // K5: block jb of the CTA's run is scored; blocks jb - jb % 16 .. jb are
+  // staged. The quad's merge, the mask rule, the staging; after the 16th
+  // block of a run or the CTA's last block the warp writes the run out.
+  auto finish_block = [&](int jb) {
+    const int jr = jb % kRun;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      Top2 top{bv1[h], br1[h], bv2[h], br2[h]};
+      top = merge(top, shfl_xor(top, 1));
+      top = merge(top, shfl_xor(top, 2));
+      // the Pallas runner-up: the winner's lane masked to exactly -3e38
+      float v2 = kNeg;
+      int r2 = top.r1;
+      if (top.v2 > kNeg) {
+        v2 = top.v2;
+        r2 = top.r2;
+      } else if (top.v2 == kNeg) {
+        r2 = min(top.r1, top.r2);
+      }
+      if (t == h) {
+        const int row0 = (m0 / 2 + jb) * kBlk;
+        uint32_t* o = st + (g + 8 * h) * kRun + jr;
+        o[0] = __float_as_uint(top.v1);
+        o[16 * kRun] = uint32_t(row0 + top.r1);
+        o[32 * kRun] = __float_as_uint(v2);
+        o[48 * kRun] = uint32_t(row0 + r2);
+      }
+    }
+    if (jr == kRun - 1 || 2 * jb + 2 == count) {
+      __syncwarp();
+      const int nb = members / 2, col0 = m0 / 2 + jb - jr;
+      const int qw = q0 + wg * 64 + warp * 16;
+#pragma unroll
+      for (int pi = 0; pi < 4; ++pi) {
+        uint32_t* out = reinterpret_cast<uint32_t*>(
+            pi == 0 ? static_cast<void*>(best)
+                    : pi == 1 ? static_cast<void*>(rows)
+                              : pi == 2 ? static_cast<void*>(best2) : static_cast<void*>(rows2));
+#pragma unroll
+        for (int k = lane; k < 16 * kRun; k += 32) {  // query k / kRun, block k % kRun
+          const int j = k % kRun, qr = k / kRun;
+          if (j <= jr && qw + qr < B) out[int64_t(qw + qr) * nb + col0 + j] = st[pi * 16 * kRun + k];
+        }
+      }
+      __syncwarp();
+    }
   };
   // member code's dot products are in y and its aux in slot s: the running
   // update (y itself is only read: no instruction but wgmma writes an
   // accumulator, or ptxas serializes the wgmma)
   auto update = [&](const float (&y)[32], int code, int s) {
-    const float* nrm = a_s + s * 2 * kTC + 2 * t;
-    const float* scl = nrm + kTC;
-    float2 sc = make_float2(1.f, 1.f), nr = make_float2(0.f, 0.f);
+    if constexpr (kBlockWalk) {
+      // code = member code of the CTA's walk: half code & 1 of block code / 2
+      const int h = code & 1;
+      if (h == 0) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float v = y[i];
-      if constexpr (kSplit) {
-        if ((i & 3) == 0) {  // class nb*8 + 2t and the next, nb = i / 4
-          sc = *reinterpret_cast<const float2*>(scl + (i >> 2) * 8);
-          nr = *reinterpret_cast<const float2*>(nrm + (i >> 2) * 8);
+        for (int r = 0; r < 2; ++r) {
+          bv1[r] = bv2[r] = -__int_as_float(0x7f800000);
+          br1[r] = br2[r] = INT_MAX;
         }
-        // score = scl * dot + nrm, rounded twice (no FMA contraction)
-        v = __fadd_rn(__fmul_rn(v, (i & 1) ? sc.y : sc.x), (i & 1) ? nr.y : nr.x);
       }
-      keep2_cell(v, code, s1[i], s2[i], c1[i], c2[i]);
+      const int base = h * kTC + 2 * t;  // the block row of cell 0
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        keep2_cell(y[i], base + (i >> 2) * 8 + (i & 1), bv1[r], bv2[r], br1[r], br2[r]);
+      }
+      if (h == 1) finish_block(code >> 1);
+    } else {
+      const float* nrm = a_s + s * 2 * kTC + 2 * t;
+      const float* scl = nrm + kTC;
+      float2 sc = make_float2(1.f, 1.f), nr = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float v = y[i];
+        if constexpr (kSplit) {
+          if ((i & 3) == 0) {  // class nb*8 + 2t and the next, nb = i / 4
+            sc = *reinterpret_cast<const float2*>(scl + (i >> 2) * 8);
+            nr = *reinterpret_cast<const float2*>(nrm + (i >> 2) * 8);
+          }
+          // score = scl * dot + nrm, rounded twice (no FMA contraction)
+          v = __fadd_rn(__fmul_rn(v, (i & 1) ? sc.y : sc.x), (i & 1) ? nr.y : nr.x);
+        }
+        if constexpr (FORM == kKeep2)
+          keep2_cell(v, code, s1[i], s2[i], c1[i], c2[i]);
+        else
+          keep1_cell(v, code, s1[i], c1[i]);
+      }
     }
   };
   auto advance = [&]() {
@@ -455,11 +683,11 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
     // one chunk a member: even members in acc_a, odd ones in acc_b, in
     // straight-line pairs, so that ptxas sees which group each wait retires
     // (a wait it cannot place, it injects as a full one)
-    if (members > 0) {
+    if (count > 0) {
       issue(acc_a, 0);
       advance();
       int m = 1;
-      for (; m + 1 < members; m += 2) {
+      for (; m + 1 < count; m += 2) {
         issue(acc_b, 0);
         wgmma_wait<1>();  // member m-1, in acc_a, is done
         update(acc_a, m - 1, prev);
@@ -471,7 +699,7 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
         release(prev);
         advance();
       }
-      if (m < members) {
+      if (m < count) {
         issue(acc_b, 0);
         wgmma_wait<1>();
         update(acc_a, m - 1, prev);
@@ -500,36 +728,42 @@ classmax2_kernel(const void* __restrict__ table, const float* __restrict__ aux,
       }
     };
     int m = 0;
-    for (; m + 1 < members; m += 2) {
+    for (; m + 1 < count; m += 2) {
       member(acc_a, acc_b, m);
       member(acc_b, acc_a, m + 1);
     }
-    if (m < members) member(acc_a, acc_b, m);
-    if (members > 0) {
+    if (m < count) member(acc_a, acc_b, m);
+    if (count > 0) {
       wgmma_wait<0>();
-      if (members & 1)
-        update(acc_a, members - 1, prev);
+      if (count & 1)
+        update(acc_a, count - 1, prev);
       else
-        update(acc_b, members - 1, prev);
+        update(acc_b, count - 1, prev);
     }
   }
 
+  if constexpr (!kBlockWalk) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + wg * 64 + warp * 16 + g + 8 * h;
-    if (qi >= B) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (qi >= B) continue;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const int i = nb * 4 + 2 * h;
-      const int col = lane0 + nb * 8 + 2 * t;
-      const int64_t o = int64_t(qi) * cls + col;
-      *reinterpret_cast<float2*>(best + o) = make_float2(s1[i], s1[i + 1]);
-      *reinterpret_cast<int2*>(rows + o) = make_int2(c1[i] * cls + col, c1[i + 1] * cls + col + 1);
-      *reinterpret_cast<float2*>(best2 + o) = make_float2(s2[i], s2[i + 1]);
-      *reinterpret_cast<int2*>(rows2 + o) =
-          make_int2(c2[i] * cls + col, c2[i + 1] * cls + col + 1);
+      for (int nb = 0; nb < 8; ++nb) {
+        const int i = nb * 4 + 2 * h;
+        const int col = lane0 + nb * 8 + 2 * t;
+        const int64_t o = int64_t(qi) * cls + col;
+        *reinterpret_cast<float2*>(best + o) = make_float2(s1[i], s1[i + 1]);
+        *reinterpret_cast<int2*>(rows + o) =
+            make_int2(c1[i] * cls + col, c1[i + 1] * cls + col + 1);
+        if constexpr (FORM == kKeep2) {
+          *reinterpret_cast<float2*>(best2 + o) = make_float2(s2[i], s2[i + 1]);
+          *reinterpret_cast<int2*>(rows2 + o) =
+              make_int2(c2[i] * cls + col, c2[i + 1] * cls + col + 1);
+        }
+      }
     }
   }
+  if constexpr (kPair) cluster_sync();  // no CTA exits while its peer may reach it
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -556,17 +790,19 @@ EncodeTiled encode_tiled() {
 
 // The table (n_pad, dp) row-major, bf16 or int8, seen in 4-D as (16-byte
 // chunk's elements, row in an 8-row group, chunk, 8-row group); a box of
-// (all, 8, w/e chunks, 8 groups) lands in shared memory as [group][chunk]
-// [row][16 bytes]: 8-row x 16-byte core matrices, chunks 128 bytes apart,
-// groups w*16 (bf16) bytes apart, the layout wgmma reads without swizzle.
-// Columns past dp are zero-filled.
-bool tma_map(CUtensorMap* map, const void* table, int64_t n_pad, int dp, int w, bool i8) {
+// (all, 8, w/e chunks, `groups` groups) lands in shared memory as [group]
+// [chunk][row][16 bytes]: 8-row x 16-byte core matrices, chunks 128 bytes
+// apart, groups w*16 (bf16) bytes apart, the layout wgmma reads without
+// swizzle. A stage is 8 groups (64 rows): one box, or in a cluster pair two
+// boxes of 4, one from each CTA. Columns past dp are zero-filled.
+bool tma_map(CUtensorMap* map, const void* table, int64_t n_pad, int dp, int w, bool i8,
+             int groups) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t elt = i8 ? 1 : 2, e = 16 / elt;
   const cuuint64_t dims[4] = {e, 8, cuuint64_t(dp) / e, cuuint64_t(n_pad) / 8};
   const cuuint64_t strides[3] = {cuuint64_t(dp) * elt, 16, cuuint64_t(dp) * elt * 8};
-  const cuuint32_t box[4] = {cuuint32_t(e), 8, cuuint32_t(w / e), 8};
+  const cuuint32_t box[4] = {cuuint32_t(e), 8, cuuint32_t(w / e), cuuint32_t(groups)};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(table), dims, strides, box, unit,
@@ -575,72 +811,167 @@ bool tma_map(CUtensorMap* map, const void* table, int64_t n_pad, int dp, int w, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NWG, int KIND>
-int launch(const void* table, const float* aux, const uint16_t* q, float* best, int32_t* rows,
-           float* best2, int32_t* rows2, int B, int dp, int cls, int members, const Plan& pl,
-           size_t smem, cudaStream_t stream) {
+// The outputs and shape of one launch.
+struct Args {
+  const void* table;
+  const float* aux;
+  const uint16_t* q;
+  float* o0;
+  int32_t* o1;
+  float* o2;
+  int32_t* o3;
+  int B, dp, cls, members;
+};
+
+template <int NWG, int KIND, int FORM, int CL>
+int launch(const Args& a, const Plan& pl, size_t smem, cudaStream_t stream) {
   CUtensorMap map;
-  if (!tma_map(&map, table, int64_t(members) * cls, dp, pl.w, KIND == kSplitI8))
+  if (!tma_map(&map, a.table, int64_t(a.members) * a.cls, a.dp, pl.w, KIND == kSplitI8,
+               8 / CL))
     return int(cudaErrorInvalidValue);
-  auto kernel = classmax2_kernel<NWG, KIND>;
+  auto kernel = classmax2_kernel<NWG, KIND, FORM, CL>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((B + NWG * 64 - 1) / (NWG * 64), cls / kTC);
-  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(table, aux, q, best, rows, best2, rows2, B,
-                                                   dp, cls, members, pl, map);
+  // query tiles (an even count in a pair: the last CTA may hold none) x
+  // class tiles, or K5's block runs
+  const int tiles = (a.B + NWG * 64 - 1) / (NWG * 64);
+  const dim3 grid((tiles + CL - 1) / CL * CL,
+                  FORM == kBlocks ? (a.members / 2 + pl.run - 1) / pl.run : a.cls / kTC);
+  if constexpr (CL == 1) {
+    kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(a.table, a.aux, a.q, a.o0, a.o1, a.o2, a.o3,
+                                                     a.B, a.dp, a.cls, a.members, pl, map);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3((NWG + 1) * 128);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kernel, a.table, a.aux, a.q, a.o0, a.o1, a.o2, a.o3, a.B, a.dp,
+                           a.cls, a.members, pl, map);
+    if (e != cudaSuccess) return int(e);
+  }
   return int(cudaGetLastError());
 }
 
-template <int KIND>
-int dispatch(const void* table, const void* aux, const void* q, int64_t n_pad, int B, int dp,
-             int cls, void* best, void* rows, void* best2, void* rows2, void* stream) {
-  if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
+// The forms that run as cluster pairs at 128 queries a CTA: those the pair
+// made faster on the card (PERF.md).
+template <int KIND, int FORM>
+constexpr bool paired() {
+  return FORM == kKeep1 && KIND != kSplitI8;
+}
+
+template <int KIND, int FORM>
+int dispatch(const Args& a, cudaStream_t stream) {
+  if (a.dp % 16 || a.cls % kTC || a.B <= 0) return int(cudaErrorInvalidValue);
   // the 128-query tile while a member's rows fit in one slot (dp <= 256) and
   // a ring of 3 fits beside the queries, else 64 queries beside a ring of 2
   // whose slots hold column chunks
   for (int nwg = 2; nwg >= 1; --nwg) {
     for (int cap = 256; cap >= 16; cap /= 2) {
-      const int units = dp / 16, per = (units + cap / 16 - 1) / (cap / 16);
+      const int units = a.dp / 16, per = (units + cap / 16 - 1) / (cap / 16);
       const int w = (units + per - 1) / per * 16;  // per chunks of at most cap
-      const size_t base = smem_bytes(nwg, dp, KIND, w, 0);
+      const size_t base = smem_bytes(nwg, a.dp, KIND, FORM, w, 0);
       if (base >= size_t(kSmemMax)) continue;
-      const size_t slot = smem_bytes(nwg, dp, KIND, w, 1) - base;
+      const size_t slot = smem_bytes(nwg, a.dp, KIND, FORM, w, 1) - base;
       const int S = int(std::min<size_t>(kMaxSlots, (kSmemMax - base) / slot));
-      if (S < (nwg == 2 ? 3 : 2) || (nwg == 2 && w < dp)) continue;
-      const Plan pl{(dp + w - 1) / w, w, S};
-      const size_t smem = smem_bytes(nwg, dp, KIND, w, S);
-      const int members = int(n_pad / cls);
-      const auto* a = static_cast<const float*>(aux);
-      const auto* qq = static_cast<const uint16_t*>(q);
-      auto* b1 = static_cast<float*>(best);
-      auto* r1 = static_cast<int32_t*>(rows);
-      auto* b2 = static_cast<float*>(best2);
-      auto* r2 = static_cast<int32_t*>(rows2);
-      auto s = static_cast<cudaStream_t>(stream);
-      return nwg == 2 ? launch<2, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, pl,
-                                        smem, s)
-                      : launch<1, KIND>(table, a, qq, b1, r1, b2, r2, B, dp, cls, members, pl,
-                                        smem, s);
+      if (S < (nwg == 2 ? 3 : 2) || (nwg == 2 && w < a.dp)) continue;
+      // K5: about kWaveCtas CTAs, each walking one run of blocks
+      int run = 0;
+      if (FORM == kBlocks) {
+        const int nb = a.members / 2, tiles = (a.B + nwg * 64 - 1) / (nwg * 64);
+        const int runs = std::max(1, std::min((nb + kRun - 1) / kRun, kWaveCtas / tiles));
+        run = (nb + runs - 1) / runs;
+      }
+      const Plan pl{(a.dp + w - 1) / w, w, S, run};
+      const size_t smem = smem_bytes(nwg, a.dp, KIND, FORM, w, S);
+      if (nwg == 1) return launch<1, KIND, FORM, 1>(a, pl, smem, stream);
+      return launch<2, KIND, FORM, paired<KIND, FORM>() ? 2 : 1>(a, pl, smem, stream);
     }
   }
   return int(cudaErrorInvalidValue);
 }
 
+template <int KIND>
+int dispatch_keep(int keep, const Args& a, cudaStream_t stream) {
+  return keep == 2 ? dispatch<KIND, kKeep2>(a, stream) : dispatch<KIND, kKeep1>(a, stream);
+}
+
+// The class-max scans: kind 0 K2's packed bf16 ext, 1 K3's bf16 comp, 2 K3's
+// int8 comp (aux (2, n_pad) f32 [nrm; scl] for 1 and 2); keep 1 or 2.
+// best/rows (B, cls), and best2/rows2 with keep 2. Returns the cudaError_t of
+// the launch.
+int classmax_dispatch(int kind, int keep, const void* table, const void* aux, const void* q,
+                      int64_t n_pad, int B, int dp, int cls, void* best, void* rows,
+                      void* best2, void* rows2, void* stream) {
+  if (cls <= 0 || n_pad % cls) return int(cudaErrorInvalidValue);
+  const Args a{table,
+               static_cast<const float*>(aux),
+               static_cast<const uint16_t*>(q),
+               static_cast<float*>(best),
+               static_cast<int32_t*>(rows),
+               static_cast<float*>(best2),
+               static_cast<int32_t*>(rows2),
+               B,
+               dp,
+               cls,
+               int(n_pad / cls)};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (kind == kSplitI8) return dispatch_keep<kSplitI8>(keep, a, s);
+  if (kind == kSplitBf16) return dispatch_keep<kSplitBf16>(keep, a, s);
+  return dispatch_keep<kExt>(keep, a, s);
+}
+
 }  // namespace
 
-// The keep2 scan of classmax_scan.cu's entry points (shine_classmax_scan and
-// shine_classmax_scan_split with keep2): kind 0 K2's packed bf16 ext, 1 K3's
-// bf16 comp, 2 K3's int8 comp (aux (2, n_pad) f32 [nrm; scl] for 1 and 2).
-// best/rows/best2/rows2 (B, cls). Returns the cudaError_t of the launch.
-int classmax2_dispatch(int kind, const void* table, const void* aux, const void* q,
-                       int64_t n_pad, int B, int dp, int cls, void* best, void* rows,
-                       void* best2, void* rows2, void* stream) {
-  if (kind == kSplitI8)
-    return dispatch<kSplitI8>(table, aux, q, n_pad, B, dp, cls, best, rows, best2, rows2,
-                              stream);
-  if (kind == kSplitBf16)
-    return dispatch<kSplitBf16>(table, aux, q, n_pad, B, dp, cls, best, rows, best2, rows2,
-                                stream);
-  return dispatch<kExt>(table, aux, q, n_pad, B, dp, cls, best, rows, best2, rows2, stream);
+// K2. best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else
+// null). Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte
+// aligned ext and q. Returns the cudaError_t of the launch; the caller
+// raises if not 0.
+extern "C" int shine_classmax_scan(const void* ext, const void* q, int64_t n_pad, int B,
+                                   int dp, int cls, int keep2, void* best, void* rows,
+                                   void* best2, void* rows2, void* stream) {
+  return classmax_dispatch(kExt, keep2 ? 2 : 1, ext, nullptr, q, n_pad, B, dp, cls, best, rows,
+                           best2, rows2, stream);
+}
+
+// K3. comp (n_pad, dpc) bf16 (comp_int8 = 0) or int8 (1), aux (2, n_pad) f32
+// [nrm; scl], q (B, dpc) bf16; outputs and requirements as K2's, aux 16-byte
+// aligned too.
+extern "C" int shine_classmax_scan_split(const void* comp, int comp_int8, const void* aux,
+                                         const void* q, int64_t n_pad, int B, int dpc, int cls,
+                                         int keep2, void* best, void* rows, void* best2,
+                                         void* rows2, void* stream) {
+  return classmax_dispatch(comp_int8 ? kSplitI8 : kSplitBf16, keep2 ? 2 : 1, comp, aux, q, n_pad,
+                           B, dpc, cls, best, rows, best2, rows2, stream);
+}
+
+// K5. ext (n_pad, dp) bf16, q (B, dp) bf16; max1/arg1/max2/arg2 (B, n_pad/128)
+// f32/i32/f32/i32. Needs dp % 16 == 0, n_pad % 128 == 0 and 16-byte aligned
+// ext and q. The query tile is 128 while dp <= 256, else 64. Returns the
+// cudaError_t of the launch; the caller raises if not 0.
+extern "C" int shine_blockmax_scan(const void* ext, const void* q, int64_t n_pad, int B, int dp,
+                                   void* max1, void* arg1, void* max2, void* arg2,
+                                   void* stream) {
+  if (n_pad <= 0 || n_pad % kBlk || n_pad / kTC >= int64_t(INT_MAX))
+    return int(cudaErrorInvalidValue);
+  const Args a{ext,
+               nullptr,
+               static_cast<const uint16_t*>(q),
+               static_cast<float*>(max1),
+               static_cast<int32_t*>(arg1),
+               static_cast<float*>(max2),
+               static_cast<int32_t*>(arg2),
+               B,
+               dp,
+               kTC,
+               int(n_pad / kTC)};
+  return dispatch<kExt, kBlocks>(a, static_cast<cudaStream_t>(stream));
 }

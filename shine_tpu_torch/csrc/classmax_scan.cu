@@ -1,71 +1,37 @@
-// classmax_scan: the brute-force class-max scans of FastFlatIndex (K2) and
-// SplitFlatIndex (K3), their exact top-kb select over the class lanes, the
-// routed scan of RoutedSplitIndex (K4, below) and the chunked class-max of
-// blockmax_scan2 (K6, below).
+// classmax_scan: the exact top-kb select over the class lanes that ends the
+// fused forms of the brute-force class-max scans of FastFlatIndex (K2) and
+// SplitFlatIndex (K3), whose scan is the kernel of classmax2_scan.cu; and the
+// mma.sync class-max kernel, which serves two walks: the routed scan of
+// RoutedSplitIndex (K4) and the chunked class-max of blockmax_scan2 (K6).
 //
-// K2 replaces shine_tpu/ops/pallas_scan3.py: classmax_scan (_kernel) and
-// classmax_topk_scan (_kernel_topk), and the select of classmax2_topk_scan
-// (_topk_epilogue). K3 replaces shine_tpu/ops/pallas_scan_split.py:
-// classmax_scan_split and classmax_topk_scan_split (_kernel_split) without
-// keep2. The keep2 forms (classmax2_scan's _kernel2, _kernel2_topk, K3 with
-// keep2) enter here and run the kernel of classmax2_scan.cu. For query b and
-// class c (row r belongs to class r % cls), with bf16 queries q (B, dp):
+// The class-max semantics (the K2 and K3 scores, ties to the earliest row,
+// the start state (-3e38, code 0), keep2's demotion rule) are written out in
+// classmax2_scan.cu; K4 and K6 below keep them. The select kernel takes, per
+// query, the kb lanes of largest best in (value descending, lane ascending)
+// order and gathers rows (and best2, rows2) at them (the select of
+// classmax_topk_scan, classmax2_topk_scan and the split forms'
+// _topk_epilogue): the scan followed by an exact top-kb and a gather.
 //
-//   K2 score(b, r) = sum_j q[b, j] * ext[r, j]     (packed bf16 table ext
-//                    (N_pad, dp); bf16 products, f32 sums)
-//   K3 score(b, r) = scl[r] * sum_j q[b, j] * comp[r, j] + nrm[r]
-//                    (comp (N_pad, dp) bf16 or int8, turned into bf16
-//                    exactly; aux (2, N_pad) f32 holds nrm, scl; the
-//                    product and the sum round once each, as in Pallas)
-//   best[b, c]     = max over rows r of class c of score(b, r), the earliest
-//                    row winning a tie (strict > in increasing row order); a
-//                    score at or below -3e38 never enters (the start state is
-//                    (-3e38, row c)); K3's pad rows (comp 0, scl 1, nrm
-//                    -3e38) score exactly -3e38
-//   rows[b, c]     = that row
-//   best2/rows2    = with keep2 (classmax2_scan.cu), the best of the
-//                    class's other rows, by the demotion rule of _kernel2
-//
-// The select kernel then takes, per query, the kb lanes of largest best in
-// (value descending, lane ascending) order and gathers rows (and best2,
-// rows2) at them: the scan followed by an exact top-kb and a gather.
-//
-// What bounds it on the H100: tensor-core operations. One batch of B=4096
-// queries against the 1,000,000 real rows of a 1M x 128 set is
-// 2*B*1e6*130 = 1.065e12 FLOP for K2 (width d+2), 1.0768 ms at the data
-// sheet's 989 TFLOP/s of dense bf16, and 2*B*1e6*128 = 1.049e12 FLOP for K3,
-// 1.0602 ms; the tables are 289 MB (K2), 268 MB (K3 bf16, aux included) or
-// 138 MB (K3 int8), under 0.09 ms at 3.35 TB/s. On CUDA cores alone
-// (67 TFLOP/s f32) it would take ~16 ms, hence bf16 mma.sync with f32
-// accumulation. K2 measured
-// by chip_smoke.py at that shape (cls=2048, NVIDIA H100 80GB HBM3, 700.00 W):
-// 5.3811 ms (5.0x the bound); K3's times are in PERF.md.
-//
-// What the design does about it. The Pallas kernel kept a (tq, cls) state in
-// VMEM for the whole sweep; a Hopper SM has no such store, so the sweep is
-// cut the other way. Class c = row % cls means that member m of a run of
-// classes lane0 .. lane0+63 is the contiguous block of rows m*cls + lane0 ..
-// m*cls + lane0 + 63. Each CTA owns a (TQ queries) x (64 classes) tile and
-// keeps its running best and member code in registers, laid out as the mma
-// accumulators are: every thread holds 32
-// (query, class) cells. It walks m = 0 .. N_pad/cls - 1 in order, so the
-// earliest row still wins. For each m the 64 table rows stream through a
-// 3-stage cp.async ring in shared memory (in column chunks of at most 160
-// when dp is wide), the queries stay resident in shared memory, the
-// TQ x 64 scores come out of m16n8k16 mma.sync, and the max update runs on
-// the accumulators. Rows (= code*cls + lane) are written once, at the end.
-// The query tile is 128 (8 warps, 4 x 2 of 32 x 32) while the queries fit in
-// shared memory beside the ring, else 64 (4 warps); two CTAs run on each
-// SM. Fragments come from shared memory by ldmatrix, those of the next 16 columns while the mma of
-// the current ones run; shared-memory rows are padded by 8 bf16 so that the
-// eight row addresses of each 8x8 matrix hit distinct banks.
-//
-// K3 runs the same kernel. The member's 64 nrm and 64 scl (two 256-byte runs
-// of aux) ride in each ring stage beside the table rows and scale and shift
-// the accumulators before the max update. An int8 table streams raw bytes
-// through the ring; once a stage has landed, the CTA widens its 64 rows to
-// bf16 (int8 -> f32 -> bf16 is exact for |x| <= 128) into one bf16 tile of
-// the K2 layout, behind one more barrier, and the mma read that tile.
+// The mma.sync kernel below walks members as the class-max scans do: class c = row % cls
+// means that member m of a run of classes lane0 .. lane0+63 is the contiguous
+// block of rows m*cls + lane0 .. m*cls + lane0 + 63. Each CTA owns a (TQ
+// queries) x (64 classes) tile and keeps its running best and member code in
+// registers, laid out as the mma accumulators are: every thread holds 32
+// (query, class) cells. It walks its members in order, so the earliest row
+// still wins. For each member the 64 table rows stream through a 3-stage
+// cp.async ring in shared memory (in column chunks of at most 160 when dp is
+// wide), the queries stay resident in shared memory, the TQ x 64 scores come
+// out of m16n8k16 mma.sync, and the max update runs on the accumulators. Rows
+// (= code*cls + lane) are written once, at the end. Two CTAs run on each SM.
+// Fragments come from shared memory by ldmatrix, those of the next 16 columns
+// while the mma of the current ones run; shared-memory rows are padded by 8
+// bf16 so that the eight row addresses of each 8x8 matrix hit distinct banks.
+// The member's 64 nrm and 64 scl (two 256-byte runs of aux) ride in each ring
+// stage beside the table rows and scale and shift the accumulators before the
+// max update. An int8 table streams raw bytes through the ring; once a stage
+// has landed, the CTA widens its 64 rows to bf16 (int8 -> f32 -> bf16 is
+// exact for |x| <= 128) into one bf16 tile, behind one more barrier, and the
+// mma read that tile.
 //
 // K4 replaces shine_tpu/ops/pallas_scan_routed.py: routed_classmax_scan
 // (_kernel_routed), RoutedSplitIndex's scan over a cluster-major split table
@@ -74,42 +40,37 @@
 // queries come in groups of T (16, 32 or 64); group g scores only the P
 // clusters of cols[g] (G, P), and its class-max walks code = p*(cap/cls) + m
 // in increasing order, so the earliest code wins a tie; rows = code*cls +
-// lane. It is the same kernel with another address map: a CTA holds one
-// group (a query tile of 32 or 64, zero rows past T) and 64 classes, and the
-// rows of member m of cluster cols[g, p], with their nrm and scl runs of
-// aux_r, stream through K3's ring. Columns that name the pad cluster C are
-// skipped: its rows score -3e38 and never enter, so the result is the same,
-// and a tile whose queries share clusters leaves many such columns (at the
-// auto knobs of a 4.19M x 128 set, ~56% of them). What bounds it: the bf16
-// operations 2*T*cap*128 a granted real column, against the unique bytes of
-// the clusters a batch is granted at 3.35 TB/s; the G*P*cap*136 bytes of its
-// per-group reads (6.8 GB at B=4096, P=192, cap=4096, int8) fall to the L2
-// cache only where groups share clusters. Its times are in PERF.md.
+// lane. A CTA holds one group (a query tile of 32 or 64, zero rows past T)
+// and 64 classes, and the rows of member m of cluster cols[g, p], with their
+// nrm and scl runs of aux_r, stream through the ring. Columns that name the
+// pad cluster C are skipped: its rows score -3e38 and never enter, so the
+// result is the same, and a tile whose queries share clusters leaves many
+// such columns (at the auto knobs of a 4.19M x 128 set, ~56% of them). What
+// bounds it: the bf16 operations 2*T*cap*128 a granted real column, against
+// the unique bytes of the clusters a batch is granted at 3.35 TB/s; the
+// G*P*cap*136 bytes of its per-group reads (6.8 GB at B=4096, P=192,
+// cap=4096, int8) fall to the L2 cache only where groups share clusters. Its
+// times are in PERF.md.
 //
 // K6 replaces shine_tpu/ops/pallas_scan2.py: blockmax_scan2 (_kernel), K2's
 // class-max at cls = 128 restarted at every 4096-row chunk: column c*128 + p of
 // its (B, N_pad/32) outputs holds the best of rows c*4096 + m*128 + p, m =
 // 0..31, the first member winning a tie and member 0 entering whatever it
-// scores (the Pallas running max starts from it). It is the K2 kernel with a
-// chunked walk (CHUNKED): CTA z of the grid's third axis walks chunk z's 32
-// members, starts its running max at -inf, and writes its 128 classes at
-// columns z*128 ..; K2, K3 and K4 compile as before. What bounds it: K2's
-// operations (1.0768 ms at B = 4096 on 1M rows); its outputs are 1.03 GB,
-// 0.31 ms at 3.35 TB/s. No path of the JAX package calls it.
+// scores (the Pallas running max starts from it). It is the chunked walk
+// (CHUNKED): CTA z of the grid's third axis walks chunk z's 32 members, starts
+// its running max at -inf, and writes its 128 classes at columns z*128 ...
+// What bounds it: K2's operations (1.0768 ms at B = 4096 on 1M rows); its
+// outputs are 1.03 GB, 0.31 ms at 3.35 TB/s. No path of the JAX package calls
+// it.
 //
-// Left for later: the wgmma ring of classmax2_scan.cu for these walks too,
-// a fused select, and for K4 more queries a CTA and an order of groups that
-// shares clusters in the L2 cache.
+// Left for later: the wgmma ring of classmax2_scan.cu for these two walks
+// too, a fused select, and for K4 more queries a CTA and an order of groups
+// that shares clusters in the L2 cache.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "ptx.cuh"
-
-// The keep2 scan, in classmax2_scan.cu (kind: Kind below).
-int classmax2_dispatch(int kind, const void* table, const void* aux, const void* q,
-                       int64_t n_pad, int B, int dp, int cls, void* best, void* rows,
-                       void* best2, void* rows2, void* stream);
 
 namespace {
 
@@ -185,15 +146,17 @@ struct Route {
 
 // Capped at 128 registers a thread so that two CTAs share an SM and their
 // per-member barriers interleave.
-// CHUNKED is K6's walk: CTA z walks only the `members` members of row chunk
-// z (rows z*members*cls ..), the first member entering unconditionally, and
-// writes its classes at columns z*cls .. of a (B, gridDim.z*cls) output.
+// ROUTED is K4's walk. CHUNKED is K6's walk: CTA z walks only the `members`
+// members of row chunk z (rows z*members*cls ..), the first member entering
+// unconditionally, and writes its classes at columns z*cls .. of a (B,
+// gridDim.z*cls) output.
 template <int WQ, int KIND, bool ROUTED, bool CHUNKED = false>
 __global__ void __launch_bounds__(WQ * 2 * 32, 2)
 classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
                 const uint16_t* __restrict__ q, float* __restrict__ best,
                 int32_t* __restrict__ rows, int B, int dp, int cls, int members,
                 const Route rt) {
+  static_assert(ROUTED != CHUNKED, "K4's walk or K6's");
   constexpr bool kSplit = KIND != kExt;
   constexpr bool kI8 = KIND == kSplitI8;
   constexpr int kThreads = WQ * 2 * 32;
@@ -255,10 +218,8 @@ classmax_kernel(const void* __restrict__ table, const float* __restrict__ aux,
       const int64_t c = __ldg(rt.cols + int64_t(blockIdx.x) * rt.P + p);
       row0 = c * rt.cap + int64_t(mm) * cls + lane0;
       aux_c = aux + (c * 2 * rt.mc + mm) * cls + lane0;
-    } else if constexpr (CHUNKED) {
-      row0 = (int64_t(blockIdx.z) * members + m) * cls + lane0;
     } else {
-      row0 = int64_t(m) * cls + lane0;
+      row0 = (int64_t(blockIdx.z) * members + m) * cls + lane0;
     }
     if constexpr (kI8) {
       const int pieces = min(ch.w, dp - c0) / 16;
@@ -477,29 +438,6 @@ int dispatch_routed(const void* comp, const void* aux_r, const void* q, const vo
   return launch_scan<2, KIND, true>(comp, a, qq, b1, r1, G * T, dpc, cls, members, s, rt);
 }
 
-// Checks the shape, sends keep2 to classmax2_scan.cu, else picks the query
-// tile (128, else 64 when the queries of 128 do not fit beside the ring) and
-// launches.
-template <int KIND>
-int dispatch_scan(const void* table, const void* aux, const void* q, int64_t n_pad, int B,
-                  int dp, int cls, int keep2, void* best, void* rows, void* best2,
-                  void* rows2, void* stream) {
-  if (dp % 16 || cls % kTC || n_pad % cls || B <= 0) return int(cudaErrorInvalidValue);
-  if (keep2)
-    return classmax2_dispatch(KIND, table, aux, q, n_pad, B, dp, cls, best, rows, best2, rows2,
-                              stream);
-  const int members = int(n_pad / cls);
-  const auto* a = static_cast<const float*>(aux);
-  const auto* qq = static_cast<const uint16_t*>(q);
-  auto* b1 = static_cast<float*>(best);
-  auto* r1 = static_cast<int32_t*>(rows);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool wide = scan_smem_bytes(4, dp, KIND) > 232448;
-  if (wide && scan_smem_bytes(2, dp, KIND) > 232448) return int(cudaErrorInvalidValue);
-  return wide ? launch_scan<2, KIND>(table, a, qq, b1, r1, B, dp, cls, members, s)
-              : launch_scan<4, KIND>(table, a, qq, b1, r1, B, dp, cls, members, s);
-}
-
 // K6: the class-max at cls = 128 of each 4096-row chunk (32 members), the
 // query tile 128, else 64 when the queries of 128 do not fit.
 int dispatch_chunked(const void* ext, const void* q, int64_t n_pad, int B, int dp, void* best,
@@ -576,31 +514,6 @@ select_kernel(const float* __restrict__ best, const int32_t* __restrict__ rows,
 }
 
 }  // namespace
-
-// K2. best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else
-// null). Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte
-// aligned ext and q. Returns the cudaError_t of the launch; the caller
-// raises if not 0.
-extern "C" int shine_classmax_scan(const void* ext, const void* q, int64_t n_pad, int B,
-                                   int dp, int cls, int keep2, void* best, void* rows,
-                                   void* best2, void* rows2, void* stream) {
-  return dispatch_scan<kExt>(ext, nullptr, q, n_pad, B, dp, cls, keep2, best, rows, best2,
-                             rows2, stream);
-}
-
-// K3. comp (n_pad, dpc) bf16 (comp_int8 = 0) or int8 (1), aux (2, n_pad) f32
-// [nrm; scl], q (B, dpc) bf16; outputs and requirements as K2's, aux 16-byte
-// aligned too.
-extern "C" int shine_classmax_scan_split(const void* comp, int comp_int8, const void* aux,
-                                         const void* q, int64_t n_pad, int B, int dpc, int cls,
-                                         int keep2, void* best, void* rows, void* best2,
-                                         void* rows2, void* stream) {
-  if (comp_int8)
-    return dispatch_scan<kSplitI8>(comp, aux, q, n_pad, B, dpc, cls, keep2, best, rows, best2,
-                                   rows2, stream);
-  return dispatch_scan<kSplitBf16>(comp, aux, q, n_pad, B, dpc, cls, keep2, best, rows, best2,
-                                   rows2, stream);
-}
 
 // K4. comp ((C+1)*cap or more rows, dpc) bf16 (comp_int8 = 0) or int8 (1),
 // cluster-major; aux_r (C+1, 2*cap/cls, cls) f32, nrm rows then scl rows,

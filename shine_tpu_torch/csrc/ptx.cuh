@@ -1,5 +1,5 @@
 // ptx.cuh: the PTX wrappers that the scan kernels share (classmax_scan.cu,
-// blockmax_scan.cu): cp.async copies into shared memory, ldmatrix fragment
+// classmax2_scan.cu): cp.async copies into shared memory, ldmatrix fragment
 // loads and the bf16 m16n8k16 mma.sync with f32 accumulators.
 
 #pragma once

@@ -22,8 +22,8 @@ a few rows a block:
 
 CPU tensors take the plain twins (``*_ref``, chunked over rows so that
 they fit at 1M rows on a card); CUDA tensors launch the hand-written
-kernels (K5 ``csrc/blockmax_scan.cu``, K6 the chunked walk of
-``csrc/classmax_scan.cu``) or raise. Each wrapper counts its launches in
+kernels (K5 the block walk of ``csrc/classmax2_scan.cu``, K6 the chunked
+walk of ``csrc/classmax_scan.cu``) or raise. Each wrapper counts its launches in
 ``<wrapper>.launches``. ``tq`` and ``tn`` are accepted for the JAX
 signature and pick no tiling.
 """
@@ -42,7 +42,7 @@ BLK2 = 32  # K6's members a chunk
 COLS = 128  # K6's classes a chunk
 TN = BLK2 * COLS  # K6's rows a chunk
 _REF_ROWS = 32_768  # rows the twins score a step
-_K5_MAX_DP = 1312  # widest table whose 32-query tile fits beside K5's ring
+_K5_MAX_DP = 1312  # widest table whose 64-query tile fits beside K5's ring
 
 
 def group_rows(tn: int = TN) -> int:

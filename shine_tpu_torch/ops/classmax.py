@@ -18,8 +18,9 @@ and the sum rounded once each.
 
 Each function takes the JAX signature; ``tq`` and ``tn`` are accepted and
 pick no tiling. CPU tensors take the plain twin (``*_ref``), CUDA tensors
-launch the hand-written kernel in ``csrc/classmax_scan.cu`` (the keep2
-forms: ``csrc/classmax2_scan.cu``) or raise;
+launch the hand-written kernel of ``csrc/classmax2_scan.cu`` (the
+``*_topk_*`` forms then the select kernel of ``csrc/classmax_scan.cu``) or
+raise;
 each wrapper counts its launches in ``<wrapper>.launches`` (the K3
 wrappers also by (comp dtype, keep2) in ``<wrapper>.form_launches``).
 """

@@ -1,5 +1,6 @@
 """The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4,
-the keep2 scan's edges; K5 and K6) against their plain twins, on a card.
+the edges of classmax2_scan.cu's keep1 and keep2 scans; K5, its edges, and
+K6) against their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -383,7 +384,7 @@ def test_splitflat_on_card_matches_cpu(card):
             np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
 
 
-# --- the keep2 kernel's edges (csrc/classmax2_scan.cu) -------------------------
+# --- the class-max kernel's edges, keep1 and keep2 (csrc/classmax2_scan.cu) ----
 
 _KEEP2_FORMS = ("ext", "bf16", "int8")
 
@@ -414,56 +415,67 @@ def _keep2_inputs(rng, form, n_pad, dp, B, dev, same_rows=False, q_low=-4):
     return (comp, torch.from_numpy(aux).to(dev)), q_t
 
 
-def _keep2_pair(form, tables, q, cls):
-    """(kernel, twin) outputs of the keep2 scan of ``form``."""
+def _keep2_pair(form, tables, q, cls, keep=2):
+    """(kernel, twin) outputs of the keep1 or keep2 scan of ``form``."""
     from shine_tpu_torch.ops import classmax as cm
 
     if form == "ext":
+        if keep == 1:
+            return (cm.classmax_scan(tables[0], q, cls=cls),
+                    cm.classmax_scan_ref(tables[0], q, cls=cls))
         return (cm.classmax2_scan(tables[0], q, cls=cls),
                 cm.classmax2_scan_ref(tables[0], q, cls=cls))
-    return (cm.classmax_scan_split(*tables, q, cls=cls, keep2=True),
-            cm.classmax_scan_split_ref(*tables, q, cls=cls, keep2=True))
+    return (cm.classmax_scan_split(*tables, q, cls=cls, keep2=keep == 2),
+            cm.classmax_scan_split_ref(*tables, q, cls=cls, keep2=keep == 2))
 
 
-def _same_bits(got, want):
-    assert len(got) == len(want) == 4
+def _same_bits(got, want, planes=4):
+    assert len(got) == len(want) == planes
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
+@pytest.mark.parametrize("keep", [1, 2])
 @pytest.mark.parametrize("form", _KEEP2_FORMS)
-@pytest.mark.parametrize("case", ["one_member", "cls64", "B1", "B65"])
-def test_keep2_kernel_edges_bit_for_bit(card, form, case):
-    """One member (n_pad == cls), one class tile (cls = 64), B = 1 and B = 65
-    (one query past a consumer warpgroup): bit for bit against the twin."""
+@pytest.mark.parametrize("case", ["one_member", "cls64", "B1", "B65", "B129", "B257"])
+def test_keep2_kernel_edges_bit_for_bit(card, form, case, keep):
+    """One member (n_pad == cls), one class tile (cls = 64), B = 1, B = 65
+    (one query past a consumer warpgroup), B = 129 (one past a 128-query
+    tile) and B = 257 (three tiles, an odd count): bit for bit against the
+    twin."""
     n_pad, cls, B = {"one_member": (256, 256, 100), "cls64": (4096, 64, 130),
-                     "B1": (4096, 256, 1), "B65": (4096, 256, 65)}[case]
+                     "B1": (4096, 256, 1), "B65": (4096, 256, 65),
+                     "B129": (4096, 256, 129), "B257": (4096, 256, 257)}[case]
     rng = np.random.default_rng(len(case) + 10 * len(form))
     tables, q = _keep2_inputs(rng, form, n_pad, 128, B, card)
-    got, want = _keep2_pair(form, tables, q, cls)
+    got, want = _keep2_pair(form, tables, q, cls, keep)
     torch.cuda.synchronize()
-    _same_bits(got, want)
+    _same_bits(got, want, 2 * keep)
 
 
+@pytest.mark.parametrize("keep", [1, 2])
 @pytest.mark.parametrize("form", _KEEP2_FORMS)
-def test_keep2_kernel_all_scores_equal(card, form):
+def test_keep2_kernel_all_scores_equal(card, form, keep):
     """Every row scores the same: the winner is member 0 and the runner-up
     the second-earliest row, member 1."""
     rng = np.random.default_rng(5)
     cls = 256
     tables, q = _keep2_inputs(rng, form, 4096, 64, 70, card, same_rows=True)
-    got, want = _keep2_pair(form, tables, q, cls)
-    _same_bits(got, want)
+    got, want = _keep2_pair(form, tables, q, cls, keep)
+    _same_bits(got, want, 2 * keep)
     lane = torch.arange(cls, dtype=torch.int32, device=card).expand(70, cls)
-    assert torch.equal(got[1], lane) and torch.equal(got[3], lane + cls)
+    assert torch.equal(got[1], lane)
+    if keep == 2:
+        assert torch.equal(got[3], lane + cls)
 
 
+@pytest.mark.parametrize("keep", [1, 2])
 @pytest.mark.parametrize("form", ["bf16", "int8"])
-def test_keep2_kernel_signed_zero_ties(card, form):
+def test_keep2_kernel_signed_zero_ties(card, form, keep):
     """Scores of +0.0 and -0.0 (a zero row's scl * 0 + nrm with nrm = +-0
     and scl = +-1) tie: the earliest row wins with its own sign, the next
-    one is the runner-up, as the strict > keeps them."""
+    one (keep2) is the runner-up, as the strict > keeps them."""
     rng = np.random.default_rng(17)
     n_pad, dp, cls = 4096, 32, 256
     (comp, aux), q = _keep2_inputs(rng, form, n_pad, dp, 90, card, q_low=0)
@@ -474,32 +486,36 @@ def test_keep2_kernel_signed_zero_ties(card, form):
     sign = torch.from_numpy(rng.random(n_pad) < 0.5).to(card)
     aux[0] = torch.where(zero & sign, -0.0, aux[0])
     aux[1] = torch.where(torch.from_numpy(rng.random(n_pad) < 0.5).to(card), -1.0, 1.0)
-    got, want = _keep2_pair(form, (comp, aux), q, cls)
-    _same_bits(got, want)
+    got, want = _keep2_pair(form, (comp, aux), q, cls, keep)
+    _same_bits(got, want, 2 * keep)
     assert (got[0] == 0).all() and torch.signbit(got[0]).any()
-    assert (~torch.signbit(got[0])).any() and torch.signbit(got[2]).any()
+    assert (~torch.signbit(got[0])).any()
+    if keep == 2:
+        assert torch.signbit(got[2]).any()
 
 
+@pytest.mark.parametrize("keep", [1, 2])
 @pytest.mark.parametrize("form", _KEEP2_FORMS)
 @pytest.mark.parametrize("dp", [400, 912])
-def test_keep2_kernel_wide_widths(card, form, dp):
+def test_keep2_kernel_wide_widths(card, form, dp, keep):
     """Column-chunked members on the narrow 64-query tile: dp = 400 (two
     chunks) and dp = 912 (four), each with a narrower last chunk."""
     rng = np.random.default_rng(dp + len(form))
     tables, q = _keep2_inputs(rng, form, 2048, dp, 150, card)
-    got, want = _keep2_pair(form, tables, q, 256)
-    _same_bits(got, want)
+    got, want = _keep2_pair(form, tables, q, 256, keep)
+    _same_bits(got, want, 2 * keep)
 
 
+@pytest.mark.parametrize("keep", [1, 2])
 @pytest.mark.parametrize("form", _KEEP2_FORMS)
-def test_keep2_kernel_launches_agree(card, form):
+def test_keep2_kernel_launches_agree(card, form, keep):
     """Two launches on the same inputs give the same bits."""
     rng = np.random.default_rng(23)
     tables, q = _keep2_inputs(rng, form, 8192, 144, 300, card)
-    got, want = _keep2_pair(form, tables, q, 512)
-    again, _ = _keep2_pair(form, tables, q, 512)
-    _same_bits(got, again)
-    _same_bits(got, want)
+    got, want = _keep2_pair(form, tables, q, 512, keep)
+    again, _ = _keep2_pair(form, tables, q, 512, keep)
+    _same_bits(got, again, 2 * keep)
+    _same_bits(got, want, 2 * keep)
 
 # --- the routed class-max scan (K4) --------------------------------------------
 
@@ -763,6 +779,102 @@ def test_blockmax_kernels_reject_what_they_cannot_take(card, bad):
     for fn in (bm.blockmax_scan, bm.blockmax_scan2):
         with pytest.raises((TypeError, ValueError)):
             fn(ext, q)
+
+
+# --- K5's edges (the block walk of csrc/classmax2_scan.cu) ----------------------
+
+def _k5_inputs(rng, n_pad, dp, B, dev, real=None):
+    """Integer bf16 rows and queries (every score exact in f32); rows from
+    ``real`` on are pad rows, which score bf16(-3e38) through the last
+    column, as a packed table's pad rows do."""
+    v = rng.integers(-3, 4, size=(n_pad, dp)).astype(np.float32)
+    q = rng.integers(-3, 4, size=(B, dp)).astype(np.float32)
+    v[:, -1] = 0.0
+    q[:, -1] = 1.0
+    if real is not None:
+        v[real:] = 0.0
+        v[real:, -1] = -3e38
+    return (torch.from_numpy(v).to(dev).to(torch.bfloat16),
+            torch.from_numpy(q).to(dev).to(torch.bfloat16))
+
+
+def _k5_pair(ext, q):
+    from shine_tpu_torch.ops import blockmax as bm
+
+    before = bm.blockmax_scan.launches
+    got = bm.blockmax_scan(ext, q)
+    torch.cuda.synchronize()
+    assert bm.blockmax_scan.launches == before + 1
+    return got, bm.blockmax_scan_ref(ext, q)
+
+
+# (n_pad, dp, B, real rows): one block; 37 blocks (runs of 16 end part-way);
+# 1300 blocks over 17 query tiles (CTAs of 22 blocks, two writes each, the
+# last CTA 2 blocks); B = 1, 65, 129, 257 (three query tiles, an odd count);
+# pad blocks; wide tables (64-query tile, column chunks)
+_K5_EDGES = {
+    "one_block": (128, 144, 100, None),
+    "ragged_run": (37 * 128, 144, 200, None),
+    "long_runs": (1300 * 128, 32, 2100, None),
+    "B1": (4096, 144, 1, None),
+    "B65": (4096, 144, 65, None),
+    "B129": (4096, 144, 129, None),
+    "B257": (4096, 144, 257, None),
+    "pad_blocks": (8192, 144, 150, 3000),
+    "dp400": (4096, 400, 150, 4000),
+    "dp912": (4096, 912, 150, 4000),
+    "dp1312": (2048, 1312, 70, 2000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K5_EDGES))
+def test_blockmax_kernel_edges_bit_for_bit(card, case):
+    n_pad, dp, B, real = _K5_EDGES[case]
+    rng = np.random.default_rng(len(case) + dp)
+    ext, q = _k5_inputs(rng, n_pad, dp, B, card, real)
+    got, want = _k5_pair(ext, q)
+    _same_bits(got, want)
+    if real is not None and real // 128 + 1 < n_pad // 128:
+        # a block of pad rows only: (-3e38, arg1) by the mask rule
+        pad = slice(real // 128 + 1, None)
+        assert (got[2][:, pad] == -3e38).all() and torch.equal(got[3][:, pad], got[1][:, pad])
+
+
+def test_blockmax_kernel_all_scores_equal(card):
+    """A block whose rows all score the same: the winner is its first row
+    and the runner-up the next one."""
+    rng = np.random.default_rng(31)
+    ext, q = _k5_inputs(rng, 4096, 144, 90, card)
+    ext[640:768] = ext[640]  # block 5
+    got, want = _k5_pair(ext, q)
+    _same_bits(got, want)
+    assert (got[1][:, 5] == 640).all() and (got[3][:, 5] == 641).all()
+    assert torch.equal(got[0][:, 5], got[2][:, 5])
+
+
+def test_blockmax_kernel_signed_zero_ties(card):
+    """Rows of +0.0 and of -0.0 score zeros that tie across the two 64-row
+    halves of a block, every other row scores below: the lowest zero row
+    wins and the next zero row is the runner-up, as in the twin (the
+    values equal as numbers; their sign is the sum order's)."""
+    rng = np.random.default_rng(37)
+    n_pad, dp, B = 4096, 64, 80
+    ext = torch.full((n_pad, dp), -1.0, dtype=torch.bfloat16, device=card)
+    q = torch.from_numpy(rng.integers(1, 4, size=(B, dp)).astype(np.float32)).to(
+        card).to(torch.bfloat16)
+    zero_rows = []
+    for blk in range(n_pad // 128):
+        a, b = blk * 128 + int(rng.integers(0, 64)), blk * 128 + 64 + int(rng.integers(0, 64))
+        ext[a] = -0.0 if blk % 2 else 0.0
+        ext[b] = 0.0 if blk % 2 else -0.0
+        zero_rows.append((a, b))
+    got, want = _k5_pair(ext, q)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    a, b = (torch.tensor(r, dtype=torch.int32, device=card) for r in zip(*zero_rows))
+    assert (got[0] == 0).all() and (got[2] == 0).all()
+    assert torch.equal(got[1], a.expand(B, -1)) and torch.equal(got[3], b.expand(B, -1))
 
 
 # --- ROADMAP C9: the routed build's sums are the same on every run ------------
