@@ -1023,7 +1023,7 @@ def routed_phases(dev) -> list[dict]:
         kernels.append({
             "name": f"routed_classmax_scan[int8,T{T}]",
             "route": "cuda",
-            "source": "shine_tpu_torch/csrc/classmax_scan.cu",
+            "source": "shine_tpu_torch/csrc/classmax2_scan.cu",
             "replaces": "shine_tpu/ops/pallas_scan_routed.py:106",
             "launches": served[route]["forms"][f"int8,T{T}"],
             "max_abs_err": max(c["max_abs_err"] for c in at),
@@ -1053,7 +1053,7 @@ K56_FORMS = {
                       "shine_tpu_torch/csrc/classmax2_scan.cu"),
     "blockmax_scan2": (bm.blockmax_scan2, bm.blockmax_scan2_ref,
                        "shine_tpu/ops/pallas_scan2.py:94",
-                       "shine_tpu_torch/csrc/classmax_scan.cu"),
+                       "shine_tpu_torch/csrc/classmax2_scan.cu"),
 }
 # K5 and K6 score K2's table with K2's products: K2's bound on the sum order
 K56_ATOL = K2_ATOL

@@ -3,7 +3,7 @@ update, the products and the loads of each form cost, and what the cluster
 pair (two CTAs sharing each stage's load by TMA multicast) changes.
 
     python scripts/torch_classmax2_ablate.py --parent DIR [--reps 10]
-        [--variants this_unpaired,this_pair_all,...]
+        [--variants this_unpaired,this_pair_all,...] [--routed]
 
 DIR is the parent checkout (unpack it with ``git archive``), timed as it
 is. Each variant is a copy of a checkout's ``shine_tpu_torch`` under
@@ -18,7 +18,7 @@ at once, each by its own copy of ``shine_tpu_torch.ops._build``. Variants:
                        stay live)
     this_no_wgmma      the wgmma not issued (the ring and the update run)
     this_loads_only    both: the producer's loads and the ring alone
-    this_unpaired      no form as a cluster pair
+    this_unpaired      no form as a cluster pair (K6 included)
     this_unpaired_loads_only  the same, loads only
     this_pair_all      every form of a bf16 table as a pair (keep2 and K5
                        too; int8 has no pair form)
@@ -29,9 +29,15 @@ at once, each by its own copy of ``shine_tpu_torch.ops._build``. Variants:
                        bytes (it lands row-major, which wgmma cannot read:
                        loads only); dp <= 256 only
     this_unpaired_loads_only_rowbox  the same without pairs
+    this_k4_no_update  K4's update replaced by a sum of the scores
+    this_k4_no_widen   K4's int8 words fed to wgmma as they are, unwidened
+    this_k4_loads_only K4 without wgmma and update: the fragments are dead,
+                       so the consumers only wait for each stage and free it
 
-The forms (K2a keep1, K2b keep2, K5, K3 keep1 and keep2 in bf16 and int8)
-run at chip_smoke.py's 1M x 128 shapes (B=4096, cls=2048), each variant
+The forms (K2a keep1, K2b keep2, K5, K6, K3 keep1 and keep2 in bf16 and int8)
+run at chip_smoke.py's 1M x 128 shapes (B=4096, cls=2048), with
+``--routed`` also K4 at each routed route's launch on routed-4m
+(scripts/torch_classmax_ab.py's routed forms), each variant
 timed in the order of the list and back (median of ``--reps`` CUDA-event
 timings after a warm-up). The ablated variants compute wrong results by
 design: only the variants that change no result are compared with
@@ -52,12 +58,21 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from scripts.torch_classmax_ab import CLS, D, N, B, bind_entries, cuda_ms  # noqa: E402
+from scripts.torch_classmax_ab import (  # noqa: E402
+    CLS,
+    D,
+    N,
+    B,
+    bind_entries,
+    cuda_ms,
+    routed_forms,
+)
 from shine_tpu_torch.io import synthetic_dataset  # noqa: E402
 from shine_tpu_torch.ops import _build  # noqa: E402
 from shine_tpu_torch.ops import blockmax as bm  # noqa: E402
@@ -78,7 +93,7 @@ NO_UPDATE = [
 ]
 _WGMMA = "    wgmma_run<16>(x, nks, da, db, 16, 16, kc > 0);"
 NO_WGMMA = [(_WGMMA, "    if (nks < 0)\n  " + _WGMMA)]
-_PAIRED = "  return FORM == kKeep1 && KIND != kSplitI8;\n"
+_PAIRED = "  return (FORM == kKeep1 || FORM == kChunks) && KIND != kSplitI8;\n"
 UNPAIRED = [(_PAIRED, "  return false;\n")]
 PAIR_ALL = [(_PAIRED, "  return KIND != kSplitI8;\n")]
 PAIR_RELEASE = [("mbarrier.arrive.shared::cluster.b64 _, [ra];",
@@ -91,6 +106,15 @@ ROWBOX = [("""  const cuuint64_t dims[4] = {e, 8, cuuint64_t(dp) / e, cuuint64_t
                                  cuuint64_t(dp) * elt * 8};
   const cuuint32_t box[4] = {cuuint32_t(w), 8, 1, cuuint32_t(groups)};
   (void)e;""")]
+
+K4_NO_UPDATE = [("      keep1_cell(__fadd_rn(__fmul_rn(y[j], ax[2 + h]), ax[h]), code, s1[j], c1[j]);",
+                 "      s1[j] += y[j] + ax[h];")]
+K4_NO_WIDEN = [("""        bf16x4_of_s8(word_of(x[0][ks >> 2], ks & 3), lo0, hi0);
+        bf16x4_of_s8(word_of(x[1][ks >> 2], ks & 3), lo1, hi1);""",
+                """        lo0 = hi0 = word_of(x[0][ks >> 2], ks & 3);
+        lo1 = hi1 = word_of(x[1][ks >> 2], ks & 3);""")]
+_K4_WGMMA = "      wgmma_rs(x, a[ks], bdesc + uint64_t((kc * KS + ks) * 16), kc > 0 || ks > 0);"
+K4_NO_WGMMA = [(_K4_WGMMA, "      if (kc < 0)\n  " + _K4_WGMMA)]
 
 # (variant, checkout, [(old text, new text)])
 VARIANTS = [
@@ -105,22 +129,27 @@ VARIANTS = [
     ("this_pair_release", "this", PAIR_RELEASE),
     ("this_loads_only_rowbox", "this", NO_UPDATE + NO_WGMMA + ROWBOX),
     ("this_unpaired_loads_only_rowbox", "this", UNPAIRED + NO_UPDATE + NO_WGMMA + ROWBOX),
+    ("this_k4_no_update", "this", K4_NO_UPDATE),
+    ("this_k4_no_widen", "this", K4_NO_WIDEN),
+    ("this_k4_loads_only", "this", K4_NO_UPDATE + K4_NO_WGMMA),
 ]
 
 # clock64 counters around the consumer's phases, summed over CTAs
 PHASES = [
-    ("namespace {\n\nconstexpr int kTC = 64;",
+    ("namespace {\n\n__device__ __forceinline__ uint32_t smem_addr",
      "__device__ unsigned long long g_phase[8];\n"
      "extern \"C\" int shine_phase_read(void* out) {\n"
      "  return int(cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase)));\n}\n"
-     "namespace {\n\nconstexpr int kTC = 64;"),
+     "namespace {\n\n__device__ __forceinline__ uint32_t smem_addr"),
     ("  int slot = 0, prev = 0;\n  uint32_t ph = 0;\n",
      "  int slot = 0, prev = 0;\n  uint32_t ph = 0;\n"
      "  unsigned long long t_full = 0, t_issue = 0, t_wait = 0, t_upd = 0;\n"),
-    ("    mbar_wait(full + slot, ph);\n",
+    ("  auto issue = [&](float (&x)[32], int kc) {\n    mbar_wait(full + slot, ph);\n",
+     "  auto issue = [&](float (&x)[32], int kc) {\n"
      "    const unsigned long long t0 = clock64();\n    mbar_wait(full + slot, ph);\n"
      "    const unsigned long long t1 = clock64();\n    t_full += t1 - t0;\n"),
-    ("    wgmma_commit();\n  };", "    wgmma_commit();\n    t_issue += clock64() - t1;\n  };"),
+    ("kc > 0);\n    wgmma_commit();\n  };",
+     "kc > 0);\n    wgmma_commit();\n    t_issue += clock64() - t1;\n  };"),
 ]
 for _note, _acc in (("m-1, in acc_a", "acc_a, m - 1"), ("m, in acc_b", "acc_b, m")):
     PHASES.append((
@@ -131,12 +160,14 @@ for _note, _acc in (("m-1, in acc_a", "acc_a, m - 1"), ("m, in acc_b", "acc_b, m
         f"          t_wait += b - a;\n          update({_acc}, prev);\n"
         "          release(prev);\n          t_upd += clock64() - b;\n        }\n"))
 PHASES.append((
-    "  if constexpr (!kBlockWalk) {\n#pragma unroll\n    for (int h = 0; h < 2; ++h) {",
+    "  if constexpr (!kBlockWalk && !kChunkWalk) {\n#pragma unroll\n"
+    "    for (int h = 0; h < 2; ++h) {",
     "  if ((tid & 127) == 0) {\n    atomicAdd(&g_phase[0], t_full);\n"
     "    atomicAdd(&g_phase[1], t_issue);\n    atomicAdd(&g_phase[2], t_wait);\n"
     "    atomicAdd(&g_phase[3], t_upd);\n    atomicAdd(&g_phase[4], 1ull);\n"
     "    atomicAdd(&g_phase[5], (unsigned long long)count);\n  }\n"
-    "  if constexpr (!kBlockWalk) {\n#pragma unroll\n    for (int h = 0; h < 2; ++h) {"))
+    "  if constexpr (!kBlockWalk && !kChunkWalk) {\n#pragma unroll\n"
+    "    for (int h = 0; h < 2; ++h) {"))
 
 _BUILD_ONE = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "from shine_tpu_torch.ops import _build; _build.load(); "
@@ -185,6 +216,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, help="the parent checkout")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--routed", action="store_true", help="K4's routed forms too")
     ap.add_argument("--variants", default=None,
                     help="comma-separated variants to time, 'phases' for the clock "
                          "counters (default: all; 'this' always runs)")
@@ -215,7 +247,8 @@ def main() -> None:
         torch.bfloat16)
     forms = [("classmax_scan keep1", lambda: cm.classmax_scan(ext, q_ext, cls=CLS)),
              ("classmax2_scan", lambda: cm.classmax2_scan(ext, q_ext, cls=CLS)),
-             ("blockmax_scan", lambda: bm.blockmax_scan(ext, q_ext))]
+             ("blockmax_scan", lambda: bm.blockmax_scan(ext, q_ext)),
+             ("blockmax_scan2", lambda: bm.blockmax_scan2(ext, q_ext))]
     for dt in ("bf16", "int8"):
         comp, aux = pack_split_tables(ds.base, 0, -(-N // SPLIT_QUANTUM) * SPLIT_QUANTUM,
                                       comp_dtype=dt, device=dev)
@@ -223,6 +256,9 @@ def main() -> None:
         forms += [(f"classmax_scan_split {dt} keep{2 if k2 else 1}",
                    lambda comp=comp, aux=aux, q=q, k2=k2: cm.classmax_scan_split(
                        comp, aux, q, cls=CLS, keep2=k2)) for k2 in (False, True)]
+    if args.routed:
+        _build._lib = libs["this"]
+        forms += routed_forms(dev, np.random.default_rng(7))
     names = [v[0] for v in variants]
     exact = [n for n in names if n in ("this", "this_unpaired", "this_pair_all",
                                        "this_pair_release")]

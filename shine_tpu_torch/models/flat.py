@@ -62,7 +62,7 @@ from shine_tpu_torch.ops.scan_split import (
 
 CHUNK_QUANTUM = 1024
 _ROW_SOURCE_MSG = ("row_source (exact re-rank from regenerated rows) is not "
-                   "ported yet: ROADMAP A7")
+                   "ported yet: ROADMAP A6")
 
 
 def _top_by_position(d: torch.Tensor, ids: torch.Tensor, kk: int):

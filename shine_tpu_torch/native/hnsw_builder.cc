@@ -1,8 +1,13 @@
 // Native host-side HNSW graph builder of shine_tpu_torch: a copy of
 // shine_tpu/native/hnsw_builder.cc, kept so that the PyTorch port builds its
-// graphs without importing the JAX package. The code below this header must
-// stay equal to that file's, so that both packages build the same graph from
-// the same inputs (tests/test_torch_graph.py holds them to it at threads=1).
+// graphs without importing the JAX package. The code below this header stays
+// equal to that file's but for one repair in insert() (ROADMAP C1): the new
+// vertex connects itself into its neighbours' lists only once it has written
+// its own list on every level. On one thread that order builds the same graph
+// (a level's connects touch only that level's lists, which the searches of
+// the levels below never read), so both packages build the same graph from
+// the same inputs at threads=1 (tests/test_torch_graph.py holds them to it);
+// on more threads the port's graph keeps every vertex reachable.
 // The builder and the reverse-edge merge of the scan-speed build
 // (models/fastbuild.py) are copied; that file's host search, which nothing in
 // the port calls, is left out.
@@ -278,8 +283,15 @@ class Builder {
     }
     bool new_top = level > ep_level;
     // when the insert raises the top level the reference holds the global
-    // new-level lock for the whole insert (hnsw.hh:101-107); we mirror that
-    // by re-checking and swapping the EP at the end under the same lock.
+    // new-level lock for the whole insert (hnsw.hh:101-107); here the EP is
+    // only re-checked and swapped at the end under that lock. Holding the
+    // lock for the whole insert changes nothing measurable: on 8 threads
+    // most builds of a 200-vector set stay inexact either way. What
+    // loses vertices is another thread finding this one through a level above
+    // while its lists below are still empty: that thread's search there sees
+    // nothing but this vertex, and its connect() into the empty list is
+    // overwritten when this vertex writes it. So the connects wait below
+    // until every list of this vertex is written.
 
     levels_[id] = level;
 
@@ -287,7 +299,9 @@ class Builder {
     for (int l = ep_level; l > level; --l)
       ep = search_for_one(q, ep, l, /*lock=*/true);
 
-    for (int l = std::min(level, ep_level); l >= 0; --l) {
+    const int top = std::min(level, ep_level);
+    std::vector<std::vector<PairDI>> chosen(top + 1);
+    for (int l = top; l >= 0; --l) {
       ++stamp;
       std::vector<PairDI> cands =
           search_level(q, ep, l, efc_, /*lock=*/true, visited, stamp);
@@ -305,9 +319,12 @@ class Builder {
         }
         if (l == 0) deg0_[id].store(c, std::memory_order_release);
       }
-      // bidirectional connect with shrink-if-full (hnsw.hh:180-225)
-      for (const PairDI& p : cands) connect(p.id, id, p.dist, l);
+      chosen[l] = std::move(cands);
     }
+    // bidirectional connect with shrink-if-full (hnsw.hh:180-225), top level
+    // first, once no list of this vertex is left to write
+    for (int l = top; l >= 0; --l)
+      for (const PairDI& p : chosen[l]) connect(p.id, id, p.dist, l);
 
     if (new_top) {
       std::unique_lock<std::mutex> g(global_lock_);

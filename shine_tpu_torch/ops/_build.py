@@ -1,13 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
-them at once (the ``csrc/*.cuh`` headers they share ride along), and the
-objects are linked into one shared library with a plain C interface,
-loaded with ctypes. No PyTorch header is included, so the build takes
-seconds, not the minutes that ``torch.utils.cpp_extension.load`` needs.
-The library lands in ``build/shine_tpu_torch/`` under the repository
-root, keyed on a hash of the sources and headers, and is built at first
-use: nothing happens at import.
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes. No PyTorch header is included, so
+the build takes seconds, not the minutes that
+``torch.utils.cpp_extension.load`` needs. The library lands in
+``build/shine_tpu_torch/`` under the repository root, keyed on a hash of
+the sources, and is built at first use: nothing happens at import.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ def _sources() -> list[str]:
 
 def lib_path() -> str:
     h = hashlib.sha256()
-    for src in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+    for src in _sources():
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -22,8 +22,8 @@ a few rows a block:
 
 CPU tensors take the plain twins (``*_ref``, chunked over rows so that
 they fit at 1M rows on a card); CUDA tensors launch the hand-written
-kernels (K5 the block walk of ``csrc/classmax2_scan.cu``, K6 the chunked
-walk of ``csrc/classmax_scan.cu``) or raise. Each wrapper counts its launches in
+kernels (K5 the block walk and K6 the chunked walk of
+``csrc/classmax2_scan.cu``) or raise. Each wrapper counts its launches in
 ``<wrapper>.launches``. ``tq`` and ``tn`` are accepted for the JAX
 signature and pick no tiling.
 """

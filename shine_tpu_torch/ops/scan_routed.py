@@ -22,11 +22,11 @@ columns name cluster C, whose nrm is NEG, so no mask is needed; rows of
 
 On a CPU tensor ``routed_classmax_scan`` runs its plain twin
 ``routed_classmax_scan_ref``; on a CUDA tensor it launches the hand-written
-kernel in ``csrc/classmax_scan.cu`` or raises. It counts its launches in
-``.launches`` and by (comp dtype, T) in ``.form_launches``. The kernel
-skips the columns that name the pad cluster, so the function requires
-cluster C to be one: its rows all zero and its nrm at or below NEG, as the
-build makes it.
+kernel, the routed walk of ``csrc/classmax2_scan.cu``, or raises. It
+counts its launches in ``.launches`` and by (comp dtype, T) in
+``.form_launches``. The kernel skips the columns that name the pad
+cluster, so the function requires cluster C to be one: its rows all zero
+and its nrm at or below NEG, as the build makes it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops.distance import matmul_nt
 from shine_tpu_torch.ops.scan_split import NEG
 
-_KERNEL_MAX_T = 64  # queries a group: the kernel's tile is 32 or 64
+_KERNEL_MAX_T = 64  # queries a group: the kernel's wgmma N is 16, 32 or 64
 
 
 def aux_routed_layout(aux: torch.Tensor, C: int, cap: int, cls: int) -> torch.Tensor:

@@ -221,7 +221,7 @@ def test_fastflat_from_device_and_from_ext():
     # no permutation on a table-only index: map its rows back by hand
     e_ids = dev_idx.perm[e_ids]
     assert recall_at_k(e_ids, ds.ground_truth, 10) > 0.9
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A6"):
         FastFlatIndex.from_ext(dev_idx.ext, 8192, row_source=(0, None))
 
 

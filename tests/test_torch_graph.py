@@ -66,6 +66,23 @@ def test_build_graph_matches_jax_package(small, metric):
     assert isinstance(port.params, tconfig.HNSWParams)
 
 
+def test_multithreaded_build_is_exact_on_tiny_graph():
+    """ROADMAP C1: a new vertex connects itself into other lists only once
+    its own lists are all written, so no other thread finds it with empty
+    lists or loses an edge into them, and every build on 8 threads stays
+    navigable: ef >= n finds the exact top-10 on each of 20 builds."""
+    ds = synthetic_dataset(n=200, dim=8, num_queries=32, seed=1)
+    gt_ids, _ = brute_force_knn(ds.base, ds.queries, 10)
+    inexact = []
+    for i in range(20):
+        g = build_graph(ds.base, HNSWParams(M=8, ef_construction=64), threads=8)
+        ids, _ = HNSWIndex(g, device="cpu").search(
+            ds.queries, SearchParams(k=10, ef=256), batch_size=32)
+        if recall_at_k(ids, gt_ids, 10) != 1.0:
+            inexact.append(i)
+    assert inexact == [], f"{len(inexact)} of 20 builds are inexact"
+
+
 def test_native_library_builds_under_build_dir():
     path = native.lib_path()
     native.load()

@@ -1,6 +1,6 @@
 """The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4,
-the edges of classmax2_scan.cu's keep1 and keep2 scans; K5, its edges, and
-K6) against their plain twins, on a card.
+the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
+edges, and K6 and its chunk runs) against their plain twins, on a card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -656,6 +656,89 @@ def test_routed_kernel_rejects_what_it_cannot_take(card, bad):
         routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
 
 
+def _k4_pair(comp, aux_r, q, cols, T, cap, cls):
+    """(kernel, twin) outputs of K4; the kernel's launch counts by one, in
+    all and in its form."""
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan, routed_classmax_scan_ref
+
+    form = ("int8" if comp.dtype == torch.int8 else "bf16", T)
+    before = routed_classmax_scan.launches
+    form_before = routed_classmax_scan.form_launches.get(form, 0)
+    got = routed_classmax_scan(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+    torch.cuda.synchronize()
+    assert routed_classmax_scan.launches == before + 1
+    assert routed_classmax_scan.form_launches[form] == form_before + 1
+    return got, routed_classmax_scan_ref(comp, aux_r, q, cols, T=T, cap=cap, cls=cls)
+
+
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("T", [16, 64])
+def test_routed_kernel_all_scores_equal(card, comp_dtype, T):
+    """Every real row scores the same: each lane's winner is member 0 of the
+    group's first real column, the earliest code."""
+    rng = np.random.default_rng(41 + T)
+    C, cap, cls, G, P = 6, 512, 256, 3, 4
+    comp, aux_r, q, cols, _, _ = _k4_tables(rng, 64, comp_dtype, card, T, G, P, C=C,
+                                            cap=cap, cls=cls)
+    comp[:C * cap] = comp[0]
+    aux_r[:C, : cap // cls] = 3.0  # one nrm and one scl for every row
+    aux_r[:C, cap // cls:] = 2.0
+    cols[:-1] = torch.from_numpy(np.stack([rng.choice(C, P, replace=False)
+                                           for _ in range(G - 1)]).astype(np.int32)).to(card)
+    cols[0, 0] = C  # the first column a pad column
+    got, want = _k4_pair(comp, aux_r, q, cols, T, cap, cls)
+    _same_bits(got, want, 2)
+    first = torch.tensor([int(next(p for p in range(P) if int(cols[g, p]) < C))
+                          for g in range(G)], device=card)
+    lane = torch.arange(cls, dtype=torch.int32, device=card)
+    expect = (first.repeat_interleave(T)[:, None] * (cap // cls) * cls + lane).to(torch.int32)
+    assert torch.equal(got[1], expect)
+
+
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+def test_routed_kernel_signed_zero_ties(card, comp_dtype):
+    """Zero rows whose nrm is +0.0 or -0.0 and whose scl is +-1 score +0.0
+    and -0.0, which tie: the earliest code wins with its own sign. Every
+    other row scores below -8000."""
+    rng = np.random.default_rng(43)
+    C, cap, cls, T, G, P = 6, 512, 256, 32, 3, 5
+    comp, aux_r, q, cols, _, _ = _k4_tables(rng, 32, comp_dtype, card, T, G, P, C=C,
+                                            cap=cap, cls=cls)
+    mc = cap // cls
+    zero = torch.from_numpy(rng.random((C, mc, cls)) < 0.5).to(card)
+    zero[:, 0] = True  # member 0 of every cluster: each class has a zero score
+    comp3 = comp[:C * cap].view(C, mc, cls, -1)
+    comp3[zero] = 0
+    nrm = torch.where(zero, 0.0, -1e4)
+    sign = torch.from_numpy(rng.random((C, mc, cls)) < 0.5).to(card)
+    aux_r[:C, :mc] = torch.where(zero & sign, -0.0, nrm)
+    aux_r[:C, mc:] = torch.where(torch.from_numpy(rng.random((C, mc, cls)) < 0.5).to(card),
+                                 -1.0, 1.0)
+    got, want = _k4_pair(comp, aux_r, q, cols, T, cap, cls)
+    _same_bits(got, want, 2)
+    assert bool((cols < C).any(1).all())  # every group holds zeros
+    assert (got[0] == 0).all()
+    assert torch.signbit(got[0]).any() and (~torch.signbit(got[0])).any()
+
+
+@pytest.mark.parametrize("comp_dtype", ["bf16", "int8"])
+def test_routed_kernel_group_of_pad_columns(card, comp_dtype):
+    """A group whose columns all name the pad cluster walks nothing and
+    keeps the start state: -3e38 and code 0 on every lane; its neighbours
+    are untouched by it."""
+    rng = np.random.default_rng(47)
+    C, cap, cls, T, G, P = 5, 512, 256, 16, 4, 3
+    comp, aux_r, q, cols, _, _ = _k4_tables(rng, 128, comp_dtype, card, T, G, P, C=C,
+                                            cap=cap, cls=cls)
+    cols[1] = C
+    got, want = _k4_pair(comp, aux_r, q, cols, T, cap, cls)
+    _same_bits(got, want, 2)
+    lane = torch.arange(cls, dtype=torch.int32, device=card)
+    assert (got[0][T:2 * T] == -3e38).all()
+    assert torch.equal(got[1][T:2 * T], lane.expand(T, cls))
+    assert (got[0][2 * T:] > -3e38).any()
+
+
 def test_routed_index_on_card_matches_cpu(card):
     from shine_tpu_torch import RoutedSplitIndex, build_routed_split
     from shine_tpu_torch.ops.scan_routed import routed_classmax_scan
@@ -739,6 +822,24 @@ def test_blockmax_kernels_gaussian(card, d):
     v1, s1 = bm.blockmax_scan2_ref(ext, q)
     torch.testing.assert_close(c1, v1, rtol=0, atol=K2_ATOL)
     assert (r1 == s1).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("chunks,B", [(1, 300), (2, 129), (245, 1100), (300, 1100)])
+def test_blockmax2_kernel_chunk_runs_bit_for_bit(card, chunks, B):
+    """K6 over 1, 2, 245 and 300 chunks of 4096 rows: a CTA walks a run of
+    chunks (5 or 6 at B = 1100), restarts at each and writes each chunk's
+    classes; bit for bit against the twin on integer rows, pad rows in the
+    last chunk."""
+    from shine_tpu_torch.ops import blockmax as bm
+
+    n_pad = chunks * bm.TN
+    rng = np.random.default_rng(chunks)
+    ext, q = _int_table(rng, n_pad - 700, n_pad, 32, chunks % 2, card, B=B)
+    before = bm.blockmax_scan2.launches
+    got = bm.blockmax_scan2(ext, q)
+    torch.cuda.synchronize()
+    assert bm.blockmax_scan2.launches == before + 1
+    _same_bits(got, bm.blockmax_scan2_ref(ext, q), 2)
 
 
 def test_blockmax_empty_batch_launches_nothing(card):

@@ -390,7 +390,7 @@ def test_splitflat_from_parts_matches_jax(int_case, comp_dtype):
 
 def test_splitflat_from_parts_refuses_bad_tables():
     comp, aux = ts.pack_split_tables(np.ones((5000, 16), np.float32), 0, 8192)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A6"):
         SplitFlatIndex.from_parts(comp, aux, 5000, row_source=(0, None))
     with pytest.raises(ValueError, match="pad rows"):  # a real row past n
         SplitFlatIndex.from_parts(comp, aux, 4000)
