@@ -9,7 +9,7 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
 
   1. device: the card's name and power limit; the fp32 precision lock;
   2. build: compile and load the kernel library and the native builder;
-  3. K1 against its plain twin: gather_score on the HNSW slice's shapes
+  3. K1's gather_score against its plain twin on the HNSW slice's shapes
      (B=4096 queries, K=256 candidate lanes, d=128, N=1M rows) for f32,
      bf16 and int8 rows under L2 and IP, ~10% masked lanes;
   4. K2 against its plain twins: the four class-max forms on the packed
@@ -21,8 +21,8 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
      yardstick the port never calls);
   5. HNSW: the native build at M=16, ef_construction=200, search with
      k=10, ef=96, frontier=8 at batch 4096 on f32 rows, then bf16 rows,
-     after a warm-up pass; recall@10 against an exact fp32 brute force on
-     the card;
+     after a warm-up pass, every layer-0 step one launch of K1's fused
+     beam_step; recall@10 against an exact fp32 brute force on the card;
   6. HNSW end to end: 256 queries on the CPU (twins) and the card;
   7. FastFlatIndex: all queries at batch 4096 through each of the four
      scan routes (the auto knobs, bench's keep2 point, keep2 at kb=64,
@@ -44,6 +44,16 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
      recall@10, QPS after a warm-up batch, each K3 form's launches;
  11. SplitFlatIndex end to end: 256 queries on the CPU and the card at the
      auto knobs, bf16 and int8.
+
+Phase 19 runs between phases 5 and 6, on phase 5's graph:
+
+ 19. K1's beam_step against beam_step_ref, bit for bit after every step of
+     whole searches of 512 queries, for f32, bf16 and int8 rows; one
+     mid-search step at B=4096 timed with CUDA events for each row type,
+     with the share of lanes that hold an id and the share of those kept
+     after the duplicate drop, and the step's bound; a profile of one f32
+     batch; the descent entry (entry_mode="descent"), whose greedy walk
+     and first distance score through gather_score, served once.
 
 Phases 14-18 (run between phases 8 and 9, on the same set) port the
 scan-speed graph build and the block-max scans:
@@ -122,11 +132,14 @@ from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
 from shine_tpu_torch.models import routed_split as rs
 from shine_tpu_torch.models.fastbuild import fast_build_graph
+from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.models.hnsw import _extend_query, quantize_rows
 from shine_tpu_torch.ops import _build
 from shine_tpu_torch.ops import blockmax as bm
 from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops import scan_routed as k4
+from shine_tpu_torch.ops import beam_step as bs
+from shine_tpu_torch.ops.beam import Beam
 from shine_tpu_torch.ops.distance import check_precision, exact_knn
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table
@@ -255,6 +268,7 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 
 def reset_launches() -> None:
     gather_score.launches = 0
+    bs.beam_step.launches = 0
     bm.blockmax_scan.launches = 0
     bm.blockmax_scan2.launches = 0
     for fn, _, _ in K2_FORMS.values():
@@ -439,8 +453,9 @@ def k2_vs_twin(base: np.ndarray, queries: np.ndarray, dev,
 
 
 def serve(graph, ds, gt, rows: str, dev, what: str = "native") -> tuple[int, float, float]:
-    """Search all queries on ``rows`` rows; check recall and the kernel's
-    launches in that run, and return (launches, recall@10, QPS)."""
+    """Search all queries on ``rows`` rows; check recall and beam_step's
+    launches in that run (one a layer-0 step, and the gated no-ops after
+    the last), and return (launches, recall@10, QPS)."""
     t0 = time.perf_counter()
     index = HNSWIndex(graph, rows=rows, device=dev)
     torch.cuda.synchronize()
@@ -452,17 +467,18 @@ def serve(graph, ds, gt, rows: str, dev, what: str = "native") -> tuple[int, flo
     ids, _ = index.search(ds.queries, SEARCH, batch_size=B)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gather_score.launches
+    launches = bs.beam_step.launches
     recall = recall_at_k(ids, gt, 10)
     log(f"[hnsw] {what} graph, {rows}: recall@10={recall:.4f} qps={NQ / wall:.1f} "
         f"wall={wall:.3f} s mean_hops={index.last_hops / NQ:.2f} "
         f"mean_dist_comps={index.last_dists / NQ:.1f} "
-        f"beam_steps={index.last_steps} kernel_launches={launches}")
+        f"beam_steps={index.last_steps} beam_step_launches={launches} "
+        f"gather_score_launches={gather_score.launches}")
     if recall < MIN_RECALL:
         raise AssertionError(f"{rows}: recall@10 {recall:.4f} < {MIN_RECALL}")
-    if launches < index.last_steps or launches == 0:
+    if not launches >= index.last_steps > 0:
         raise AssertionError(
-            f"{rows}: {launches} kernel launches for {index.last_steps} beam steps")
+            f"{rows}: {launches} beam_step launches for {index.last_steps} beam steps")
     return launches, recall, NQ / wall
 
 
@@ -487,6 +503,163 @@ def hnsw_end_to_end(graph, ds, dev) -> None:
     gpu = HNSWIndex(graph, rows="f32", device=dev)
     b_ids, b_d = gpu.search(q, SEARCH, batch_size=E2E_QUERIES)
     _compare(a_ids, a_d, b_ids, b_d, "hnsw")
+
+
+# --- phase 19: K1's fused beam step ------------------------------------------
+
+STEP_QUERIES = 512  # queries of the whole searches compared step by step
+MID_STEP = 8  # the step timed at B=4096, mid-search (~23 steps a batch)
+DESCENT = SearchParams(k=10, ef=96, frontier=8, entry_mode="descent")
+# the descent entry's floor: the greedy walk seeds one entry instead of the
+# dense sweep's two, so its recall may sit a little under the dense entry's;
+# below this it is broken, not mistuned
+DESCENT_MIN_RECALL = 0.80
+
+
+def _step_state(g, queries: np.ndarray, sp: SearchParams, dev) -> tuple:
+    """(q_ext, bias, state): the dense entry's seeded layer-0 state."""
+    q_ext, bias = _extend_query(torch.from_numpy(queries).to(dev), METRIC_L2)
+    seed_ids, seed_d, _ = th._seeds(g, q_ext, bias, sp, True)
+    return q_ext, bias, list(th._l0_state(seed_ids, seed_d, sp))
+
+
+def _run_step(fn, g, q_ext, bias, state, t: int, sp: SearchParams) -> None:
+    beam, hops, counts, uns = state
+    fn(g.vectors_ext, g.neighbors0, q_ext, bias, beam, hops, counts, uns, t,
+       frontier=sp.frontier, k=sp.k, term=sp.term, l2=True, row_scl=g.row_scl,
+       row_nrm=g.row_nrm)
+
+
+def _flat(state) -> list[torch.Tensor]:
+    return list(state[0]) + list(state[1:])
+
+
+def _clone_state(state) -> list:
+    return [Beam(*(c.clone() for c in state[0]))] + [x.clone() for x in state[1:]]
+
+
+def step_vs_twin(g, queries: np.ndarray, sp: SearchParams, rows: str) -> tuple[int, int]:
+    """beam_step against beam_step_ref from the same seeded state, bit for
+    bit (dists as int32 words) after every step of a whole search. Returns
+    (steps, entries compared)."""
+    q_ext, bias, fused = _step_state(g, queries, sp, g.device)
+    plain = _clone_state(fused)
+    for t in range(sp.max_steps):
+        _run_step(bs.beam_step, g, q_ext, bias, fused, t, sp)
+        _run_step(bs.beam_step_ref, g, q_ext, bias, plain, t, sp)
+        torch.cuda.synchronize()
+        a, b = _flat(fused), _flat(plain)
+        a[0], b[0] = a[0].view(torch.int32), b[0].view(torch.int32)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"beam_step {rows}: differs from beam_step_ref "
+                                 f"at step {t}")
+        if int(fused[3][t + 1]) == 0:
+            return t + 1, fused[0].ids.numel()
+    return sp.max_steps, fused[0].ids.numel()
+
+
+def _timed_step(fn, state, snapshot, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn()``, the state restored from
+    ``snapshot`` before each run (outside the timed window)."""
+    times = []
+    for i in range(warmup + reps):
+        for x, y in zip(_flat(state), _flat(snapshot)):
+            x.copy_(y)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def step_timing(g, queries: np.ndarray, sp: SearchParams, rows: str) -> dict:
+    """One mid-search step (step MID_STEP) of a batch of B queries: the fused
+    kernel and its twin by CUDA events, the lanes that hold an id and the
+    ones kept after the duplicate drop, and the step's bound: the kept rows'
+    bytes, the active lists, the beam read and written, the query rows and
+    the counters, over the card's memory rate."""
+    q_ext, bias, state = _step_state(g, queries[:B], sp, g.device)
+    for t in range(MID_STEP):
+        _run_step(bs.beam_step, g, q_ext, bias, state, t, sp)
+    t = MID_STEP
+    if int(state[3][t]) == 0:
+        raise AssertionError(f"beam_step {rows}: the batch settled before step {t}")
+    snapshot = _clone_state(state)
+    _, active, lanes = bs.frontier_lists(state[0], g.neighbors0, sp.frontier)
+    kept = bs.kept_lanes(state[0].ids, lanes)
+    n_lanes, n_valid = lanes.numel(), int((lanes >= 0).sum())
+    n_kept, n_active = int(kept.sum()), int(active.sum())
+    W = g.neighbors0.shape[1]
+    ms = _timed_step(lambda: _run_step(bs.beam_step, g, q_ext, bias, state, t, sp),
+                     state, snapshot)
+    plain_ms = _timed_step(
+        lambda: _run_step(bs.beam_step_ref, g, q_ext, bias, state, t, sp),
+        state, snapshot, reps=5, warmup=1)
+    row_bytes = g.vectors_ext.element_size() * D + (8 if rows == "int8" else 0)
+    nbytes = (n_kept * row_bytes + n_active * W * 4 + 2 * B * sp.ef * 9
+              + B * (D + 1) * 4 + 2 * B * 8)
+    bms, by = bound_ms(nbytes, 4.0 * n_kept * D, PEAK_F32)
+    log(f"[K1] beam_step {rows}, step {t} of a batch of {B}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); lanes {n_lanes}, "
+        f"with an id {n_valid} ({100 * n_valid / n_lanes:.1f}%), kept after the "
+        f"duplicate drop {n_kept} ({100 * n_kept / max(n_valid, 1):.1f}% of those), "
+        f"active frontier slots {n_active}")
+    return dict(rows=rows, step=t, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, lanes=n_lanes, valid_lanes=n_valid, kept_lanes=n_kept,
+                active_slots=n_active)
+
+
+def serve_descent(graph, ds, gt, dev) -> dict:
+    """All queries through the descent entry on f32 rows: the greedy walk
+    and the entry point's distance launch gather_score, the layer-0 steps
+    beam_step. Checks both launch counts and the recall."""
+    index = HNSWIndex(graph, rows="f32", device=dev)
+    index.search(ds.queries, DESCENT, batch_size=B)  # warm-up pass
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, _ = index.search(ds.queries, DESCENT, batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, step = gather_score.launches, bs.beam_step.launches
+    recall = recall_at_k(ids, gt, 10)
+    log(f"[hnsw] descent entry, f32: recall@10={recall:.4f} qps={NQ / wall:.1f} "
+        f"mean_hops={index.last_hops / NQ:.2f} beam_steps={index.last_steps} "
+        f"gather_score_launches={k1} beam_step_launches={step}")
+    if recall < DESCENT_MIN_RECALL:
+        raise AssertionError(f"descent: recall@10 {recall:.4f} < {DESCENT_MIN_RECALL}")
+    if k1 == 0 or not step >= index.last_steps > 0:
+        raise AssertionError(f"descent: {k1} gather_score and {step} beam_step "
+                             f"launches for {index.last_steps} steps")
+    return {"gather_score_launches": k1, "beam_step_launches": step,
+            "recall@10": recall, "qps": NQ / wall}
+
+
+def beam_step_phase(graph, ds, gt, dev) -> tuple[list[dict], dict]:
+    """Phase 19; returns beam_step's cases (one a row type) and the descent
+    entry's run."""
+    sp = SEARCH.resolved()
+    cases = []
+    for rows in ("f32", "bf16", "int8"):
+        g = th.device_graph(graph, rows=rows, device=dev)
+        steps, entries = step_vs_twin(g, ds.queries[:STEP_QUERIES], sp, rows)
+        log(f"[K1] beam_step {rows}: equal to beam_step_ref bit for bit after each "
+            f"of the {steps} steps of {STEP_QUERIES} queries ({entries} beam entries)")
+        case = step_timing(g, ds.queries, sp, rows)
+        case.update(max_abs_err=0.0, search_steps_compared=steps)
+        cases.append(case)
+        del g
+        torch.cuda.empty_cache()
+    index = HNSWIndex(graph, rows="f32", device=dev)
+    profile_run(lambda: index.search(ds.queries[:B], SEARCH, batch_size=B),
+                "hnsw f32")
+    del index
+    descent = serve_descent(graph, ds, gt, dev)
+    return cases, descent
 
 
 def serve_flat(index: FastFlatIndex, ds, gt, plan) -> dict[str, int]:
@@ -1344,13 +1517,14 @@ def main() -> None:
     del base_t
     log(f"[hnsw] exact fp32 ground truth on the card: "
         f"{time.perf_counter() - t0:.2f} s")
-    k1_launches = 0
+    step_launches = 0
     native_served = {}
     for rows in ("f32", "bf16"):
         launches, recall, qps = serve(graph, ds, gt, rows, dev)
-        k1_launches += launches
+        step_launches += launches
         native_served[rows] = (recall, qps)
         torch.cuda.empty_cache()
+    step_cases, descent = beam_step_phase(graph, ds, gt, dev)
     hnsw_end_to_end(graph, ds, dev)
     del graph
     torch.cuda.empty_cache()
@@ -1371,18 +1545,38 @@ def main() -> None:
     k4_kernels = routed_phases(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
+    main_step = step_cases[0]
     kernels = [{
+        "name": "beam_step",
+        "route": "cuda",
+        "source": "shine_tpu_torch/csrc/gather_score.cu",
+        "replaces": "shine_tpu/ops/pallas_gather.py:136",
+        "launches": step_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in step_cases),
+        "ms": main_step["ms"],
+        "plain_ms": main_step["plain_ms"],
+        "bound_ms": main_step["bound_ms"],
+        "bound_by": main_step["bound_by"],
+        "library_ms": None,
+        "note": ("one layer-0 step of the JAX loop body (pallas_gather.py's row "
+                 "gather, the scoring, beam_merge); launches: phase 5's f32 and "
+                 "bf16 passes, gated no-ops included; times: one mid-search step "
+                 "at B=4096"),
+        "cases": step_cases,
+    }, {
         "name": "gather_score",
         "route": "cuda",
         "source": "shine_tpu_torch/csrc/gather_score.cu",
         "replaces": "shine_tpu/ops/pallas_gather.py:136",
-        "launches": k1_launches,
+        "launches": descent["gather_score_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in k1_cases),
         "ms": main_k1["ms"],
         "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"],
         "bound_by": main_k1["bound_by"],
         "library_ms": None,
+        "note": ("launches: the descent entry's pass (its greedy walk and first "
+                 "distance); the dense entry's path runs beam_step alone"),
         "cases": k1_cases,
     }]
     for route, _, name, cls, kb in plan:

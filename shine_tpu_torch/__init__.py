@@ -5,8 +5,8 @@ cluster-pruned (routed) queries. The graph is built by the port's own
 native builder (``graph``, ``native``) or at scan speed on the card
 (``models/fastbuild.py``: an exact kNN sweep through the class-max or
 block-max scans, a batched diversity select, the native reverse merge);
-the HNSW search runs in torch with
-the candidate gather-and-score step in a hand-written CUDA kernel
+the HNSW search runs each layer-0 beam step (frontier, lists, duplicate
+drop, row scoring, merge) as one launch of a hand-written CUDA kernel
 (``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
 ``SplitFlatIndex`` a split bf16 or int8 table (the class-max scans of
 ``csrc/classmax2_scan.cu``) and ``RoutedSplitIndex`` the clusters its

@@ -20,7 +20,7 @@ import torch
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.models.flat import FastFlatIndex, SplitFlatIndex
-from shine_tpu_torch.models.hnsw import DeviceGraph
+from shine_tpu_torch.models.hnsw import DeviceGraph, check_lists
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex
 from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import ext_width
@@ -69,6 +69,7 @@ def device_graph_from_jax(
     fields = dict(arrays)
     fields["neighbors0"] = unpack_neighbors(
         np.asarray(fields["neighbors0"]), nbr_width, n)
+    check_lists(fields["neighbors0"], n)
     tables = {
         k: _to_torch(np.asarray(fields[k])).to(device)
         for k in _TABLES if fields.get(k) is not None

@@ -9,17 +9,21 @@ as in the JAX package (the reference's knn, src/hnsw/hnsw.hh:
      (``entry_mode="dense"``), or the reference's greedy descent through
      the upper levels (``"descent"``);
   2. a multi-frontier beam on layer 0 (``ops/beam.py``); each step picks
-     E frontier entries, gathers their neighbour lists and scores the
-     candidate rows with one ``gather_score`` call;
+     E frontier entries, gathers their neighbour lists, scores the new
+     candidate rows and merges them into the beam (``ops/beam_step.py``);
   3. the beam's first k entries.
 
-``lax.while_loop`` becomes a Python loop that asks the device once per
-step whether every query is done (lockstep termination, as in JAX, so
-the hop and distance counters match). Candidate rows are always scored
-through ``ops/gather_score.py``: its CUDA kernel on a card, its plain twin
-on the CPU. ``SearchParams.pallas_gather`` therefore has no effect here,
-and the JAX package's TPU tiling workarounds (the 128-lane packing of
-layer-0 lists and the lane-padded rows) do not exist in the port.
+``lax.while_loop`` becomes a Python loop of ``beam_step`` calls with the
+JAX package's lockstep termination, so the hop and distance counters
+match. On a card each step is one launch of the fused kernel
+(``csrc/gather_score.cu``), gated by the count of unsettled queries that
+the previous launch left, and the loop reads that count back once every
+``CHECK_EVERY`` launches; on the CPU the step is the plain twin and the
+count is read after every step. The descent entry scores
+through ``ops/gather_score.py``, the same scoring routine. Hence
+``SearchParams.pallas_gather`` has no effect here, and the JAX package's
+TPU tiling workarounds (the 128-lane packing of layer-0 lists and the
+lane-padded rows) do not exist in the port.
 """
 
 from __future__ import annotations
@@ -32,19 +36,18 @@ import torch
 from shine_tpu_torch.config import METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.graph.soa import GraphSoA, build_graph
-from shine_tpu_torch.ops.beam import (
-    Beam,
-    beam_frontier_multi,
-    beam_init,
-    beam_mark_expanded,
-    beam_merge,
-)
+from shine_tpu_torch.ops.beam import Beam, beam_init, beam_merge
+from shine_tpu_torch.ops.beam_step import beam_step, settle_limit, unsettled_count
 from shine_tpu_torch.ops.distance import matmul_nt, squared_norms
 from shine_tpu_torch.ops.gather_score import gather_score
 
 # dense-entry sweep chunk: above this many upper vertices the one-shot
 # (B, U) f32 tile is streamed in U-chunks with a running top-m
 ENTRY_UCHUNK = 131_072
+# beam steps launched on a card between two reads of the unsettled count:
+# up to CHECK_EVERY - 1 gated no-op launches (a few us each) at the end
+# against one host round trip saved a step
+CHECK_EVERY = 4
 
 
 @dataclasses.dataclass
@@ -71,6 +74,15 @@ class DeviceGraph:
     @property
     def device(self) -> torch.device:
         return self.vectors_ext.device
+
+
+def check_lists(neighbors0: np.ndarray, n: int) -> None:
+    """Raise unless every layer-0 list entry is an id in [0, n) or the -1
+    pad: the fused beam step reads rows by them unchecked."""
+    nb = np.asarray(neighbors0)
+    if nb.size and (int(nb.min()) < -1 or int(nb.max()) >= n):
+        raise ValueError(f"neighbors0 holds ids outside [-1, {n}): "
+                         f"[{int(nb.min())}, {int(nb.max())}]")
 
 
 def quantize_rows(host_v: np.ndarray, rows: str) -> dict[str, torch.Tensor]:
@@ -104,6 +116,7 @@ def device_graph(
     if len(upper_ids) == 0:
         upper_ids = np.array([graph.entry_point], dtype=np.int32)
     host_v = np.ascontiguousarray(graph.vectors, dtype=np.float32)
+    check_lists(graph.neighbors0, host_v.shape[0])
     tables = {
         "neighbors0": torch.from_numpy(np.ascontiguousarray(graph.neighbors0)),
         "upper_row": torch.from_numpy(np.ascontiguousarray(graph.upper_row)),
@@ -176,6 +189,21 @@ def _greedy_descent(
     return cid, cdist, dc
 
 
+def _l0_state(seed_ids: torch.Tensor, seed_d: torch.Tensor, sp: SearchParams):
+    """The layer-0 loop's state before its first step: (beam, seeded and
+    contiguous; hops (B,); exact distance counts (B,); unsettled
+    (max_steps + 1,), its entry 0 the count the seeded beam leaves)."""
+    B, dev = seed_ids.shape[0], seed_ids.device
+    beam = Beam(*(c.contiguous() for c in
+                  beam_merge(beam_init(B, sp.ef, dev), seed_d, seed_ids)))
+    hops = torch.zeros(B, dtype=torch.int32, device=dev)
+    dists = torch.zeros(B, dtype=torch.int32, device=dev)
+    unsettled = torch.zeros(sp.max_steps + 1, dtype=torch.int32, device=dev)
+    unsettled[0] = unsettled_count(beam.expanded,
+                                   settle_limit(sp.ef, sp.k, sp.term))
+    return beam, hops, dists, unsettled
+
+
 def _beam_search_l0_seeded(
     g: DeviceGraph,
     q_ext: torch.Tensor,  # (B, d)
@@ -184,29 +212,25 @@ def _beam_search_l0_seeded(
     seed_d: torch.Tensor,  # (B, m) f32
     sp: SearchParams,  # resolved
     l2: bool = True,
+    check_every: int | None = None,
 ) -> tuple[Beam, torch.Tensor, torch.Tensor, int]:
     """Layer-0 beam; returns (beam, hops (B,), exact distance counts (B,),
-    steps). The loop runs until every query's beam is settled (``term``)
-    or ``max_steps`` steps have run; each step scores once."""
-    B = q_ext.shape[0]
-    dev = q_ext.device
-    beam = beam_merge(beam_init(B, sp.ef, dev), seed_d, seed_ids)
-    hops = torch.zeros(B, dtype=torch.int32, device=dev)
-    dists = torch.zeros(B, dtype=torch.int32, device=dev)
-    steps = 0
-    while steps < sp.max_steps:
-        settled = beam.expanded[:, : sp.k] if sp.term == "k" else beam.expanded
-        if bool(settled.all()):
-            break
-        slots, fids, active = beam_frontier_multi(beam, sp.frontier)
-        beam = beam_mark_expanded(beam, slots, active)
-        nbrs = g.neighbors0[fids.clamp_min(0).long()]  # (B, E, 2M)
-        nbrs = torch.where(active[:, :, None], nbrs, -1).reshape(B, -1)
-        d = _dist_ext(g, q_ext, bias, nbrs, l2=l2)
-        beam = beam_merge(beam, d, nbrs)
-        hops = hops + active.sum(dim=1, dtype=torch.int32)
-        dists = dists + (nbrs >= 0).sum(dim=1, dtype=torch.int32)
-        steps += 1
+    steps). Steps run until every query's beam is settled (``term``) or
+    ``max_steps`` have run. The unsettled count is read back every
+    ``check_every`` steps (``CHECK_EVERY`` on a card, 1 on the CPU); the
+    launches past the last active step are gated no-ops, so the result is
+    the same for any interval."""
+    every = check_every or (CHECK_EVERY if q_ext.device.type == "cuda" else 1)
+    beam, hops, dists, unsettled = _l0_state(seed_ids, seed_d, sp)
+    t = 0
+    while t < sp.max_steps and int(unsettled[t]) != 0:
+        for _ in range(min(every, sp.max_steps - t)):
+            beam_step(g.vectors_ext, g.neighbors0, q_ext, bias, beam, hops,
+                      dists, unsettled, t, frontier=sp.frontier, k=sp.k,
+                      term=sp.term, l2=l2, row_scl=g.row_scl,
+                      row_nrm=g.row_nrm)
+            t += 1
+    steps = int(torch.count_nonzero(unsettled[:t]))
     return beam, hops, dists, steps
 
 
@@ -278,34 +302,37 @@ def batched_search(
     return ids, dists
 
 
+def _seeds(g: DeviceGraph, q_ext: torch.Tensor, bias: torch.Tensor,
+           sp: SearchParams, l2: bool):
+    """The layer-0 seeds of ``sp.entry_mode``: (ids (B, m) int32, dists
+    (B, m), the exact distances they cost per query)."""
+    if sp.entry_mode == "dense":
+        U = g.upper_ids.shape[0]
+        ids, d = _dense_entry(g, q_ext, bias, min(sp.entry_seeds, U), l2)
+        return ids, d, U  # the dense entry scores every upper vertex
+    B = q_ext.shape[0]
+    ep = torch.full((B,), g.entry_point, dtype=torch.int32, device=g.device)
+    ep_dist = _dist_ext(g, q_ext, bias, ep[:, None], l2=l2)[:, 0]
+    dc = torch.ones(B, dtype=torch.int32, device=g.device)
+    for level in range(g.top_level, 0, -1):
+        ep, ep_dist, d_lvl = _greedy_descent(
+            g, q_ext, bias, ep, ep_dist, level, l2=l2
+        )
+        dc = dc + d_lvl
+    return ep[:, None], ep_dist[:, None], dc
+
+
 def _search(g: DeviceGraph, queries: torch.Tensor, sp: SearchParams,
             metric: int):
     """batched_search's body; also returns the number of beam steps."""
     q = queries.to(device=g.device, dtype=torch.float32)
-    B = q.shape[0]
     q_ext, bias = _extend_query(q, metric)
     l2 = metric == METRIC_L2
-    if sp.entry_mode == "dense":
-        U = g.upper_ids.shape[0]
-        seed_ids, seed_d = _dense_entry(g, q_ext, bias, min(sp.entry_seeds, U), l2)
-        beam, hops, dc, steps = _beam_search_l0_seeded(
-            g, q_ext, bias, seed_ids, seed_d, sp, l2=l2
-        )
-        dc = dc + U  # the dense entry scores every upper vertex
-    else:
-        ep = torch.full((B,), g.entry_point, dtype=torch.int32, device=g.device)
-        ep_dist = _dist_ext(g, q_ext, bias, ep[:, None], l2=l2)[:, 0]
-        dc = torch.ones(B, dtype=torch.int32, device=g.device)
-        for level in range(g.top_level, 0, -1):
-            ep, ep_dist, d_lvl = _greedy_descent(
-                g, q_ext, bias, ep, ep_dist, level, l2=l2
-            )
-            dc = dc + d_lvl
-        beam, hops, d_l0, steps = _beam_search_l0_seeded(
-            g, q_ext, bias, ep[:, None], ep_dist[:, None], sp, l2=l2
-        )
-        dc = dc + d_l0
-    return beam.ids[:, : sp.k], beam.dists[:, : sp.k], hops, dc, steps
+    seed_ids, seed_d, dc = _seeds(g, q_ext, bias, sp, l2)
+    beam, hops, d_l0, steps = _beam_search_l0_seeded(
+        g, q_ext, bias, seed_ids, seed_d, sp, l2=l2
+    )
+    return beam.ids[:, : sp.k], beam.dists[:, : sp.k], hops, d_l0 + dc, steps
 
 
 class HNSWIndex:

@@ -115,6 +115,34 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32,  # l2
         vp,  # cudaStream_t
     ]
+    lib.shine_beam_step_smem.restype = i64
+    lib.shine_beam_step_smem.argtypes = [i32, i32, i32, i32]  # ef, E, W, d
+    lib.shine_beam_step.restype = i32
+    lib.shine_beam_step.argtypes = [
+        vp,  # vectors (N, d): f32 | bf16 | int8
+        i32,  # row type: 0 f32, 1 bf16, 2 int8
+        vp,  # q_ext (B, d) f32
+        vp,  # bias (B,) f32
+        vp,  # row_scl (N,) f32 or null
+        vp,  # row_nrm (N,) f32 or null
+        vp,  # neighbors0 (N, W) i32
+        vp,  # beam dists (B, ef) f32, in place
+        vp,  # beam ids (B, ef) i32, in place
+        vp,  # beam expanded (B, ef) bool, in place
+        vp,  # hops (B,) i32, in place
+        vp,  # distance counts (B,) i32, in place
+        vp,  # unsettled (steps + 1,) i32
+        i32,  # t
+        i64,  # N
+        i32,  # B
+        i32,  # ef
+        i32,  # E, the frontier
+        i32,  # W, the list width
+        i32,  # d
+        i32,  # settle: k (term "k") or ef (term "ef")
+        i32,  # l2
+        vp,  # cudaStream_t
+    ]
     lib.shine_classmax_scan.restype = i32
     lib.shine_classmax_scan.argtypes = [
         vp,  # ext (N_pad, dp) bf16

@@ -16,6 +16,7 @@ from shine_tpu_torch import HNSWIndex, device_graph_from_jax
 from shine_tpu_torch.graph.soa import GraphSoA as PortGraph
 from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.ops.distance import exact_knn
+from shine_tpu_torch.ops.beam_step import beam_step
 from shine_tpu_torch.ops.gather_score import gather_score
 
 # ids may differ where f32 sums in another order flip a near-tie
@@ -168,11 +169,11 @@ def test_index_tail_padding_and_recall(l2_case):
 
 def test_cpu_search_launches_no_kernel(l2_case):
     ds, graph = l2_case
-    before = gather_score.launches
+    before = gather_score.launches, beam_step.launches
     HNSWIndex(PortGraph.from_fields(graph), device="cpu").search(
         ds.queries[:8], SearchParams(k=5, ef=16),
                             batch_size=8)
-    assert gather_score.launches == before
+    assert (gather_score.launches, beam_step.launches) == before
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])

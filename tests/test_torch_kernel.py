@@ -1,4 +1,4 @@
-"""The CUDA kernels (gather_score, K1; the class-max scans, K2, K3 and K4,
+"""The CUDA kernels (gather_score and the fused beam step, K1; the class-max scans, K2, K3 and K4,
 the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
 edges, and K6 and its chunk runs) against their plain twins, on a card.
 
@@ -16,7 +16,10 @@ from shine_tpu_torch import HNSWIndex
 from shine_tpu_torch.config import HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import synthetic_dataset
+from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.models.hnsw import quantize_rows
+from shine_tpu_torch.ops import beam_step as bs
+from shine_tpu_torch.ops.beam import Beam
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 
 pytestmark = pytest.mark.cuda
@@ -84,10 +87,10 @@ def test_search_on_card_matches_cpu(card):
     for rows in ("f32", "bf16", "int8"):
         a, da = HNSWIndex(graph, rows=rows, device="cpu").search(
             ds.queries, sp, batch_size=64)
-        before = gather_score.launches
+        before = bs.beam_step.launches
         b_idx = HNSWIndex(graph, rows=rows, device=card)
         b, db = b_idx.search(ds.queries, sp, batch_size=64)
-        assert gather_score.launches - before == b_idx.last_steps > 0
+        assert bs.beam_step.launches - before >= b_idx.last_steps > 0
         assert (a == b).mean() >= 0.99
         same = a == b
         np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
@@ -1012,3 +1015,234 @@ def test_routed_build_sums_are_deterministic_on_the_card(card):
         return built[0].centroids.clone()
 
     twice(recentred)
+
+
+# --- the fused beam step (K1's beam_step) --------------------------------------
+
+
+@pytest.fixture(scope="module")
+def step_graph():
+    ds = synthetic_dataset(n=3000, dim=32, num_queries=64, seed=8,
+                           compute_gt=False)
+    return ds, build_graph(ds.base, HNSWParams(M=8, ef_construction=64),
+                           threads=1)
+
+
+def _step_start(g, queries, sp, l2, dev):
+    """(q_ext, bias, state): the seeded layer-0 state of ``queries``."""
+    q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).to(dev)
+    q_ext, bias = th._extend_query(q, 0 if l2 else 1)
+    seed_ids, seed_d, _ = th._seeds(g, q_ext, bias, sp, l2)
+    return q_ext, bias, list(th._l0_state(seed_ids, seed_d, sp))
+
+
+def _clone(state):
+    beam, *rest = state
+    return [Beam(*(c.clone() for c in beam))] + [x.clone() for x in rest]
+
+
+def _assert_same_state(a, b):
+    (ba, *ra), (bb, *rb) = a, b
+    assert torch.equal(ba.dists.view(torch.int32), bb.dists.view(torch.int32))
+    assert torch.equal(ba.ids, bb.ids)
+    assert torch.equal(ba.expanded, bb.expanded)
+    for x, y in zip(ra, rb):
+        assert torch.equal(x, y)
+
+
+def _step(fn, g, q_ext, bias, state, t, sp, l2, vectors=None, neighbors0=None):
+    beam, hops, counts, uns = state
+    fn(g.vectors_ext if vectors is None else vectors,
+       g.neighbors0 if neighbors0 is None else neighbors0, q_ext, bias, beam,
+       hops, counts, uns, t, frontier=sp.frontier, k=sp.k, term=sp.term, l2=l2,
+       row_scl=g.row_scl, row_nrm=g.row_nrm)
+
+
+def _both_until_settled(g, q_ext, bias, state, sp, l2, **tables):
+    """The kernel and the plain step side by side from ``state``, equal bit
+    for bit after every step; returns the steps run."""
+    fused, plain = state, _clone(state)
+    for t in range(sp.max_steps):
+        before = bs.beam_step.launches
+        _step(bs.beam_step, g, q_ext, bias, fused, t, sp, l2, **tables)
+        assert bs.beam_step.launches == before + 1
+        _step(bs.beam_step_ref, g, q_ext, bias, plain, t, sp, l2, **tables)
+        torch.cuda.synchronize()
+        _assert_same_state(fused, plain)
+        if int(fused[3][t + 1]) == 0:
+            return t + 1
+    return sp.max_steps
+
+
+@pytest.mark.parametrize("frontier,ef", [(f, e) for f in (1, 4, 8) for e in (16, 48, 96)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("rows", ["f32", "bf16", "int8"])
+def test_beam_step_matches_plain_over_whole_searches(card, step_graph, rows, metric,
+                                                     frontier, ef):
+    ds, graph = step_graph
+    g = th.device_graph(graph, rows=rows, device=card)
+    l2 = metric == "l2"
+    for term in ("ef", "k"):
+        sp = SearchParams(k=min(10, ef), ef=ef, frontier=frontier,
+                          term=term).resolved()
+        q_ext, bias, state = _step_start(g, ds.queries, sp, l2, card)
+        steps = _both_until_settled(g, q_ext, bias, state, sp, l2)
+        assert steps > 1
+
+
+def _int_graph(card, n=600, d=16, distinct=None, seed=0):
+    """A DeviceGraph of integer f32 rows (every distance exact) and random
+    lists of width 16; ``distinct`` rows repeat a few vectors (equal
+    distances on different ids)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-3, 4, size=(distinct or n, d)).astype(np.float32)
+    v = pool[rng.integers(0, len(pool), size=n)] if distinct else pool
+    nb = rng.integers(0, n, size=(n, 16)).astype(np.int32)
+    upper = np.arange(0, n, 7, dtype=np.int32)
+    return th.DeviceGraph(
+        vectors_ext=torch.from_numpy(v).to(card),
+        neighbors0=torch.from_numpy(nb).to(card),
+        upper_row=torch.full((n,), -1, dtype=torch.int32, device=card),
+        upper_neighbors=torch.zeros((1, 1, 1), dtype=torch.int32, device=card),
+        upper_ids=torch.from_numpy(upper).to(card),
+        upper_vecs_ext=torch.from_numpy(v[upper]).to(card),
+        entry_point=0, top_level=0)
+
+
+_STEP_EDGES = ("expanded", "inactive", "padded_lists", "shared_ids", "ties",
+               "signed_zero", "gated")
+
+
+@pytest.mark.parametrize("case", _STEP_EDGES)
+def test_beam_step_edges_bit_for_bit(card, case):
+    rng = np.random.default_rng(len(case))
+    g = _int_graph(card, distinct=5 if case == "ties" else None)
+    B, d = 48, g.vectors_ext.shape[1]
+    queries = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    l2 = case != "signed_zero"
+    sp = SearchParams(k=4, ef=16, frontier=4, entry_seeds=6).resolved()
+    q_ext, bias, state = _step_start(g, queries, sp, l2, card)
+    tables = {}
+    beam = state[0]
+    if case == "expanded":  # half the queries have nothing left to expand
+        beam.expanded[: B // 2] = True
+    elif case == "inactive":  # fewer unexpanded entries than frontier slots
+        beam.expanded[:, 1:] = True
+    elif case == "padded_lists":
+        nb = g.neighbors0.clone()
+        nb[torch.rand(nb.shape, device=card) < 0.6] = -1
+        nb[::3] = -1  # whole lists of pads
+        tables["neighbors0"] = nb
+    elif case == "shared_ids":  # every list drawn from 12 ids: repeats across lists
+        tables["neighbors0"] = torch.from_numpy(rng.choice(
+            12, size=g.neighbors0.shape).astype(np.int32)).to(card)
+    elif case == "signed_zero":  # IP, zero query and bias: every score is +0.0
+        q_ext.zero_()
+        bias.zero_()
+        sign = torch.where(torch.rand(beam.dists.shape, device=card) < 0.5, -1.0, 1.0)
+        real = beam.ids >= 0
+        beam.dists.copy_(torch.where(real, sign * 0.0, beam.dists))
+        order = torch.argsort(torch.where(real, beam.ids, 2**31 - 1), dim=1)
+        for c in beam:  # re-sorted by id, as beam_merge leaves equal keys
+            c.copy_(torch.gather(c, 1, order))
+    elif case == "gated":
+        state[3][0] = 0
+        before = _clone(state)
+        n = bs.beam_step.launches
+        _step(bs.beam_step, g, q_ext, bias, state, 0, sp, l2)
+        torch.cuda.synchronize()
+        assert bs.beam_step.launches == n + 1
+        _assert_same_state(state, before)
+        state[3][0] = 1
+    steps = _both_until_settled(g, q_ext, bias, state, sp, l2, **tables)
+    assert steps >= 1
+    if case == "signed_zero":
+        ids = state[0].ids
+        real = ids >= 0
+        assert (state[0].dists[real] == 0).all()
+        assert (torch.where(real[:, 1:], ids[:, 1:], 2**31 - 1) > ids[:, :-1]).all()
+
+
+def test_beam_step_gated_launches_change_nothing_in_a_search(card, step_graph):
+    """A search that reads the count back every 4 (and every 7) launches
+    equals the one that reads it after every launch, bit for bit; the extra
+    launches are gated no-ops."""
+    ds, graph = step_graph
+    g = th.device_graph(graph, rows="f32", device=card)
+    q = torch.from_numpy(ds.queries).to(card)
+    q_ext, bias = th._extend_query(q, 0)
+    sp = SearchParams(k=10, ef=48, frontier=4).resolved()
+    seed_ids, seed_d, _ = th._seeds(g, q_ext, bias, sp, True)
+    out = []
+    for every in (1, 4, 7):
+        before = bs.beam_step.launches
+        beam, hops, counts, steps = th._beam_search_l0_seeded(
+            g, q_ext, bias, seed_ids, seed_d, sp, check_every=every)
+        launches = bs.beam_step.launches - before
+        assert steps <= launches < steps + every
+        out.append((beam, hops, counts, steps))
+    for beam, hops, counts, steps in out[1:]:
+        _assert_same_state([beam, hops, counts], [out[0][0], out[0][1], out[0][2]])
+        assert steps == out[0][3]
+
+
+@pytest.mark.parametrize("rows", ["f32", "bf16", "int8"])
+def test_beam_step_scores_are_gather_score_bits(card, step_graph, rows):
+    """The rows a fused step brings into the beam carry the bits that the
+    standalone gather_score gives them; gather_score's bits do not depend
+    on a row's lane."""
+    ds, graph = step_graph
+    g = th.device_graph(graph, rows=rows, device=card)
+    sp = SearchParams(k=10, ef=48, frontier=8).resolved()
+    q_ext, bias, state = _step_start(g, ds.queries, sp, True, card)
+    old_ids = state[0].ids.clone()
+    _step(bs.beam_step, g, q_ext, bias, state, 0, sp, True)
+    beam = state[0]
+    new = (beam.ids >= 0) & ~(beam.ids[:, :, None] == old_ids[:, None, :]).any(-1)
+    assert new.sum() > 0
+    ids = torch.where(new, beam.ids, -1)
+    kw = dict(row_scl=g.row_scl, row_nrm=g.row_nrm, l2=True)
+    got = gather_score(g.vectors_ext, q_ext, bias, ids, **kw)
+    assert torch.equal(got[new].view(torch.int32), beam.dists[new].view(torch.int32))
+    perm = torch.randperm(ids.shape[1], device=card)
+    moved = gather_score(g.vectors_ext, q_ext, bias, ids[:, perm].contiguous(), **kw)
+    assert torch.equal(moved.view(torch.int32), got[:, perm].view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["ef", "lanes", "smem", "t", "k", "term", "cpu_q",
+                                 "hops_dtype", "beam_shape"])
+def test_beam_step_rejects_what_it_cannot_take(card, bad):
+    rng = np.random.default_rng(3)
+    n, d, B, ef, W, E = 200, 16, 4, 16, 16, 4
+    if bad == "smem":
+        d = 12_000  # a 48,000-byte query row leaves too little for the rest
+    if bad == "ef":
+        ef = bs.MAX_EF + 1
+    if bad == "lanes":
+        E = bs.MAX_LANES // W + 1
+    vectors = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    nb = torch.from_numpy(rng.integers(0, n, size=(n, W)).astype(np.int32)).to(card)
+    q_ext = torch.zeros((B, d), device=card)
+    bias = torch.zeros(B, device=card)
+    beam = th.beam_init(B, ef, card)
+    hops = torch.zeros(B, dtype=torch.int32, device=card)
+    counts = torch.zeros(B, dtype=torch.int32, device=card)
+    uns = torch.ones(4, dtype=torch.int32, device=card)
+    t, k, term = 0, 4, "ef"
+    if bad == "t":
+        t = 3
+    elif bad == "k":
+        k = ef + 1
+    elif bad == "term":
+        term = "all"
+    elif bad == "cpu_q":
+        q_ext = q_ext.cpu()
+    elif bad == "hops_dtype":
+        hops = hops.long()
+    elif bad == "beam_shape":
+        beam = th.beam_init(B, ef + 1, card)._replace(ids=beam.ids)
+    before = bs.beam_step.launches
+    with pytest.raises((ValueError, TypeError)):
+        bs.beam_step(vectors, nb, q_ext, bias, beam, hops, counts, uns, t,
+                     frontier=E, k=k, term=term)
+    assert bs.beam_step.launches == before
