@@ -76,6 +76,28 @@ scan-speed graph build and the block-max scans:
  18. the build at 8192 x 16 on the CPU (twins) and on the card: equal levels
      and entry point, overlapping layer-0 lists, the same recall.
 
+Phases 20 and 21 (run after phase 18, on the same set) port the insert
+build and the online index:
+
+ 20. device_build_graph on the card at its defaults (batch 512, first
+     batch 32, level cap 12) and M=16, ef_construction=200: the wall and
+     CUDA-synchronised seconds of each stage of its rounds (the descent,
+     the upper-level searches, the layer-0 search, the select, the own
+     rows, the reverse edges, the re-prune), its rounds, inserts/s and
+     beam_step and gather_score launches; its graph validated and served as
+     in phase 5 (f32 rows), recall@10 within 0.02 of the native graph's;
+     two builds of the first 65,536 rows bit-identical; a 4096 x 16
+     integer build equal on the CPU (twins) and on the card;
+ 21. DynamicHNSWIndex(128, capacity=262,144) fed the set's first 262,144
+     rows in four chunks: each chunk's inserts/s and launches, then its
+     searcher's recall@10 against the exact top-10 of the inserted prefix;
+     after the second chunk, the build's searches on the index's state,
+     seeded by the greedy descent (ef=200, frontier=4): layer 0 for the
+     next 512 rows over neighbors0, and level 1 for their upper sub-batch
+     (136 slots) over the (N, 16) level-1 list table; on each, beam_step
+     against beam_step_ref bit for bit after every step, and step 8 timed
+     with its bound.
+
 Phases 12 and 13 run on a second set, 4,194,304 x 128 (10,000 queries, L2,
 seed 7), the JAX package's smallest measured routed operating point, with
 exact ground truth on the card:
@@ -115,16 +137,19 @@ import os
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from shine_tpu_torch import (
+    DynamicHNSWIndex,
     FastFlatIndex,
     HNSWIndex,
     RoutedSplitIndex,
     SplitFlatIndex,
     build_routed_split,
+    device_build_graph,
     native,
 )
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
@@ -132,6 +157,7 @@ from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
 from shine_tpu_torch.models import routed_split as rs
 from shine_tpu_torch.models.fastbuild import fast_build_graph
+from shine_tpu_torch.models import build as tb
 from shine_tpu_torch.models import hnsw as th
 from shine_tpu_torch.models.hnsw import _extend_query, quantize_rows
 from shine_tpu_torch.ops import _build
@@ -140,7 +166,7 @@ from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops import scan_routed as k4
 from shine_tpu_torch.ops import beam_step as bs
 from shine_tpu_torch.ops.beam import Beam
-from shine_tpu_torch.ops.distance import check_precision, exact_knn
+from shine_tpu_torch.ops.distance import check_precision, exact_knn, squared_norms
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table
 from shine_tpu_torch.ops.scan_split import (
@@ -538,11 +564,11 @@ def _clone_state(state) -> list:
     return [Beam(*(c.clone() for c in state[0]))] + [x.clone() for x in state[1:]]
 
 
-def step_vs_twin(g, queries: np.ndarray, sp: SearchParams, rows: str) -> tuple[int, int]:
-    """beam_step against beam_step_ref from the same seeded state, bit for
-    bit (dists as int32 words) after every step of a whole search. Returns
-    (steps, entries compared)."""
-    q_ext, bias, fused = _step_state(g, queries, sp, g.device)
+def step_vs_twin(g, q_ext, bias, fused: list, sp: SearchParams, what: str
+                 ) -> tuple[int, int]:
+    """beam_step against beam_step_ref from the same seeded state ``fused``
+    on ``g``'s rows and lists, bit for bit (dists as int32 words) after
+    every step of a whole search. Returns (steps, entries compared)."""
     plain = _clone_state(fused)
     for t in range(sp.max_steps):
         _run_step(bs.beam_step, g, q_ext, bias, fused, t, sp)
@@ -551,7 +577,7 @@ def step_vs_twin(g, queries: np.ndarray, sp: SearchParams, rows: str) -> tuple[i
         a, b = _flat(fused), _flat(plain)
         a[0], b[0] = a[0].view(torch.int32), b[0].view(torch.int32)
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"beam_step {rows}: differs from beam_step_ref "
+            raise AssertionError(f"beam_step {what}: differs from beam_step_ref "
                                  f"at step {t}")
         if int(fused[3][t + 1]) == 0:
             return t + 1, fused[0].ids.numel()
@@ -576,18 +602,18 @@ def _timed_step(fn, state, snapshot, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def step_timing(g, queries: np.ndarray, sp: SearchParams, rows: str) -> dict:
-    """One mid-search step (step MID_STEP) of a batch of B queries: the fused
-    kernel and its twin by CUDA events, the lanes that hold an id and the
-    ones kept after the duplicate drop, and the step's bound: the kept rows'
-    bytes, the active lists, the beam read and written, the query rows and
-    the counters, over the card's memory rate."""
-    q_ext, bias, state = _step_state(g, queries[:B], sp, g.device)
+def step_timing(g, q_ext, bias, state: list, sp: SearchParams, what: str) -> dict:
+    """One mid-search step (step MID_STEP) of the seeded batch ``state``: the
+    fused kernel and its twin by CUDA events, the lanes that hold an id and
+    the ones kept after the duplicate drop, and the step's bound: the kept
+    rows' bytes, the active lists, the beam read and written, the query rows
+    and the counters, over the card's memory rate."""
+    nq = q_ext.shape[0]
     for t in range(MID_STEP):
         _run_step(bs.beam_step, g, q_ext, bias, state, t, sp)
     t = MID_STEP
     if int(state[3][t]) == 0:
-        raise AssertionError(f"beam_step {rows}: the batch settled before step {t}")
+        raise AssertionError(f"beam_step {what}: the batch settled before step {t}")
     snapshot = _clone_state(state)
     _, active, lanes = bs.frontier_lists(state[0], g.neighbors0, sp.frontier)
     kept = bs.kept_lanes(state[0].ids, lanes)
@@ -599,18 +625,20 @@ def step_timing(g, queries: np.ndarray, sp: SearchParams, rows: str) -> dict:
     plain_ms = _timed_step(
         lambda: _run_step(bs.beam_step_ref, g, q_ext, bias, state, t, sp),
         state, snapshot, reps=5, warmup=1)
-    row_bytes = g.vectors_ext.element_size() * D + (8 if rows == "int8" else 0)
-    nbytes = (n_kept * row_bytes + n_active * W * 4 + 2 * B * sp.ef * 9
-              + B * (D + 1) * 4 + 2 * B * 8)
+    row_bytes = (g.vectors_ext.element_size() * D
+                 + (8 if g.row_scl is not None else 0))
+    nbytes = (n_kept * row_bytes + n_active * W * 4 + 2 * nq * sp.ef * 9
+              + nq * (D + 1) * 4 + 2 * nq * 8)
     bms, by = bound_ms(nbytes, 4.0 * n_kept * D, PEAK_F32)
-    log(f"[K1] beam_step {rows}, step {t} of a batch of {B}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); lanes {n_lanes}, "
-        f"with an id {n_valid} ({100 * n_valid / n_lanes:.1f}%), kept after the "
-        f"duplicate drop {n_kept} ({100 * n_kept / max(n_valid, 1):.1f}% of those), "
-        f"active frontier slots {n_active}")
-    return dict(rows=rows, step=t, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, lanes=n_lanes, valid_lanes=n_valid, kept_lanes=n_kept,
-                active_slots=n_active)
+    log(f"[K1] beam_step {what}, step {t} of a batch of {nq} (ef={sp.ef}, frontier="
+        f"{sp.frontier}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); lanes {n_lanes}, with an id {n_valid} "
+        f"({100 * n_valid / n_lanes:.1f}%), kept after the duplicate drop {n_kept} "
+        f"({100 * n_kept / max(n_valid, 1):.1f}% of those), active frontier slots "
+        f"{n_active}")
+    return dict(rows=what, batch=nq, ef=sp.ef, frontier=sp.frontier, step=t, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, lanes=n_lanes,
+                valid_lanes=n_valid, kept_lanes=n_kept, active_slots=n_active)
 
 
 def serve_descent(graph, ds, gt, dev) -> dict:
@@ -646,10 +674,11 @@ def beam_step_phase(graph, ds, gt, dev) -> tuple[list[dict], dict]:
     cases = []
     for rows in ("f32", "bf16", "int8"):
         g = th.device_graph(graph, rows=rows, device=dev)
-        steps, entries = step_vs_twin(g, ds.queries[:STEP_QUERIES], sp, rows)
+        steps, entries = step_vs_twin(
+            g, *_step_state(g, ds.queries[:STEP_QUERIES], sp, dev), sp, rows)
         log(f"[K1] beam_step {rows}: equal to beam_step_ref bit for bit after each "
             f"of the {steps} steps of {STEP_QUERIES} queries ({entries} beam entries)")
-        case = step_timing(g, ds.queries, sp, rows)
+        case = step_timing(g, *_step_state(g, ds.queries[:B], sp, dev), sp, rows)
         case.update(max_abs_err=0.0, search_steps_compared=steps)
         cases.append(case)
         del g
@@ -1462,10 +1491,194 @@ def small_build_cpu_vs_card(dev) -> None:
         raise AssertionError("small build: the CPU and card graphs differ too much")
 
 
+# --- phases 20-21: the insert build on the card and the online index --------
+
+# phase 20: device_build_graph at its defaults (batch_size=512, first_batch=32,
+# level_cap=12) and BUILD, on the first DEVBUILD_N rows of the set
+DEVBUILD_N = N
+# the JAX package's own parity bound for this build against the native one
+# (tests/test_build.py:test_device_build_parity_with_native)
+DEVBUILD_GAP = 0.02
+DET_N = 65_536  # two builds of these rows must be bit-identical
+# the CPU-against-card build: integer entries, every distance exact, so the
+# twins and the kernels build the same graph
+INT_BUILD_SET = dict(n=4096, d=16, seed=13)
+INT_BUILD = HNSWParams(M=8, ef_construction=40)
+# phase 21: the online index, fed ONLINE_CHUNKS chunks of the set's rows
+ONLINE_CAP, ONLINE_CHUNKS = 262_144, 4
+ONLINE_MIN_RECALL = 0.90
+ONLINE_STEP_CHECK = 2  # the build's beam_step is checked after this chunk
+GRAPH_FIELDS = ("levels", "neighbors0", "upper_row", "upper_neighbors")
+
+
+def _launches() -> dict[str, int]:
+    return {"beam_step": bs.beam_step.launches, "gather_score": gather_score.launches}
+
+
+def _same_graph(a, b, what: str) -> None:
+    """Fail unless two GraphSoA hold the same lists, levels and entry."""
+    diff = [f for f in GRAPH_FIELDS if not np.array_equal(getattr(a, f), getattr(b, f))]
+    if diff or (a.entry_point, a.top_level) != (b.entry_point, b.top_level):
+        raise AssertionError(f"{what}: the graphs differ in {diff or 'the entry point'}")
+
+
+def device_build_phase(ds, gt, dev, native_recall: float) -> dict:
+    """Phase 20: device_build_graph on the card at full width, its stage
+    seconds and launches, its graph served as the native one is and held to
+    the native graph's recall; two builds of DET_N rows bit-identical; the
+    integer build equal on the CPU (twins) and the card."""
+    n = DEVBUILD_N
+    torch.cuda.synchronize()
+    reset_launches()
+    t = {}
+    t0 = time.perf_counter()
+    graph = device_build_graph(ds.base[:n], BUILD, device=dev, timings=t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    stages = {k: t.get(k, 0.0) for k in tb.STAGES}
+    log(f"[devbuild] {n} x {D} M={BUILD.M} efc={BUILD.ef_construction}: {wall:.2f} s, "
+        f"{t['rounds']} rounds, {n / wall:.1f} inserts/s, top_level={graph.top_level}, "
+        f"upper vertices={int((graph.levels > 0).sum())}")
+    log("[devbuild]   stage seconds: " + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+        + f"; other (host, the rounds' bookkeeping) {wall - sum(stages.values()):.3f}")
+    log(f"[devbuild]   kernel launches in the build: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"device build: a kernel of the path never launched: {launches}")
+    graph.validate()
+    if n < N:
+        base_t = torch.from_numpy(ds.base[:n]).to(dev)
+        gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
+        gt = gt.cpu().numpy()
+        del base_t
+    _, recall, qps = serve(graph, ds, gt, "f32", dev, what=f"device_build {n}")
+    log(f"[devbuild] recall@10 {recall:.4f} against the native graph's "
+        f"{native_recall:.4f} (stated gap {DEVBUILD_GAP})")
+    if recall < native_recall - DEVBUILD_GAP:
+        raise AssertionError(f"device build: recall@10 {recall:.4f} more than "
+                             f"{DEVBUILD_GAP} below the native {native_recall:.4f}")
+    del graph
+    torch.cuda.empty_cache()
+    twice = [device_build_graph(ds.base[:DET_N], BUILD, device=dev) for _ in range(2)]
+    _same_graph(*twice, f"two device builds of {DET_N} rows")
+    log(f"[devbuild] two builds of the first {DET_N} rows: levels, lists and entry "
+        f"point bit-identical")
+    rows = np.random.default_rng(INT_BUILD_SET["seed"]).integers(
+        -4, 5, size=(INT_BUILD_SET["n"], INT_BUILD_SET["d"])).astype(np.float32)
+    _same_graph(device_build_graph(rows, INT_BUILD, device="cpu"),
+                device_build_graph(rows, INT_BUILD, device=dev),
+                "integer build, CPU against card")
+    log(f"[devbuild] integer build {rows.shape[0]} x {rows.shape[1]} M={INT_BUILD.M}: "
+        f"equal on the CPU (twins) and on the card")
+    return {"n": n, "seconds": wall, "rounds": t["rounds"], "inserts_per_s": n / wall,
+            "stages": stages, "launches": launches, "recall@10": recall, "qps": qps}
+
+
+def build_step_check(st, rows: np.ndarray, ef: int, B_up: int, dev) -> list[dict]:
+    """The build's searches on the state ``st`` for its next batch (the
+    ids from ``st.count`` on, rows ``rows``), seeded by the greedy descent
+    as a round seeds them: layer 0 for the whole batch over ``neighbors0``,
+    and level 1 for the upper sub-batch of ``B_up`` slots (the batch's
+    upper nodes, lowest ids first, -1 elsewhere, as ``plan_round`` forms
+    it) over the level's (N, M) list table. On each, beam_step against
+    beam_step_ref bit for bit after every step, then one step timed with
+    its bound (step_timing). Returns the two cases."""
+    q = torch.from_numpy(rows).to(dev)
+    q_ext, bias = (-2.0 * q).contiguous(), squared_norms(q)
+    nq = len(q)
+    sp = SearchParams(k=ef, ef=ef, frontier=4, max_steps=2 * -(-ef // 4) + 8,
+                      term="ef")
+    # a level-1 node's descent walks the levels above 1 and seeds its
+    # level-1 search; a layer-0 node's walks level 1 too and seeds layer 0
+    ep1, ep1_d = tb._greedy_to_level(st, q_ext, bias, torch.ones(
+        nq, dtype=torch.int32, device=dev), True)
+    ep0, ep0_d = tb._greedy_to_level(st, q_ext, bias, torch.zeros(
+        nq, dtype=torch.int32, device=dev), True)
+    ids = torch.arange(st.count, st.count + nq, dtype=torch.int32, device=dev)
+    is_up = st.levels[ids.long()] >= 1
+    pos = torch.argsort(torch.where(is_up, ids, tb.INT32_MAX), stable=True)[:B_up]
+    up_ok = is_up[pos]
+    searches = (
+        (0, q_ext, bias, ep0, ep0_d),
+        (1, q_ext[pos].contiguous(), bias[pos].contiguous(),
+         torch.where(up_ok, ep1[pos], -1), ep1_d[pos]),
+    )
+    cases = []
+    for level, qe, b, ep, ep_d in searches:
+        g = SimpleNamespace(vectors_ext=st.vectors, neighbors0=tb._level_lists(st, level),
+                            row_scl=None, row_nrm=None)
+
+        def seeded() -> list:
+            return list(th._l0_state(ep[:, None].contiguous(), ep_d[:, None].contiguous(),
+                                     sp))
+
+        what = f"build level {level}"
+        steps, entries = step_vs_twin(g, qe, b, seeded(), sp, what)
+        log(f"[K1] beam_step on the build state after {st.count} inserts, level "
+            f"{level} ({len(qe)} queries, {int(up_ok.sum()) if level else nq} taking "
+            f"part, lists {tuple(g.neighbors0.shape)}): equal to beam_step_ref bit for "
+            f"bit after each of the {steps} steps ({entries} beam entries)")
+        case = step_timing(g, qe, b, seeded(), sp, f"{what}, {st.count} inserted")
+        case.update(max_abs_err=0.0, search_steps_compared=steps, inserted=st.count,
+                    level=level)
+        cases.append(case)
+    return cases
+
+
+def online_phase(ds, dev) -> tuple[dict, list[dict]]:
+    """Phase 21: DynamicHNSWIndex fed the set's first ONLINE_CAP rows in
+    ONLINE_CHUNKS chunks; after each chunk its searcher serves the queries
+    against the exact top-10 of the inserted prefix (on the card). After
+    chunk ONLINE_STEP_CHECK the build's layer-0 and level-1 searches are
+    checked on its state (build_step_check). Returns (the phase's record,
+    that check's two cases)."""
+    chunk = ONLINE_CAP // ONLINE_CHUNKS
+    index = DynamicHNSWIndex(D, capacity=ONLINE_CAP, params=BUILD, device=dev)
+    base_t = torch.from_numpy(ds.base[:ONLINE_CAP]).to(dev)
+    q_t = torch.from_numpy(ds.queries).to(dev)
+    chunks, launches, step_cases = [], {"beam_step": 0, "gather_score": 0}, []
+    for i in range(ONLINE_CHUNKS):
+        lo = i * chunk
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        index.add(ds.base[lo : lo + chunk])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        added = _launches()
+        for k in launches:
+            launches[k] += added[k]
+        gt, _ = exact_knn(base_t[: lo + chunk], q_t, 10)
+        searcher = index.searcher()
+        ids, _ = searcher.search(ds.queries, SEARCH, batch_size=B)
+        recall = recall_at_k(ids, gt.cpu().numpy(), 10)
+        log(f"[online] chunk {i + 1}: {chunk} inserts in {sec:.2f} s ({chunk / sec:.1f} "
+            f"inserts/s), {index.count} in the index, launches {added}; searcher "
+            f"recall@10 {recall:.4f} against the exact top-10 of the prefix")
+        chunks.append({"inserted": index.count, "seconds": sec,
+                       "inserts_per_s": chunk / sec, "recall@10": recall,
+                       "launches": added})
+        if recall < ONLINE_MIN_RECALL:
+            raise AssertionError(f"online index: recall@10 {recall:.4f} < "
+                                 f"{ONLINE_MIN_RECALL} after {index.count} inserts")
+        if min(added.values()) == 0:
+            raise AssertionError(f"online index: a kernel never launched: {added}")
+        if i + 1 == ONLINE_STEP_CHECK:
+            B_up = -(-tb.upper_batch(index.batch_size, BUILD.M) // 8) * 8
+            step_cases = build_step_check(
+                index.st, ds.base[index.count : index.count + index.batch_size],
+                BUILD.ef_construction, B_up, dev)
+        del searcher
+    del index, base_t
+    torch.cuda.empty_cache()
+    return {"chunks": chunks, "launches": launches}, step_cases
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     check_precision()
@@ -1540,6 +1753,8 @@ def main() -> None:
     log(f"[build] native graph (phase 5), f32: recall@10={native_served['f32'][0]:.4f} "
         f"qps={native_served['f32'][1]:.1f} after {build_s:.2f} s of build")
     small_build_cpu_vs_card(dev)
+    devbuild = device_build_phase(ds, gt, dev, native_served["f32"][0])
+    online, build_step = online_phase(ds, dev)
     k3_kernels = split_phases(ds, gt, dev)
     del ds, gt
     k4_kernels = routed_phases(dev)
@@ -1563,6 +1778,10 @@ def main() -> None:
                  "bf16 passes, gated no-ops included; times: one mid-search step "
                  "at B=4096"),
         "cases": step_cases,
+        "build_launches": {"device_build": devbuild["launches"]["beam_step"],
+                           "online": online["launches"]["beam_step"]},
+        "build_step": build_step[0],
+        "build_step_upper": build_step[1],
     }, {
         "name": "gather_score",
         "route": "cuda",
@@ -1578,6 +1797,8 @@ def main() -> None:
         "note": ("launches: the descent entry's pass (its greedy walk and first "
                  "distance); the dense entry's path runs beam_step alone"),
         "cases": k1_cases,
+        "build_launches": {"device_build": devbuild["launches"]["gather_score"],
+                           "online": online["launches"]["gather_score"]},
     }]
     for route, _, name, cls, kb in plan:
         # the numbers at the shape whose launches the entry reports
@@ -1633,6 +1854,8 @@ def main() -> None:
             k["build_launches"] = {b: builds[b]["launches"].get(k["name"], 0)
                                    for b in builds}
     log(f"[build] summary {json.dumps(builds)}")
+    log(f"[devbuild] summary {json.dumps({'device_build': devbuild, 'online': online})}")
+    log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

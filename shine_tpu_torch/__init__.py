@@ -2,9 +2,12 @@
 
 Serves batched HNSW k-NN queries, near-exact brute-force queries and
 cluster-pruned (routed) queries. The graph is built by the port's own
-native builder (``graph``, ``native``) or at scan speed on the card
+native builder (``graph``, ``native``), at scan speed on the card
 (``models/fastbuild.py``: an exact kNN sweep through the class-max or
-block-max scans, a batched diversity select, the native reverse merge);
+block-max scans, a batched diversity select, the native reverse merge), or
+by batched insert rounds on the card (``models/build.py``:
+``device_build_graph``, ``insert_round``), which also let
+``DynamicHNSWIndex`` (``models/dynamic.py``) take inserts while it serves;
 the HNSW search runs each layer-0 beam step (frontier, lists, duplicate
 drop, row scoring, merge) as one launch of a hand-written CUDA kernel
 (``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
@@ -20,11 +23,18 @@ JAX nor the JAX package.
 
 from shine_tpu_torch.config import HNSWParams, SearchParams
 from shine_tpu_torch.convert import (
+    build_state_from_jax,
     device_graph_from_jax,
     fastflat_from_jax,
     routed_split_from_jax,
     splitflat_from_jax,
 )
+from shine_tpu_torch.models.build import (
+    device_build_graph,
+    init_build_state,
+    insert_round,
+)
+from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
@@ -40,7 +50,12 @@ __all__ = [
     "RoutedSplitIndex",
     "build_routed_split",
     "fast_build_graph",
+    "device_build_graph",
+    "init_build_state",
+    "insert_round",
+    "DynamicHNSWIndex",
     "device_graph_from_jax",
+    "build_state_from_jax",
     "fastflat_from_jax",
     "splitflat_from_jax",
     "routed_split_from_jax",

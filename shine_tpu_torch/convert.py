@@ -1,11 +1,13 @@
 """Carry the JAX package's index state over to the port.
 
 The JAX ``DeviceGraph`` (graph lists and stored rows), the JAX
+``BuildState`` (an insert build's tables and scalars), the JAX
 ``FastFlatIndex`` (packed table, rows, norms, permutation), the JAX
 ``SplitFlatIndex`` (component table, aux, rows, norms, permutation) and the
 JAX ``RoutedSplitIndex`` (centroids, clustered tables, row ids, base) are
-this system's state. ``device_graph_from_jax``, ``fastflat_from_jax``,
-``splitflat_from_jax`` and ``routed_split_from_jax`` take their fields as
+this system's state. ``device_graph_from_jax``, ``build_state_from_jax``,
+``fastflat_from_jax``, ``splitflat_from_jax`` and ``routed_split_from_jax``
+take their fields as
 numpy arrays, so that both packages serve one index, and import nothing of
 JAX.
 """
@@ -19,6 +21,7 @@ import torch
 
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
+from shine_tpu_torch.models.build import BuildState
 from shine_tpu_torch.models.flat import FastFlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import DeviceGraph, check_lists
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex
@@ -78,6 +81,39 @@ def device_graph_from_jax(
         entry_point=int(np.asarray(arrays["entry_point"])),
         top_level=int(top_level),
         **tables,
+    )
+
+
+def build_state_from_jax(
+    arrays: Mapping[str, np.ndarray],
+    *,
+    device: torch.device | str | None = None,
+) -> BuildState:
+    """The port's BuildState from the JAX BuildState's fields as numpy arrays
+    (``{k: np.asarray(v) for k, v in st._asdict().items()}``), on ``device``
+    (the CUDA card unless another is given): the tables gain the port's
+    spare row (-1 lists, degree 0), the scalars become host ints. Both
+    packages then run the next round from the same state."""
+    device = resolve_device(device)
+
+    def put(name: str, spare: int | None = None) -> torch.Tensor:
+        a = np.asarray(arrays[name])
+        if spare is not None:
+            a = np.concatenate([a, np.full((1,) + a.shape[1:], spare, a.dtype)])
+        return _to_torch(a).to(device)
+
+    return BuildState(
+        vectors=put("vectors"),
+        vec_sqnorms=put("vec_sqnorms"),
+        levels=put("levels"),
+        upper_row=put("upper_row"),
+        neighbors0=put("neighbors0", -1),
+        degree0=put("degree0", 0),
+        upper_neighbors=put("upper_neighbors", -1),
+        upper_degree=put("upper_degree", 0),
+        entry_point=int(arrays["entry_point"]),
+        entry_level=int(arrays["entry_level"]),
+        count=int(arrays["count"]),
     )
 
 

@@ -48,6 +48,34 @@ class GraphSoA:
     def level_cap(self) -> int:
         return self.upper_neighbors.shape[1]
 
+    def validate(self) -> None:
+        """Raise AssertionError unless the graph keeps its invariants (the
+        JAX package's ``GraphSoA.validate``): list shapes, ids in range, no
+        self-loop on layer 0, upper rows exactly for the vertices above
+        level 0, every level-l edge to a vertex that reaches level l, the
+        entry point on the top level."""
+        n = self.n
+        M, M0 = self.params.M_max, self.params.M_max0
+        assert self.neighbors0.shape == (n, M0)
+        assert self.levels.min() >= 0 and self.levels.max() == self.top_level
+        assert 0 <= self.entry_point < n
+        assert self.levels[self.entry_point] == self.top_level
+        nb = self.neighbors0
+        assert nb.max() < n
+        rows = np.broadcast_to(np.arange(n)[:, None], nb.shape)
+        assert not np.any((nb >= 0) & (nb == rows)), "self-loop at level 0"
+        up = self.upper_row
+        assert np.all((up >= 0) == (self.levels > 0))
+        used = up[up >= 0]
+        assert used.max(initial=-1) < self.upper_neighbors.shape[0]
+        assert len(np.unique(used)) == len(used)
+        for l in range(1, self.top_level + 1):
+            ids = np.where(self.levels >= l)[0]
+            ls = self.upper_neighbors[up[ids], l - 1]
+            ok = (ls < 0) | ((ls < n) & (self.levels[np.clip(ls, 0, n - 1)] >= l))
+            assert ok.all(), f"level-{l} edge to a lower-level node"
+        assert self.upper_neighbors.shape[2] == M
+
     @classmethod
     def from_fields(cls, graph) -> "GraphSoA":
         """Copy any object with this class's fields (the JAX package's

@@ -74,7 +74,11 @@ def _select_batch(vdev, sdev, ci, cd, *, M_out, metric, with_dists=False):
 
 def _select_rows(batch: int, C: int, d: int) -> int:
     """Halve ``batch`` (to 256 at least) until its (batch, C, C) f32 tile
-    and (batch, C, d) gather fit SELECT_TILE_BYTES."""
+    and (batch, C, d) gather fit SELECT_TILE_BYTES (the JAX package's
+    rule, which ``_sweep_plan`` mirrors). ``select_heuristic`` holds one
+    bool tile beside the f32 one at its peak, 5 bytes a cell where the rule
+    counts 4; that fifth byte, at most SELECT_TILE_BYTES / 4, rides
+    HEADROOM_BYTES."""
     while batch > 256 and batch * C * (C + d) * 4 > SELECT_TILE_BYTES:
         batch //= 2
     return batch

@@ -220,18 +220,41 @@ def _beam_search_l0_seeded(
     ``check_every`` steps (``CHECK_EVERY`` on a card, 1 on the CPU); the
     launches past the last active step are gated no-ops, so the result is
     the same for any interval."""
+    state = _l0_state(seed_ids, seed_d, sp)
+    t = run_beam_steps(g.vectors_ext, g.neighbors0, q_ext, bias, state, sp,
+                       l2=l2, row_scl=g.row_scl, row_nrm=g.row_nrm,
+                       check_every=check_every)
+    beam, hops, dists, unsettled = state
+    steps = int(torch.count_nonzero(unsettled[:t]))
+    return beam, hops, dists, steps
+
+
+def run_beam_steps(
+    vectors: torch.Tensor,  # (N, d)
+    neighbors0: torch.Tensor,  # (N, W) int32
+    q_ext: torch.Tensor,
+    bias: torch.Tensor,
+    state: tuple,  # _l0_state's (beam, hops, counts, unsettled), in place
+    sp: SearchParams,  # resolved
+    *,
+    l2: bool = True,
+    row_scl: torch.Tensor | None = None,
+    row_nrm: torch.Tensor | None = None,
+    check_every: int | None = None,
+) -> int:
+    """The gated loop of ``beam_step`` launches over ``state`` and the list
+    table ``neighbors0``; returns the number of launches. The graph search
+    runs it on layer 0, the build (``models/build.py``) on every level."""
     every = check_every or (CHECK_EVERY if q_ext.device.type == "cuda" else 1)
-    beam, hops, dists, unsettled = _l0_state(seed_ids, seed_d, sp)
+    beam, hops, dists, unsettled = state
     t = 0
     while t < sp.max_steps and int(unsettled[t]) != 0:
         for _ in range(min(every, sp.max_steps - t)):
-            beam_step(g.vectors_ext, g.neighbors0, q_ext, bias, beam, hops,
-                      dists, unsettled, t, frontier=sp.frontier, k=sp.k,
-                      term=sp.term, l2=l2, row_scl=g.row_scl,
-                      row_nrm=g.row_nrm)
+            beam_step(vectors, neighbors0, q_ext, bias, beam, hops, dists,
+                      unsettled, t, frontier=sp.frontier, k=sp.k,
+                      term=sp.term, l2=l2, row_scl=row_scl, row_nrm=row_nrm)
             t += 1
-    steps = int(torch.count_nonzero(unsettled[:t]))
-    return beam, hops, dists, steps
+    return t
 
 
 def _top_m(d: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:

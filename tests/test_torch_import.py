@@ -46,6 +46,7 @@ def _clean_env():
     "shine_tpu_torch.io",
     "shine_tpu_torch.io.checkpoint",
     "shine_tpu_torch.models.build",
+    "shine_tpu_torch.models.dynamic",
     "shine_tpu_torch.models.fastbuild",
     "shine_tpu_torch.models.flat",
     "shine_tpu_torch.models.hnsw",

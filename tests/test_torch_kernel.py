@@ -1,4 +1,5 @@
-"""The CUDA kernels (gather_score and the fused beam step, K1; the class-max scans, K2, K3 and K4,
+"""The CUDA kernels (gather_score and the fused beam step, K1, also as the
+insert build's searches; the class-max scans, K2, K3 and K4,
 the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
 edges, and K6 and its chunk runs) against their plain twins, on a card.
 
@@ -1245,4 +1246,98 @@ def test_beam_step_rejects_what_it_cannot_take(card, bad):
     with pytest.raises((ValueError, TypeError)):
         bs.beam_step(vectors, nb, q_ext, bias, beam, hops, counts, uns, t,
                      frontier=E, k=k, term=term)
+    assert bs.beam_step.launches == before
+
+
+# --- the insert build's searches (models/build.py) ----------------------------
+
+
+@pytest.fixture(scope="module")
+def build_state():
+    """(Gaussian rows, a build state on the card after the rows' first 1025
+    inserts, the next batch's ids), built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shine_tpu_torch.models import build as tb
+
+    ds = synthetic_dataset(n=4000, dim=32, num_queries=1, seed=9, compute_gt=False)
+    st = tb.init_build_state(ds.base, HNSWParams(M=8, ef_construction=64),
+                             device="cuda")
+    for lo in range(1, 1025, 256):
+        tb.insert_round(st, np.arange(lo, lo + 256, dtype=np.int32), ef=64,
+                        frontier=4, max_add=16, metric=0, B_up=40)
+    return ds, st, np.arange(1025, 1281, dtype=np.int32)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_build_search_is_beam_step_bit_for_bit(card, build_state, level):
+    """A round's search on layer 0 (neighbors0) and on level 1 (its list
+    table by id), seeded as the round seeds it: beam_step against
+    beam_step_ref bit for bit after every step, ef=64, frontier=4."""
+    from types import SimpleNamespace
+
+    from shine_tpu_torch.models import build as tb
+
+    _, st, ids = build_state
+    q_ext, bias = tb._query_ext(st, torch.from_numpy(ids).long().to(card), True)
+    target = torch.full((len(ids),), level, dtype=torch.int32, device=card)
+    ep, ep_d = tb._greedy_to_level(st, q_ext, bias, target, True)
+    if level == 0:
+        lists = st.neighbors0[: st.n]
+    else:
+        every = torch.arange(st.n, dtype=torch.int32, device=card)
+        lists = tb._neighbors_at(st, every, 0).contiguous()
+    g = SimpleNamespace(vectors_ext=st.vectors, neighbors0=lists, row_scl=None,
+                        row_nrm=None)
+    sp = SearchParams(k=64, ef=64, frontier=4, max_steps=2 * 16 + 8)
+    state = list(th._l0_state(ep[:, None].contiguous(), ep_d[:, None].contiguous(), sp))
+    steps = _both_until_settled(g, q_ext, bias, state, sp, True)
+    assert steps > 2
+    before = bs.beam_step.launches
+    beam = tb._search_level(st, q_ext, bias, ep, ep_d, level, 64, 4, True)
+    assert bs.beam_step.launches > before
+    _assert_same_state([beam], [state[0]])
+
+
+def test_integer_device_build_equal_on_cpu_and_card(card):
+    """Integer rows (every distance exact): device_build_graph and the online
+    index build the same graph from the twins and from the kernels, and the
+    card's build launches both K1 kernels."""
+    from shine_tpu_torch.models.build import device_build_graph
+    from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
+
+    rows = np.random.default_rng(12).integers(-4, 5, size=(3000, 16)).astype(np.float32)
+    p = HNSWParams(M=8, ef_construction=40)
+    cpu = device_build_graph(rows, p, device="cpu", batch_size=256, first_batch=16)
+    before = (bs.beam_step.launches, gather_score.launches)
+    gpu = device_build_graph(rows, p, device=card, batch_size=256, first_batch=16)
+    assert bs.beam_step.launches > before[0] and gather_score.launches > before[1]
+    fields = ("levels", "neighbors0", "upper_row", "upper_neighbors")
+    for f in fields:
+        np.testing.assert_array_equal(getattr(gpu, f), getattr(cpu, f), err_msg=f)
+    assert (gpu.entry_point, gpu.top_level) == (cpu.entry_point, cpu.top_level)
+    online = [DynamicHNSWIndex(16, 3000, p, batch_size=256, device=dev)
+              for dev in ("cpu", card)]
+    for lo, hi in ((0, 1000), (1000, 3000)):
+        for index in online:
+            index.add(rows[lo:hi])
+        a, b = (index.snapshot() for index in online)
+        for f in fields:
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+
+
+def test_device_build_refuses_ef_above_the_kernel_limit(card, monkeypatch):
+    """ef_construction above beam_step's MAX_EF raises on the card instead of
+    running the plain step."""
+    from shine_tpu_torch.models.build import device_build_graph
+
+    def no_twin(*args, **kwargs):
+        raise AssertionError("the plain step ran for CUDA tensors")
+
+    monkeypatch.setattr(bs, "beam_step_ref", no_twin)
+    rows = np.random.default_rng(13).normal(size=(300, 16)).astype(np.float32)
+    before = bs.beam_step.launches
+    with pytest.raises(ValueError, match=str(bs.MAX_EF)):
+        device_build_graph(rows, HNSWParams(M=8, ef_construction=bs.MAX_EF + 1),
+                           device=card)
     assert bs.beam_step.launches == before
