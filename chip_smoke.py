@@ -98,6 +98,25 @@ build and the online index:
      against beam_step_ref bit for bit after every step, and step 8 timed
      with its bound.
 
+Phase 22 (after phase 11, on the same set) runs the command line,
+``shine_tpu_torch.cli.main`` in this process with its output captured, from
+phase 5's native graph (saved with ``save_graph`` before phase 6) and the set
+with its exact top-10 (saved with ``save_dataset`` after phase 11), both in
+a temporary directory under build/ that the phase removes; every run with
+``-k 10 --batch 4096``, one [cli] line each (build ms, QPS, recall, the
+counters, each kernel's launches) and its QPS beside the library call's at
+the same knobs:
+
+ 22. --index hnsw --load-index (phase 5's build and search knobs): phase 5's
+     f32 recall exactly, beam_step launched; --index hnsw --fast-build: phase
+     16's pool-0 recall exactly, K2b launched; --index fastflat: phase 7's
+     auto-route recall exactly, K2a launched; --index split (int8) and
+     --index routed --probes 0: recall >= 0.90, K3 and K4 launched; --index
+     auto --zipf 1.0 --warmup 1000: resolves to fastflat, recall >= 0.98;
+     --index flat --num-queries 1000: the recall of FlatIndex.search on the
+     same queries; then --synthetic 65536:128 --num-queries 1000 --index hnsw
+     --device-build: recall >= 0.90, beam_step and gather_score launched.
+
 Phases 12 and 13 run on a second set, 4,194,304 x 128 (10,000 queries, L2,
 seed 7), the JAX package's smallest measured routed operating point, with
 exact ground truth on the card:
@@ -132,9 +151,13 @@ table as JSON.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -145,16 +168,18 @@ import torch
 from shine_tpu_torch import (
     DynamicHNSWIndex,
     FastFlatIndex,
+    FlatIndex,
     HNSWIndex,
     RoutedSplitIndex,
     SplitFlatIndex,
     build_routed_split,
+    cli,
     device_build_graph,
     native,
 )
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
-from shine_tpu_torch.io import recall_at_k, synthetic_dataset
+from shine_tpu_torch.io import recall_at_k, save_dataset, save_graph, synthetic_dataset
 from shine_tpu_torch.models import routed_split as rs
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models import build as tb
@@ -691,10 +716,10 @@ def beam_step_phase(graph, ds, gt, dev) -> tuple[list[dict], dict]:
     return cases, descent
 
 
-def serve_flat(index: FastFlatIndex, ds, gt, plan) -> dict[str, int]:
+def serve_flat(index: FastFlatIndex, ds, gt, plan) -> tuple[dict, dict]:
     """All queries through each scan route; returns each route's kernel
-    launches, checked non-zero, with recall and QPS logged."""
-    launches = {}
+    launches, checked non-zero, and its (recall@10, QPS), both logged."""
+    launches, served = {}, {}
     pre = index.preload(ds.queries, batch_size=B)
     for route, knobs, kernel, cls, kb in plan:
         # warm-up: one pass of every query (one batch left the first
@@ -720,7 +745,8 @@ def serve_flat(index: FastFlatIndex, ds, gt, plan) -> dict[str, int]:
         if counts[kernel] == 0:
             raise AssertionError(f"fastflat {route}: {kernel} never launched")
         launches[kernel] = counts[kernel]
-    return launches
+        served[route] = (recall, NQ / wall)
+    return launches, served
 
 
 def flat_end_to_end(ds, gpu: FastFlatIndex) -> None:
@@ -865,10 +891,10 @@ def k3_vs_twin(base: np.ndarray, queries: np.ndarray, dev, plan,
     return cases, library_ms
 
 
-def serve_split(index: SplitFlatIndex, ds, gt, plan) -> dict:
+def serve_split(index: SplitFlatIndex, ds, gt, plan) -> tuple[dict, dict]:
     """All queries through each route; returns each route's launches of
-    its K3 form, checked non-zero, with recall and QPS logged."""
-    launches = {}
+    its K3 form, checked non-zero, and its (recall@10, QPS), both logged."""
+    launches, served = {}, {}
     pre = index.preload(ds.queries, batch_size=B)
     for route, knobs, fn, keep2, cls, kb in plan:
         index.search(ds.queries[:B], 10, batch_size=B, **knobs)  # warm-up
@@ -896,7 +922,8 @@ def serve_split(index: SplitFlatIndex, ds, gt, plan) -> dict:
             raise AssertionError(f"split {index.comp_dtype} {route}: {fn} "
                                  f"keep2={keep2} never launched")
         launches[route] = n
-    return launches
+        served[route] = (recall, NQ / wall)
+    return launches, served
 
 
 def profile_batch(index, queries: np.ndarray, what: str) -> None:
@@ -939,10 +966,11 @@ def split_end_to_end(ds, gpu: SplitFlatIndex) -> None:
     _compare(a_ids, a_d, b_ids, b_d, f"split {gpu.comp_dtype} auto", FLAT_ATOL)
 
 
-def split_phases(ds, gt, dev) -> list[dict]:
+def split_phases(ds, gt, dev) -> tuple[list[dict], dict]:
     """Phases 9-11 for both comp dtypes; the K3 entries of the kernel
-    table, each at the shape of the route whose launches it reports."""
-    kernels = []
+    table, each at the shape of the route whose launches it reports, and
+    each (comp dtype, route)'s (recall@10, QPS)."""
+    kernels, served = [], {}
     for comp_dtype in SPLIT_DTYPES:
         t0 = time.perf_counter()
         index = SplitFlatIndex(ds.base, comp_dtype=comp_dtype, device=dev)
@@ -952,7 +980,8 @@ def split_phases(ds, gt, dev) -> list[dict]:
             f"the card): {time.perf_counter() - t0:.2f} s")
         plan = split_route_plan(index)
         cases, library_ms = k3_vs_twin(ds.base, ds.queries, dev, plan, comp_dtype)
-        launches = serve_split(index, ds, gt, plan)
+        launches, by_route = serve_split(index, ds, gt, plan)
+        served.update({(comp_dtype, r): v for r, v in by_route.items()})
         profile_batch(index, ds.queries, f"split {comp_dtype} auto")
         split_end_to_end(ds, index)
         del index
@@ -980,7 +1009,7 @@ def split_phases(ds, gt, dev) -> list[dict]:
                 "kb": kb,
                 "cases": cases[(fn, keep2)],
             })
-    return kernels
+    return kernels, served
 
 
 def serve_routed(index: RoutedSplitIndex, ds, gt) -> dict[str, dict]:
@@ -1674,6 +1703,126 @@ def online_phase(ds, dev) -> tuple[dict, list[dict]]:
     return {"chunks": chunks, "launches": launches}, step_cases
 
 
+# --- phase 22: the command line at full width ----------------------------------
+
+# the runs' shared flags, and the HNSW ones: phase 5's build and search
+CLI_COMMON = ["-k", "10", "--batch", str(B)]
+CLI_HNSW = ["-m", str(BUILD.M), "--ef-construction", str(BUILD.ef_construction),
+            "--ef-search", str(SEARCH.ef), "--frontier", str(SEARCH.frontier)]
+CLI_MIN_RECALL = 0.90  # split, routed, the device build: broken, not mistuned
+CLI_FLAT_QUERIES = 1_000
+CLI_DEVBUILD = ["--synthetic", "65536:128", "--num-queries", "1000"]
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def _all_launches() -> dict[str, int]:
+    """Each kernel wrapper's launches since reset_launches, those above 0."""
+    counts = {"gather_score": gather_score.launches,
+              "beam_step": bs.beam_step.launches,
+              "routed_classmax_scan": k4.routed_classmax_scan.launches}
+    for forms in (K2_FORMS, K3_FUNCS, K56_FORMS):
+        counts.update({name: f[0].launches for name, f in forms.items()})
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_cli(argv: list[str], what: str) -> tuple[dict, dict, str]:
+    """``shine_tpu_torch.cli.main(argv)`` in this process, its output
+    captured: (the Statistics document of its last stdout line, each
+    kernel's launches during the run, its stderr); logs one [cli] line."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    if rc != 0:
+        raise AssertionError(f"cli {what}: exit status {rc}: {err.getvalue()}")
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])
+    q = doc["queries"]
+    log(f"[cli] {what}: build_ms={doc['build']['build_time_ms']} "
+        f"qps={q['queries_per_sec']} recall={q['recall']} "
+        f"queries={q['num_queries']} expansions={q['expansions']} "
+        f"distance_computations={q['distance_computations']} "
+        f"scanned_rows={q['scanned_rows']} steps={q['traversal_steps']} "
+        f"hbm_gather_bytes={q['hbm_gather_bytes']} timings={doc['timings']} "
+        f"device={doc['meta']['device']!r} launches={launches} wall={wall:.2f} s")
+    torch.cuda.empty_cache()
+    return doc, launches, err.getvalue()
+
+
+def _library_flat(ds, gt, dev) -> tuple[float, float]:
+    """The port's FlatIndex on the first CLI_FLAT_QUERIES queries, as the
+    CLI's flat run serves them: (recall@10, QPS after a warm-up pass)."""
+    index = FlatIndex(ds.base, device=dev)
+    q = ds.queries[:CLI_FLAT_QUERIES]
+    index.search(q, 10, batch_size=B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _ = index.search(q, 10, batch_size=B)
+    torch.cuda.synchronize()
+    qps = CLI_FLAT_QUERIES / (time.perf_counter() - t0)
+    del index
+    torch.cuda.empty_cache()
+    return recall_at_k(ids, gt[:CLI_FLAT_QUERIES], 10), qps
+
+
+def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
+    """Phase 22: the command line, in process, from the set and phase 5's
+    graph saved under ``data_dir`` and at ``graph_path``. ``want`` maps a
+    run to (its recall rule, the library run's QPS at the same knobs, that
+    run's phase): ("eq", r) asks for recall r exactly, ("ge", r) for at
+    least r. Each run must launch its kernels. Returns each run's
+    numbers."""
+    t_phase = time.perf_counter()
+    flat_recall, flat_qps = _library_flat(ds, gt, dev)
+    want = dict(want, flat=(("eq", flat_recall), flat_qps, "22, FlatIndex.search"))
+    data = ["--data-path", data_dir, *CLI_COMMON]
+    runs = (  # (name, argv, kernels that must launch)
+        ("hnsw", data + ["--index", "hnsw", "--load-index", graph_path, *CLI_HNSW],
+         ("beam_step",)),
+        ("hnsw_scan_build", data + ["--index", "hnsw", "--fast-build", *CLI_HNSW],
+         ("classmax2_scan",)),
+        ("fastflat", data + ["--index", "fastflat"], ("classmax_scan",)),
+        ("split", data + ["--index", "split"], ("classmax_scan_split",)),
+        ("routed", data + ["--index", "routed", "--probes", "0"],
+         ("routed_classmax_scan",)),
+        ("auto_zipf", data + ["--index", "auto", "--zipf", "1.0", "--warmup", "1000"],
+         ("classmax_scan",)),
+        ("flat", data + ["--index", "flat", "--num-queries", str(CLI_FLAT_QUERIES)],
+         ()),
+        ("hnsw_device_build", CLI_DEVBUILD + CLI_COMMON
+         + ["--index", "hnsw", "--device-build", *CLI_HNSW],
+         ("beam_step", "gather_score")),
+    )
+    out = {}
+    for name, argv, kernels in runs:
+        doc, launches, err = run_cli(argv, name)
+        q = doc["queries"]
+        rule, lib_qps, lib_phase = want[name]
+        if lib_qps is not None:
+            log(f"[cli]   {name}: {q['queries_per_sec']:.1f} QPS against "
+                f"{lib_qps:.1f} for the library call at the same knobs (phase "
+                f"{lib_phase}): {q['queries_per_sec'] / lib_qps:.3f}x")
+        kind, value = rule
+        ok = q["recall"] == value if kind == "eq" else q["recall"] >= value
+        if not ok:
+            raise AssertionError(f"cli {name}: recall@10 {q['recall']} against "
+                                 f"{kind} {value}")
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"cli {name}: {missing} never launched")
+        if name == "auto_zipf" and "-> fastflat" not in err:
+            raise AssertionError(f"cli auto: resolved otherwise: {err.strip()}")
+        out[name] = {"argv": argv, "build": doc["build"], "queries": q,
+                     "timings": doc["timings"], "launches": launches,
+                     "library_qps": lib_qps}
+    log(f"[cli] phase 22: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[cli] summary {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1739,10 +1888,17 @@ def main() -> None:
         torch.cuda.empty_cache()
     step_cases, descent = beam_step_phase(graph, ds, gt, dev)
     hnsw_end_to_end(graph, ds, dev)
+    # phase 22 serves this graph and the set from files
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=BUILD_DIR)
+    graph_path = os.path.join(cli_dir, "native.npz")
+    t0 = time.perf_counter()
+    save_graph(graph, graph_path)
+    log(f"[cli] native graph saved: {time.perf_counter() - t0:.2f} s")
     del graph
     torch.cuda.empty_cache()
 
-    k2_launches = serve_flat(flat, ds, gt, plan)
+    k2_launches, flat_served = serve_flat(flat, ds, gt, plan)
     profile_batch(flat, ds.queries, "fastflat auto")
     flat_end_to_end(ds, flat)
     k56_cases, k56_library_ms = blockmax_vs_twin(ds.base, ds.queries, dev)
@@ -1755,7 +1911,27 @@ def main() -> None:
     small_build_cpu_vs_card(dev)
     devbuild = device_build_phase(ds, gt, dev, native_served["f32"][0])
     online, build_step = online_phase(ds, dev)
-    k3_kernels = split_phases(ds, gt, dev)
+    k3_kernels, split_served = split_phases(ds, gt, dev)
+    try:
+        ds.ground_truth = gt  # the exact top-10 on the card
+        data_dir = os.path.join(cli_dir, "sift_shape")
+        t0 = time.perf_counter()
+        save_dataset(ds, data_dir)
+        log(f"[cli] set saved: {time.perf_counter() - t0:.2f} s")
+        cli_phase(ds, gt, graph_path, data_dir, {
+            "hnsw": (("eq", native_served["f32"][0]), native_served["f32"][1], 5),
+            "hnsw_scan_build": (("eq", builds["pool0"]["recall@10"]),
+                                builds["pool0"]["qps"], "16, pool 0"),
+            "fastflat": (("eq", flat_served["auto"][0]), flat_served["auto"][1],
+                         "7, auto"),
+            "split": (("ge", CLI_MIN_RECALL), split_served[("int8", "auto")][1],
+                      "10, int8 auto"),
+            "routed": (("ge", CLI_MIN_RECALL), None, None),
+            "auto_zipf": (("ge", FLAT_MIN_RECALL), flat_served["auto"][1], "7, auto"),
+            "hnsw_device_build": (("ge", CLI_MIN_RECALL), None, None),
+        }, dev)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
     del ds, gt
     k4_kernels = routed_phases(dev)
 

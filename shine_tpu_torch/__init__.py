@@ -13,15 +13,18 @@ drop, row scoring, merge) as one launch of a hand-written CUDA kernel
 (``csrc/gather_score.cu``); ``FastFlatIndex`` scans a packed bf16 table,
 ``SplitFlatIndex`` a split bf16 or int8 table (the class-max scans of
 ``csrc/classmax2_scan.cu``) and ``RoutedSplitIndex`` the clusters its
-query tiles ask for in a clustered split table (the routed scan of
-``csrc/classmax_scan.cu``); FastFlat's block-max route runs the block-max
-scan of ``csrc/classmax2_scan.cu``. Entry points
-run on the CUDA card unless the caller names another device; on the CPU
-each kernel's plain torch twin runs instead. This package imports neither
-JAX nor the JAX package.
+query tiles ask for in a clustered split table (the routed scan, also in
+``csrc/classmax2_scan.cu``); FastFlat's block-max route runs the block-max
+scan of ``csrc/classmax2_scan.cu``. The command line, ``python -m
+shine_tpu_torch`` (``cli.py``), builds or loads any of them from dataset
+files (``io/fbin.py``, ``io/datasets.py``) or a synthetic set, serves a
+plain or Zipf-skewed workload (``io/skew.py``) and prints the run's
+Statistics document (``utils/``). Entry points run on the CUDA card unless
+the caller names another device; on the CPU each kernel's plain torch twin
+runs instead. This package imports neither JAX nor the JAX package.
 """
 
-from shine_tpu_torch.config import HNSWParams, SearchParams
+from shine_tpu_torch.config import HNSWParams, SearchParams, auto_index_family
 from shine_tpu_torch.convert import (
     build_state_from_jax,
     device_graph_from_jax,
@@ -39,10 +42,15 @@ from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
+from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 
 __all__ = [
     "HNSWParams",
     "SearchParams",
+    "auto_index_family",
+    "Statistics",
+    "SearchStats",
+    "Timing",
     "HNSWIndex",
     "FlatIndex",
     "FastFlatIndex",

@@ -1,19 +1,46 @@
 """Index and search configuration of the port: its own copy of the metric
 ids and the two parameter dataclasses of ``shine_tpu/config.py``, with the
 same fields, defaults and validation, so that one set of parameters means
-the same search in both packages. The ``--index auto`` family thresholds
-belong to the command line and are not carried over.
+the same search in both packages, and the command line's ``--index auto``
+rule (``auto_index_family``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 METRIC_L2 = 0  # squared L2
 METRIC_IP = 1  # 1 - <a, b>
 
 _METRIC_NAMES = {"l2": METRIC_L2, "ip": METRIC_IP}
+
+
+# --index auto family thresholds (rows per card): the JAX package's rule
+# (shine_tpu/config.py), kept so that both command lines pick the same family
+# for the same set. The JAX package set them from its own measurements: the
+# packed-bf16 FastFlat scan as the speed family up to 20M rows, the routed
+# split layout up to 64M, the exact int8 split scan above. They have not been
+# measured on the CUDA card. SHINE_AUTO_FASTFLAT_MAX and SHINE_AUTO_ROUTED_MAX
+# override them, as in the JAX package.
+AUTO_FASTFLAT_MAX_ROWS = 20e6
+AUTO_ROUTED_MAX_ROWS = 64e6
+
+
+def auto_index_family(n_rows: int, shards: int = 1) -> str:
+    """The --index auto rule: fastflat up to AUTO_FASTFLAT_MAX_ROWS rows per
+    card, routed up to AUTO_ROUTED_MAX_ROWS, split above."""
+    per_chip = n_rows / max(shards, 1)
+    fmax = float(os.environ.get("SHINE_AUTO_FASTFLAT_MAX",
+                                AUTO_FASTFLAT_MAX_ROWS))
+    rmax = float(os.environ.get("SHINE_AUTO_ROUTED_MAX",
+                                AUTO_ROUTED_MAX_ROWS))
+    if per_chip <= fmax:
+        return "fastflat"
+    if per_chip <= rmax:
+        return "routed"
+    return "split"
 
 
 def metric_id(metric: str | int) -> int:

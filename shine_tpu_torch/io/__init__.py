@@ -4,12 +4,30 @@ from shine_tpu_torch.io.checkpoint import (
     save_graph,
     save_routed_split,
 )
-from shine_tpu_torch.io.datasets import Dataset, synthetic_dataset
+from shine_tpu_torch.io.datasets import (
+    DATASET_REGISTRY,
+    Dataset,
+    dataset_defaults,
+    load_dataset,
+    save_dataset,
+    synthetic_dataset,
+)
+from shine_tpu_torch.io.fbin import read_bin, read_bin_header, write_bin
 from shine_tpu_torch.io.recall import brute_force_knn, recall_at_k
+from shine_tpu_torch.io.skew import skewed_workload, zipf_ranks
 
 __all__ = [
     "Dataset",
     "synthetic_dataset",
+    "load_dataset",
+    "save_dataset",
+    "DATASET_REGISTRY",
+    "dataset_defaults",
+    "read_bin",
+    "read_bin_header",
+    "write_bin",
+    "skewed_workload",
+    "zipf_ranks",
     "brute_force_knn",
     "recall_at_k",
     "save_graph",

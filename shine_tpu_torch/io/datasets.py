@@ -1,14 +1,18 @@
-"""Dataset container and the synthetic generator, as in
-``shine_tpu/io/datasets.py``: the same seed gives the same arrays in both
-packages. The generator draws a mixture of Gaussians, so that a graph sees
-non-uniform neighbourhoods, and queries near base points.
+"""Dataset container, the synthetic generator and the dataset directories,
+as in ``shine_tpu/io/datasets.py``: the same seed gives the same arrays in
+both packages, and a directory written by either loads in the other. The
+generator draws a mixture of Gaussians, so that a graph sees non-uniform
+neighbourhoods, and queries near base points.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
+
+from shine_tpu_torch.io.fbin import read_bin, write_bin
 
 
 @dataclasses.dataclass
@@ -62,3 +66,61 @@ def synthetic_dataset(
 
         gt, _ = brute_force_knn(base, queries, gt_k, metric=metric)
     return Dataset(base, queries, gt, metric=metric, name=f"synth-{n}x{dim}")
+
+
+def save_dataset(ds: Dataset, root: str) -> None:
+    """Write the reference's directory layout: base.fbin,
+    queries/query.fbin and, with ground truth, groundtruth-query.bin."""
+    os.makedirs(os.path.join(root, "queries"), exist_ok=True)
+    write_bin(os.path.join(root, "base.fbin"), ds.base)
+    write_bin(os.path.join(root, "queries", "query.fbin"), ds.queries)
+    if ds.ground_truth is not None:
+        write_bin(
+            os.path.join(root, "groundtruth-query.bin"),
+            ds.ground_truth.astype(np.uint32),
+        )
+
+
+def load_dataset(root: str, *, metric: str = "l2", query_suffix: str = "query") -> Dataset:
+    """Read a dataset directory: base.{fbin,u8bin,i8bin}, queries/<suffix>.*
+    and, where present, groundtruth-<suffix>.bin. Integer rows widen to
+    float32."""
+    base = read_bin(_find(root, "base"))
+    queries = read_bin(_find(os.path.join(root, "queries"), query_suffix))
+    gt_path = os.path.join(root, f"groundtruth-{query_suffix}.bin")
+    gt = None
+    if os.path.exists(gt_path):
+        gt = read_bin(gt_path).astype(np.int32)
+    return Dataset(base, queries, gt, metric=metric, name=os.path.basename(root))
+
+
+def _find(root: str, stem: str) -> str:
+    for ext in (".fbin", ".u8bin", ".i8bin"):
+        p = os.path.join(root, stem + ext)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no {stem}.* under {root}")
+
+
+# Per-dataset search settings tuned for ~95% recall@10, the reference's
+# registry (scripts/datasets.py of the reference) as the JAX package keeps it.
+DATASET_REGISTRY: dict[str, dict] = {
+    "sift1m": {"dim": 128, "metric": "l2", "ef_search": 100},
+    "turing1m": {"dim": 100, "metric": "l2", "ef_search": 100},
+    "turing100m": {"dim": 100, "metric": "l2", "ef_search": 150},
+    "tti10m": {"dim": 200, "metric": "ip", "ef_search": 250},
+    "tti100m": {"dim": 200, "metric": "ip", "ef_search": 250},
+    "deep100m": {"dim": 96, "metric": "l2", "ef_search": 100},
+    "spacev100m": {"dim": 100, "metric": "l2", "ef_search": 100},
+    "bigann100m": {"dim": 128, "metric": "l2", "ef_search": 80},
+    "gist1m": {"dim": 960, "metric": "l2", "ef_search": 128},
+}
+
+
+def dataset_defaults(name: str) -> dict:
+    try:
+        return DATASET_REGISTRY[name.lower()]
+    except KeyError:
+        raise KeyError(
+            f"unknown dataset {name!r}; known: {sorted(DATASET_REGISTRY)}"
+        ) from None

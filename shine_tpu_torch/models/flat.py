@@ -149,6 +149,28 @@ class FlatIndex:
                      "sqnorms": sq, "n": n}
         self.n, self.dim = n, dim
 
+    @classmethod
+    def from_device(cls, v_dev: torch.Tensor, metric: str | int = "l2", *,
+                    with_bf16: bool = True) -> "FlatIndex":
+        """From rows already on a device (the CUDA card or the CPU), with no
+        host round trip. ``with_bf16=False`` aliases the bf16 slot to the f32
+        rows (no copy), for exact-only search (``use_bf16=False``)."""
+        self = cls.__new__(cls)
+        self.metric = metric_id(metric)
+        n, dim = v_dev.shape
+        dev = v_dev.device
+        n_pad = -(-n // CHUNK_QUANTUM) * CHUNK_QUANTUM
+        vj = v_dev.to(torch.float32)
+        if n_pad != n:
+            vj = torch.cat([vj, torch.zeros((n_pad - n, dim), device=dev)])
+        sq = (squared_norms(vj) if self.metric == METRIC_L2
+              else torch.zeros(n_pad, device=dev))
+        sq = torch.where(torch.arange(n_pad, device=dev) < n, sq, torch.inf)
+        vb = vj.to(torch.bfloat16) if with_bf16 else vj
+        self.data = {"vectors": vj, "vectors_bf16": vb, "sqnorms": sq, "n": n}
+        self.n, self.dim = n, dim
+        return self
+
     def search(self, queries: np.ndarray, k: int = 10, *,
                batch_size: int = 4096, chunk: int = 65536,
                use_bf16: bool = True) -> tuple[np.ndarray, np.ndarray]:
@@ -166,6 +188,24 @@ class FlatIndex:
             out_d[lo:hi] = dd[: hi - lo].cpu().numpy()
             out_i[lo:hi] = ii[: hi - lo].cpu().numpy()
         return out_i, out_d
+
+    def cost_counters(self, nq: int, k: int = 10, *, batch_size: int = 4096,
+                      use_bf16: bool = True) -> dict:
+        """Analytic cost of a run, the JAX package's count, so that both
+        command lines report the same numbers: every query scores every row,
+        every batch streams the whole table once, and 2k survivors a query
+        are re-ranked in f32 (``search`` keeps 4k: the JAX count predates
+        its ``rerank=4``)."""
+        n_pad = int(self.data["vectors"].shape[0])
+        batches = -(-nq // max(batch_size, 1))
+        table = n_pad * self.dim * (2 if use_bf16 else 4)
+        rerank = (2 * k) * self.dim * 4 if use_bf16 else 0
+        return {
+            "distance_computations": nq * n_pad + (nq * 2 * k if use_bf16 else 0),
+            "scanned_rows": nq * n_pad,
+            "hbm_gather_bytes": batches * table + nq * rerank,
+            "ici_exchange_bytes": 0,
+        }
 
 
 def kb_auto(n_rows: int, dim: int) -> int:

@@ -16,7 +16,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 # a sys.meta_path finder that refuses jax, jaxlib, ml_dtypes and the JAX
 # package shine_tpu
-_BLOCKER = """
+_BLOCK = """
 import sys
 _BLOCKED = ("jax", "jaxlib", "ml_dtypes", "shine_tpu")
 class _Block:
@@ -25,8 +25,21 @@ class _Block:
             raise ImportError(f"blocked: {name}")
         return None
 sys.meta_path.insert(0, _Block())
+"""
+_BLOCKER = _BLOCK + """
 import importlib
 importlib.import_module(sys.argv[1])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
+assert not loaded, loaded
+"""
+# `python -m shine_tpu_torch --help` under the blocker
+_MAIN_HELP = _BLOCK + """
+import runpy
+sys.argv = ["shine_tpu_torch", "--help"]
+try:
+    runpy.run_module("shine_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
 assert not loaded, loaded
 """
@@ -40,11 +53,15 @@ def _clean_env():
 
 @pytest.mark.parametrize("module", [
     "shine_tpu_torch",
+    "shine_tpu_torch.cli",
     "shine_tpu_torch.config",
     "shine_tpu_torch.convert",
     "shine_tpu_torch.graph.soa",
     "shine_tpu_torch.io",
     "shine_tpu_torch.io.checkpoint",
+    "shine_tpu_torch.io.datasets",
+    "shine_tpu_torch.io.fbin",
+    "shine_tpu_torch.io.skew",
     "shine_tpu_torch.models.build",
     "shine_tpu_torch.models.dynamic",
     "shine_tpu_torch.models.fastbuild",
@@ -61,6 +78,9 @@ def _clean_env():
     "shine_tpu_torch.ops.scan_split",
     "shine_tpu_torch.ops.distance",
     "shine_tpu_torch.parallel.placement",
+    "shine_tpu_torch.utils",
+    "shine_tpu_torch.utils.stats",
+    "shine_tpu_torch.utils.timing",
     "chip_smoke",
 ])
 def test_imports_with_jax_blocked(module):
@@ -70,6 +90,15 @@ def test_imports_with_jax_blocked(module):
         env=_clean_env(),
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_main_help_with_jax_blocked():
+    res = subprocess.run(
+        [sys.executable, "-c", _MAIN_HELP], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env=_clean_env(),
+    )
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout and "--index" in res.stdout
 
 
 def _port_sources():
