@@ -115,7 +115,33 @@ the same knobs:
      auto --zipf 1.0 --warmup 1000: resolves to fastflat, recall >= 0.98;
      --index flat --num-queries 1000: the recall of FlatIndex.search on the
      same queries; then --synthetic 65536:128 --num-queries 1000 --index hnsw
-     --device-build: recall >= 0.90, beam_step and gather_score launched.
+     --device-build: recall >= 0.90, beam_step and gather_score launched;
+     --index ivf --probes 32 --seed 1234 and --index ivf --ivf-routed --seed
+     1234: the recall of phase 23's library call at the same seed and knobs
+     exactly, no kernel launched.
+
+Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
+family; IVF launches no kernel of the table (its products are torch, as
+the JAX package's are XLA):
+
+ 23. IVFIndex(base, seed=1234) built on the host (C=7,813, cap 160), its
+     stage seconds (k-means, choices, capacity assignment, fill, upload) and
+     layout invariants (every id once, no cluster over cap, pads -1, +inf,
+     zero rows); search at probes 16, 32 and 64, batch 4096, recall@10
+     (never falling as probes rise) and QPS after a warm-up batch; 256
+     queries on a CPU copy of the layout against the card (id overlap >=
+     0.99); probe_chunk=4 bit for bit with the default on one batch of
+     4096 (ivf_search); search_routed on
+     this layout at the command line's knobs (what --ivf-routed serves);
+     a profile of one probes-32 batch; full probes over the set's first
+     65,536 rows in 512 clusters (recall@10 >= 0.99 against their exact
+     top-10, 1,000 queries, rerank 8); the routed layout (C=2,048, cap 611)
+     served by search_routed at the command line's knobs and bench.py's
+     (probes 16, shared 128, tile 64) with coverage and spilled queries, a
+     profile of one batch, and fallback=1.1 equal to search at probes 16,
+     id for id; IVFIndex.from_device on the card-resident base with its
+     stage seconds, the same invariants, recall@10 at probes 32 within 0.02
+     of the host build's. One [ivf] summary line.
 
 Phases 12 and 13 run on a second set, 4,194,304 x 128 (10,000 queries, L2,
 seed 7), the JAX package's smallest measured routed operating point, with
@@ -154,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -170,6 +197,7 @@ from shine_tpu_torch import (
     FastFlatIndex,
     FlatIndex,
     HNSWIndex,
+    IVFIndex,
     RoutedSplitIndex,
     SplitFlatIndex,
     build_routed_split,
@@ -181,6 +209,7 @@ from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParam
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import recall_at_k, save_dataset, save_graph, synthetic_dataset
 from shine_tpu_torch.models import routed_split as rs
+from shine_tpu_torch.models.ivf import IVFData, ivf_search
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models import build as tb
 from shine_tpu_torch.models import hnsw as th
@@ -1703,6 +1732,182 @@ def online_phase(ds, dev) -> tuple[dict, list[dict]]:
     return {"chunks": chunks, "launches": launches}, step_cases
 
 
+# --- phase 23: the IVF family at full width --------------------------------------
+
+IVF_SEED = 1234
+IVF_PROBES = (16, 32, 64)  # search on the fine layout: recall must not fall
+IVF_E2E_PROBES = 32  # the CPU-against-card check and the probe-chunk identity
+IVF_PROBE_CHUNK = 4
+# full probes: the set's first IVF_FULL_N rows in IVF_FULL_C clusters, every
+# cluster probed, must find the exact top-10 (the JAX package's
+# test_ivf_search_exact_full_probes_large_c on the chunked path)
+IVF_FULL_N, IVF_FULL_C, IVF_FULL_QUERIES, IVF_FULL_MIN_RECALL = 65_536, 512, 1_000, 0.99
+# search_routed: the command line's defaults and bench.py's point
+IVF_ROUTES = (("cli", {"probes": 16, "shared": 96, "tile": 256}),
+              ("bench", {"probes": 16, "shared": 128, "tile": 64}))
+IVF_DEVICE_RECALL_GAP = 0.02  # from_device draws other samples, same semantics
+
+
+def _ivf_layout_check(index: IVFIndex, n: int, what: str, C: int | None = None) -> None:
+    """The auto cluster count (C, default the fine layout's ceil(n/128)) and
+    cap = ceil(1.25 n / C); every id exactly once, no cluster over cap, pads
+    -1 with +inf norms and zero rows (on the card)."""
+    data = index.data
+    C = C or -(-n // 128)
+    if (data.num_clusters, data.cap) != (C, math.ceil(1.25 * n / C)):
+        raise AssertionError(f"ivf {what}: C={data.num_clusters} cap={data.cap}")
+    ids = data.block_ids
+    real = ids >= 0
+    every_once = torch.equal(torch.sort(ids[real]).values,
+                             torch.arange(n, dtype=ids.dtype, device=ids.device))
+    per = int(real.sum(dim=1).max())
+    pads_ok = bool(torch.isinf(data.block_sq[~real]).all()
+                   and (data.blocks[~real] == 0).all()
+                   and torch.isfinite(data.block_sq[real]).all())
+    log(f"[ivf] {what}: C={data.num_clusters} cap={data.cap} fullest cluster {per}, "
+        f"every id once {every_once}, pads -1/+inf/zero {pads_ok}")
+    if not (every_once and per <= data.cap and pads_ok):
+        raise AssertionError(f"ivf {what}: layout invariants broken")
+
+
+def _ivf_timed(run) -> tuple[tuple, float]:
+    """(``run()``'s result, its CUDA-synchronised seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ivf_build(what: str, build) -> tuple[IVFIndex, dict]:
+    timings = {}
+    index, wall = _ivf_timed(lambda: build(timings))
+    log(f"[ivf] {what}: {wall:.2f} s, stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items()))
+    return index, {"seconds": wall, "stages": timings, "C": index.data.num_clusters,
+                   "cap": index.data.cap}
+
+
+def _ivf_search(index: IVFIndex, ds, gt, probes: int, what: str) -> dict:
+    """All queries at batch B after a warm-up batch: recall@10 and QPS."""
+    index.search(ds.queries[:B], 10, probes=probes, batch_size=B)
+    (ids, _), wall = _ivf_timed(
+        lambda: index.search(ds.queries, 10, probes=probes, batch_size=B))
+    recall = recall_at_k(ids, gt, 10)
+    log(f"[ivf] {what} search probes={probes}: recall@10={recall:.4f} "
+        f"qps={NQ / wall:.1f} wall={wall:.3f} s")
+    return {"recall": recall, "qps": NQ / wall}
+
+
+def _ivf_routed(index: IVFIndex, ds, gt, knobs: dict, what: str) -> dict:
+    index.search_routed(ds.queries[:B], 10, **knobs)
+    (ids, _, st), wall = _ivf_timed(
+        lambda: index.search_routed(ds.queries, 10, with_stats=True, **knobs))
+    recall = recall_at_k(ids, gt, 10)
+    log(f"[ivf] {what} search_routed {knobs}: recall@10={recall:.4f} "
+        f"qps={NQ / wall:.1f} wall={wall:.3f} s coverage={st['probe_coverage']:.4f} "
+        f"spilled={st['fallback_queries']} tiles={st['tiles']}")
+    return {"recall": recall, "qps": NQ / wall, "coverage": st["probe_coverage"],
+            "spilled": st["fallback_queries"]}
+
+
+def ivf_phase(ds, gt, dev) -> dict:
+    """Phase 23: IVFIndex on the 1M set, built on the host (fine and routed
+    layouts) and on the card (from_device); every check raises. Returns
+    the numbers the [ivf] summary line carries."""
+    t_phase = time.perf_counter()
+    out = {}
+    fine, out["fine_build"] = _ivf_build("fine layout, host build", lambda tm: IVFIndex(
+        ds.base, seed=IVF_SEED, device=dev, timings=tm))
+    _ivf_layout_check(fine, N, "fine layout")
+    served = {p: _ivf_search(fine, ds, gt, p, "fine") for p in IVF_PROBES}
+    recalls = [served[p]["recall"] for p in IVF_PROBES]
+    if recalls != sorted(recalls):
+        raise AssertionError(f"ivf fine: recall falls as probes rise: {recalls}")
+    out["fine"] = served
+
+    # the card against the CPU on the same layout; the probe chunk's identity
+    q = ds.queries[:E2E_QUERIES]
+    cpu = IVFIndex.from_layout(IVFData(*(t.cpu() for t in fine.data)), "l2")
+    a_ids, a_d = cpu.search(q, 10, probes=IVF_E2E_PROBES, batch_size=E2E_QUERIES)
+    b_ids, b_d = fine.search(q, 10, probes=IVF_E2E_PROBES, batch_size=E2E_QUERIES)
+    _compare(a_ids, a_d, b_ids, b_d, f"ivf fine probes={IVF_E2E_PROBES}", FLAT_ATOL)
+    del cpu
+    q_dev = torch.from_numpy(ds.queries[:B]).to(dev)
+    kw = dict(k=10, p=IVF_E2E_PROBES, metric=METRIC_L2)
+    a, b = (ivf_search(fine.data, q_dev, **kw),
+            ivf_search(fine.data, q_dev, probe_chunk=IVF_PROBE_CHUNK, **kw))
+    same = torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int32),
+                                                   b[1].view(torch.int32))
+    log(f"[ivf] probe_chunk={IVF_PROBE_CHUNK} against the default chunk, probes="
+        f"{IVF_E2E_PROBES}, one batch of {B}: bit for bit {same}")
+    if not same:
+        raise AssertionError("ivf: the probe chunk changed the results")
+    del q_dev, a, b
+
+    # what --index ivf --ivf-routed serves: search_routed on the fine layout
+    out["fine_routed_cli"] = _ivf_routed(fine, ds, gt, dict(IVF_ROUTES)["cli"],
+                                         "fine layout")
+    profile_run(lambda: fine.search(ds.queries[:B], 10, probes=IVF_E2E_PROBES,
+                                    batch_size=B), f"ivf search probes={IVF_E2E_PROBES}")
+    fine_recall32 = served[IVF_E2E_PROBES]["recall"]
+    del fine
+    torch.cuda.empty_cache()
+
+    # full probes scan everything: the exact top-10 of a subset
+    sub = ds.base[:IVF_FULL_N]
+    qf = ds.queries[:IVF_FULL_QUERIES]
+    sub_gt = exact_knn(torch.from_numpy(sub).to(dev), torch.from_numpy(qf).to(dev),
+                       10)[0].cpu().numpy()
+    full, _ = _ivf_build(f"{IVF_FULL_N} rows, C={IVF_FULL_C}", lambda tm: IVFIndex(
+        sub, num_clusters=IVF_FULL_C, seed=IVF_SEED, device=dev, timings=tm))
+    (ids, _), wall = _ivf_timed(lambda: full.search(qf, 10, probes=IVF_FULL_C, rerank=8))
+    out["full_probes_recall"] = recall_at_k(ids, sub_gt, 10)
+    log(f"[ivf] full probes ({IVF_FULL_C} of {IVF_FULL_C}, rerank 8, "
+        f"{IVF_FULL_QUERIES} queries): recall@10={out['full_probes_recall']:.4f} "
+        f"wall={wall:.3f} s")
+    if out["full_probes_recall"] < IVF_FULL_MIN_RECALL:
+        raise AssertionError(f"ivf full probes: recall {out['full_probes_recall']}")
+    del full
+
+    # the routed layout (C <= 2048)
+    routed, out["routed_build"] = _ivf_build("routed layout, host build", lambda tm: IVFIndex(
+        ds.base, seed=IVF_SEED, layout="routed", device=dev, timings=tm))
+    _ivf_layout_check(routed, N, "routed layout", min(2048, -(-N // 128)))
+    out["routed"] = {r: _ivf_routed(routed, ds, gt, knobs, "routed layout")
+                     for r, knobs in IVF_ROUTES}
+    per_query = routed.search(ds.queries, 10, probes=16)
+    spilled = routed.search_routed(ds.queries, 10, probes=16, shared=96, tile=256,
+                                   fallback=1.1, with_stats=True)
+    same = np.array_equal(spilled[0], per_query[0])
+    log(f"[ivf] routed layout, fallback=1.1 ({spilled[2]['fallback_queries']} spilled) "
+        f"against search probes=16: ids equal {same} (in "
+        f"{(spilled[0] == per_query[0]).mean():.6f} of positions), dists bit for bit "
+        f"{np.array_equal(spilled[1].view(np.uint32), per_query[1].view(np.uint32))}")
+    if not same or spilled[2]["fallback_queries"] != NQ:
+        raise AssertionError("ivf: the fallback spill is not the per-query search")
+    profile_run(lambda: routed.search_routed(ds.queries[:B], 10, **dict(IVF_ROUTES)["cli"]),
+                "ivf search_routed, routed layout, the CLI's knobs")
+    del routed, per_query, spilled
+    torch.cuda.empty_cache()
+
+    # the build that keeps the rows on the card
+    v_dev = torch.from_numpy(ds.base).to(dev)
+    on_card, out["device_build"] = _ivf_build("fine layout, from_device", lambda tm: (
+        IVFIndex.from_device(v_dev, seed=IVF_SEED, device=dev, timings=tm)))
+    _ivf_layout_check(on_card, N, "from_device")
+    out["device"] = _ivf_search(on_card, ds, gt, IVF_E2E_PROBES, "from_device")
+    if abs(out["device"]["recall"] - fine_recall32) > IVF_DEVICE_RECALL_GAP:
+        raise AssertionError(f"ivf from_device: recall {out['device']['recall']} "
+                             f"against the host build's {fine_recall32}")
+    del on_card, v_dev
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[ivf] phase 23: {out['seconds']:.1f} s")
+    log(f"[ivf] summary {json.dumps(out)}")
+    return out
+
+
 # --- phase 22: the command line at full width ----------------------------------
 
 # the runs' shared flags, and the HNSW ones: phase 5's build and search
@@ -1795,6 +2000,10 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
         ("hnsw_device_build", CLI_DEVBUILD + CLI_COMMON
          + ["--index", "hnsw", "--device-build", *CLI_HNSW],
          ("beam_step", "gather_score")),
+        ("ivf", data + ["--index", "ivf", "--probes", str(IVF_E2E_PROBES),
+                        "--seed", str(IVF_SEED)], ()),
+        ("ivf_routed", data + ["--index", "ivf", "--ivf-routed", "--seed",
+                               str(IVF_SEED)], ()),
     )
     out = {}
     for name, argv, kernels in runs:
@@ -1813,6 +2022,8 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
         missing = [k for k in kernels if not launches.get(k)]
         if missing:
             raise AssertionError(f"cli {name}: {missing} never launched")
+        if name.startswith("ivf") and launches:
+            raise AssertionError(f"cli {name}: IVF launched {launches}")
         if name == "auto_zipf" and "-> fastflat" not in err:
             raise AssertionError(f"cli auto: resolved otherwise: {err.strip()}")
         out[name] = {"argv": argv, "build": doc["build"], "queries": q,
@@ -1913,6 +2124,7 @@ def main() -> None:
     online, build_step = online_phase(ds, dev)
     k3_kernels, split_served = split_phases(ds, gt, dev)
     try:
+        ivf = ivf_phase(ds, gt, dev)
         ds.ground_truth = gt  # the exact top-10 on the card
         data_dir = os.path.join(cli_dir, "sift_shape")
         t0 = time.perf_counter()
@@ -1929,6 +2141,11 @@ def main() -> None:
             "routed": (("ge", CLI_MIN_RECALL), None, None),
             "auto_zipf": (("ge", FLAT_MIN_RECALL), flat_served["auto"][1], "7, auto"),
             "hnsw_device_build": (("ge", CLI_MIN_RECALL), None, None),
+            "ivf": (("eq", ivf["fine"][IVF_E2E_PROBES]["recall"]),
+                    ivf["fine"][IVF_E2E_PROBES]["qps"], f"23, probes {IVF_E2E_PROBES}"),
+            "ivf_routed": (("eq", ivf["fine_routed_cli"]["recall"]),
+                           ivf["fine_routed_cli"]["qps"],
+                           "23, search_routed on the fine layout"),
         }, dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)

@@ -1,7 +1,7 @@
 """shine_tpu_torch: the PyTorch/CUDA port of shine_tpu for one NVIDIA H100.
 
 Serves batched HNSW k-NN queries, near-exact brute-force queries and
-cluster-pruned (routed) queries. The graph is built by the port's own
+cluster-pruned (IVF and routed) queries. The graph is built by the port's own
 native builder (``graph``, ``native``), at scan speed on the card
 (``models/fastbuild.py``: an exact kNN sweep through the class-max or
 block-max scans, a batched diversity select, the native reverse merge), or
@@ -15,7 +15,9 @@ drop, row scoring, merge) as one launch of a hand-written CUDA kernel
 ``csrc/classmax2_scan.cu``) and ``RoutedSplitIndex`` the clusters its
 query tiles ask for in a clustered split table (the routed scan, also in
 ``csrc/classmax2_scan.cu``); FastFlat's block-max route runs the block-max
-scan of ``csrc/classmax2_scan.cu``. The command line, ``python -m
+scan of ``csrc/classmax2_scan.cu``; ``IVFIndex`` (``models/ivf.py``) scores
+each query's probed clusters, or each query tile's shared ones, with torch
+products, as the JAX package does with XLA. The command line, ``python -m
 shine_tpu_torch`` (``cli.py``), builds or loads any of them from dataset
 files (``io/fbin.py``, ``io/datasets.py``) or a synthetic set, serves a
 plain or Zipf-skewed workload (``io/skew.py``) and prints the run's
@@ -29,6 +31,7 @@ from shine_tpu_torch.convert import (
     build_state_from_jax,
     device_graph_from_jax,
     fastflat_from_jax,
+    ivf_from_jax,
     routed_split_from_jax,
     splitflat_from_jax,
 )
@@ -41,6 +44,7 @@ from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
+from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 
@@ -55,6 +59,7 @@ __all__ = [
     "FlatIndex",
     "FastFlatIndex",
     "SplitFlatIndex",
+    "IVFIndex",
     "RoutedSplitIndex",
     "build_routed_split",
     "fast_build_graph",
@@ -67,4 +72,5 @@ __all__ = [
     "fastflat_from_jax",
     "splitflat_from_jax",
     "routed_split_from_jax",
+    "ivf_from_jax",
 ]

@@ -4,20 +4,20 @@ The counterpart of ``shine_tpu/cli.py`` (``python -m shine_tpu``), with the
 same flags, defaults and branches, on one CUDA card:
 
   --data-path --synthetic N:D --query-suffix --num-queries --zipf --warmup
-  --index {hnsw,flat,fastflat,split,routed,auto} -m --ef-construction
+  --index {hnsw,flat,fastflat,ivf,split,routed,auto} -m --ef-construction
   --ip-dist --seed --store-index --load-index --device-build --fast-build
-  -k --ef-search --frontier --probes --ivf-shared --ivf-tile --batch
-  --rows --prerank --no-recall --label
+  -k --ef-search --frontier --probes --ivf-routed --ivf-shared --ivf-tile
+  --batch --rows --prerank --no-recall --label
 
 ``--device {cuda,cpu}`` (default cuda) is the one flag the port adds: every
 index and build runs there, and without a card the run fails unless it
 asks for the CPU, where each kernel's plain twin runs. The flags of paths
 the port does not have yet stay in the parser and make ``main`` exit with
 status 2 before any data is read, naming the ROADMAP item they wait for:
-``--index ivf`` and ``--ivf-routed`` (A4), ``--megabatch`` (A2),
-``--shards`` > 1, ``--cache``, ``--cache-ratio``, ``--adaptive-cache``,
-``--routing``, ``--adaptive-routing``, ``--exchange compact`` and
-``--adaptive-slack`` (A8).
+``--megabatch`` (A2), ``--shards`` > 1, ``--cache``, ``--cache-ratio``,
+``--adaptive-cache``, ``--routing``, ``--adaptive-routing``, ``--exchange
+compact`` and ``--adaptive-slack`` (A8). ``--ivf-routed`` with another
+family than ivf is ignored, as in the JAX command line.
 
 Output: the run's Statistics document (``utils/stats.py``, the JAX
 package's keys plus ``meta.device``) as the last line on stdout. Build time
@@ -50,6 +50,7 @@ from shine_tpu_torch.models.build import device_build_graph
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
+from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import build_routed_split
 from shine_tpu_torch.ops import _build as kernels
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
@@ -92,13 +93,17 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--ef-search", type=int, default=128)
     q.add_argument("--frontier", type=int, default=4)
     q.add_argument("--probes", type=int, default=16,
-                   help="routed: clusters each query wishes for (0 = auto)")
+                   help="ivf/routed: clusters each query wishes for (routed: "
+                        "0 = auto)")
     q.add_argument("--ivf-routed", action="store_true",
-                   help="IVF tile-shared probing (not ported: ROADMAP A4)")
+                   help="ivf: tile-shared probing (search_routed); ignored "
+                        "by the other families")
     q.add_argument("--ivf-shared", type=int, default=0,
-                   help="routed: clusters granted a tile; 0 = auto")
+                   help="clusters granted a tile; 0 = 96 for --ivf-routed, "
+                        "the auto rule for routed")
     q.add_argument("--ivf-tile", type=int, default=0,
-                   help="routed: queries a tile; 0 = auto")
+                   help="queries a tile; 0 = 256 for --ivf-routed, the auto "
+                        "rule for routed")
     q.add_argument("--batch", type=int, default=2048)
     q.add_argument(
         "--rows", choices=("f32", "bf16", "int8"), default="f32",
@@ -141,8 +146,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[tuple[str, str]]:
     """(flag, ROADMAP item) of each flag given whose path is not ported."""
     checks = (
-        (args.index == "ivf", "--index ivf", "A4"),
-        (args.ivf_routed, "--ivf-routed", "A4"),
         (args.megabatch, "--megabatch", "A2"),
         (args.shards > 1, f"--shards {args.shards}", "A8"),
         (args.cache, "--cache", "A8"),
@@ -158,9 +161,10 @@ def unported_flags(args: argparse.Namespace) -> list[tuple[str, str]]:
 
 def _load_libraries(args, dev) -> None:
     """Build (at first use) and load what the run's path calls, so that
-    no compile lands in a timed window: the CUDA kernels on a card, the
-    native builder where the graph is built or merged on the host."""
-    if dev.type == "cuda":
+    no compile lands in a timed window: the CUDA kernels on a card (IVF
+    calls none), the native builder where the graph is built or merged on
+    the host."""
+    if dev.type == "cuda" and args.index != "ivf":
         kernels.load()
     if args.index == "hnsw" and not (args.load_index or args.device_build):
         native.load()
@@ -257,12 +261,19 @@ def main(argv: list[str] | None = None) -> int:
         s.hbm_gather_bytes = s.distance_computations * 4 * (ds.dim + 1)
     elif hasattr(index_obj, "cost_counters"):
         # the dense families: costs are analytic in the shapes
-        if args.index == "routed":
-            kw = {"probes": args.probes, "shared": args.ivf_shared,
-                  "tile": args.ivf_tile}
+        if args.index == "ivf" and args.ivf_routed:
+            cc = index_obj.routed_cost_counters(
+                len(queries), args.k, probes=args.probes,
+                shared=args.ivf_shared or 96, tile=args.ivf_tile or 256,
+            )
         else:
             kw = {"batch_size": args.batch}
-        cc = index_obj.cost_counters(len(queries), args.k, **kw)
+            if args.index == "ivf":
+                kw["probes"] = args.probes
+            elif args.index == "routed":
+                kw = {"probes": args.probes, "shared": args.ivf_shared,
+                      "tile": args.ivf_tile}
+            cc = index_obj.cost_counters(len(queries), args.k, **kw)
         s.distance_computations = cc["distance_computations"]
         s.scanned_rows = cc["scanned_rows"]
         s.hbm_gather_bytes = cc["hbm_gather_bytes"]
@@ -321,6 +332,23 @@ def _build(args, ds, params, sp, dev, timing):
                 tile=args.ivf_tile, batch_size=args.batch,
             )[0],
             nbytes,
+            idx,
+        )
+    if args.index == "ivf":
+        idx = IVFIndex(ds.base, metric=params.metric, seed=args.seed, device=dev)
+        if args.ivf_routed:
+            return (
+                lambda q: idx.search_routed(
+                    q, args.k, probes=args.probes,
+                    shared=args.ivf_shared or 96, tile=args.ivf_tile or 256,
+                )[0],
+                ds.base.nbytes * 2,
+                idx,
+            )
+        return (
+            lambda q: idx.search(q, args.k, probes=args.probes,
+                                 batch_size=args.batch)[0],
+            ds.base.nbytes * 2,
             idx,
         )
     # hnsw

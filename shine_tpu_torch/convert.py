@@ -3,11 +3,12 @@
 The JAX ``DeviceGraph`` (graph lists and stored rows), the JAX
 ``BuildState`` (an insert build's tables and scalars), the JAX
 ``FastFlatIndex`` (packed table, rows, norms, permutation), the JAX
-``SplitFlatIndex`` (component table, aux, rows, norms, permutation) and the
-JAX ``RoutedSplitIndex`` (centroids, clustered tables, row ids, base) are
-this system's state. ``device_graph_from_jax``, ``build_state_from_jax``,
-``fastflat_from_jax``, ``splitflat_from_jax`` and ``routed_split_from_jax``
-take their fields as
+``SplitFlatIndex`` (component table, aux, rows, norms, permutation), the
+JAX ``RoutedSplitIndex`` (centroids, clustered tables, row ids, base) and
+the JAX ``IVFData`` (centroids, cluster blocks, their norms and ids, rows,
+norms) are this system's state. ``device_graph_from_jax``,
+``build_state_from_jax``, ``fastflat_from_jax``, ``splitflat_from_jax``,
+``routed_split_from_jax`` and ``ivf_from_jax`` take their fields as
 numpy arrays, so that both packages serve one index, and import nothing of
 JAX.
 """
@@ -24,6 +25,7 @@ from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.models.build import BuildState
 from shine_tpu_torch.models.flat import FastFlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import DeviceGraph, check_lists
+from shine_tpu_torch.models.ivf import IVFData, IVFIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex
 from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import ext_width
@@ -218,3 +220,23 @@ def routed_split_from_jax(
         _to_torch(np.asarray(arrays["aux_r"], np.float32)).to(device),
         _to_torch(np.asarray(arrays["gid"], np.int32)).to(device),
         n, dim, mid, cls=cls, cap=cap, base_dev=base, sqnorms=sq)
+
+
+def ivf_from_jax(
+    arrays: Mapping[str, np.ndarray],
+    *,
+    metric: str | int,
+    device: torch.device | str | None = None,
+) -> IVFIndex:
+    """The port's IVFIndex serving the JAX ``IVFData``'s layout, on
+    ``device`` (the CUDA card unless another is given): its fields
+    (``centroids``, ``blocks`` in ml_dtypes bf16, carried as raw bits,
+    ``block_sq``, ``block_ids``, ``vectors``, ``sqnorms``) as numpy."""
+    device = resolve_device(device)
+    dtypes = {"centroids": np.float32, "block_sq": np.float32, "block_ids": np.int32,
+              "vectors": np.float32, "sqnorms": np.float32}
+    fields = {name: _to_torch(np.asarray(arrays[name], dtypes.get(name))).to(device)
+              for name in IVFData._fields}
+    if fields["blocks"].dtype != torch.bfloat16:
+        raise ValueError(f"blocks must be bf16, got {fields['blocks'].dtype}")
+    return IVFIndex.from_layout(IVFData(**fields), metric)

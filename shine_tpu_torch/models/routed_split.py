@@ -7,10 +7,11 @@ d=128) with one pad cluster, and each batch scans only the clusters its
 query tiles ask for. A batch's queries pick their ``probes`` nearest
 centroids, are sorted by their two nearest so that neighbours share a
 tile, and each tile of T queries is granted the P clusters its queries
-wish for most, rank by rank (``_route_cols``). The routed class-max scan
-(K4, ``ops/scan_routed.py``) reduces each query's scores over those blocks
-to one best row a class lane; the best ``kk`` lanes are re-ranked exactly
-in f32 from the resident base. Queries whose own wishes were granted less
+wish for most, rank by rank (``models/ivf.py:route_batch``, which the IVF
+family shares). The routed class-max scan (K4, ``ops/scan_routed.py``)
+reduces each query's scores over those blocks to one best row a class
+lane; the best ``kk`` lanes are re-ranked exactly in f32 from the resident
+base. Queries whose own wishes were granted less
 than ``fallback`` are served again in narrow tiles that grant every wish.
 
 The build (``build_routed_split``) trains the centroids on a sample, streams
@@ -34,11 +35,11 @@ import torch
 
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.models import ivf
+from shine_tpu_torch.models.ivf import route_batch
 from shine_tpu_torch.ops.beam import dist_id_key, smallest_positions
 from shine_tpu_torch.ops.classmax import top_k
 from shine_tpu_torch.ops.distance import (
     matmul_nt,
-    pairwise_distance,
     rerank_topk,
     squared_norms,
 )
@@ -57,45 +58,6 @@ _ROW_SOURCE_MSG = ("row_source (rows regenerated from a key) is not ported "
 
 def _round_up(x: int, q: int) -> int:
     return -(-x // q) * q
-
-
-def _route_cols(probes_s: torch.Tensor, C: int, P: int):
-    """Rank-major tile-shared column grant, by two sorts.
-
-    probes_s: (G, T, p) each query's probe wishes, affinity-sorted. Every
-    query's rank-r wish is considered before any query's rank r+1: wish
-    (t, r) carries position r*T + t, each cluster's priority is its least
-    position, and the P best-priority clusters win. Returns (cols (G, P)
-    int32, the pad cluster C where fewer than P clusters were wished for;
-    coverage, the granted share of all wishes (0-d f32); q_granted (G*T,)
-    f32, each query's granted share)."""
-    G, T, p = probes_s.shape
-    TP = T * p
-    dev = probes_s.device
-    pos = torch.arange(TP, device=dev).reshape(p, T).T.expand(G, T, p).reshape(G, TP)
-    comb = probes_s.to(torch.int64).reshape(G, TP) * TP + pos
-    s = torch.sort(comb, dim=1).values
-    k_s = s // TP
-    pos_s = s % TP
-    iota = torch.arange(TP, device=dev).expand(G, TP)
-    is_first = torch.ones((G, TP), dtype=torch.bool, device=dev)
-    is_first[:, 1:] = k_s[:, 1:] != k_s[:, :-1]
-    seg_start = torch.cummax(torch.where(is_first, iota, 0), dim=1).values
-    minpos_elem = torch.gather(pos_s, 1, seg_start)
-    # second sort: the unique clusters by their least position
-    val = torch.where(is_first, pos_s, TP)  # TP = +inf sentinel
-    s2 = torch.sort(val * (C + 1) + k_s, dim=1).values[:, :P]
-    val2 = s2 // (C + 1)
-    cols = torch.where(val2 < TP, s2 % (C + 1), C).to(torch.int32)
-    # positions are unique in a group, so "least position <= the P-th
-    # unique least position" picks exactly the granted clusters' wishes
-    thresh = torch.where(val2[:, -1:] < TP, val2[:, -1:], TP)
-    granted = minpos_elem <= thresh
-    coverage = granted.to(torch.float32).mean()
-    g_flat = torch.zeros((G, TP), dtype=torch.float32, device=dev)
-    g_flat.scatter_(1, pos_s, granted.to(torch.float32))
-    q_granted = g_flat.reshape(G, p, T).mean(dim=1).reshape(G * T)
-    return cols, coverage, q_granted
 
 
 def _auto_probes(C: int) -> int:
@@ -122,26 +84,6 @@ def _spill_plan(n_need: int, probes: int, C: int):
     Ps = min(C, Ts * probes)
     bucket = 1 << max(int(np.ceil(np.log2(max(n_need, 1)))), 6)
     return Ts, Ps, bucket
-
-
-def route_batch(cents: torch.Tensor, q: torch.Tensor, *, metric: int, p: int,
-                P: int, T: int, C: int):
-    """Stage 1 of a routed batch: each query's p nearest centroids (exact),
-    the affinity sort by (nearest, second nearest) probe, and the tile
-    grants. Returns (perm, inv, cols, coverage, q_granted): ``q[perm]`` is
-    the affinity-sorted batch, ``inv`` undoes it; ``cols``, ``coverage``
-    and ``q_granted`` (in sorted order) are ``_route_cols``'."""
-    B = q.shape[0]
-    probes_ = top_k(-pairwise_distance(q, cents, metric), p)[1]
-    if p > 1:
-        perm = torch.argsort(probes_[:, 1], stable=True)
-        perm = perm[torch.argsort(probes_[perm, 0], stable=True)]
-    else:
-        perm = torch.argsort(probes_[:, 0], stable=True)
-    inv = torch.argsort(perm, stable=True)
-    cols, coverage, q_granted = _route_cols(
-        probes_[perm].reshape(B // T, T, p), C, P)
-    return perm, inv, cols, coverage, q_granted
 
 
 def scan_select(comp, aux_r, gid, q_s, cols, *, T: int, cap: int, cls: int,
@@ -370,14 +312,8 @@ def _draw_train_ids(n: int, ts: int, seed: int) -> torch.Tensor:
 def _cluster_major_order(assign: np.ndarray, C: int, cap: int) -> np.ndarray:
     """((C+1)*cap,) int32: cluster c's rows, ascending by id, in slots
     c*cap .., -1 in the empty slots and in the pad cluster C."""
-    n = assign.shape[0]
-    sort_idx = np.argsort(assign, kind="stable")
-    sa = assign[sort_idx]
-    first = np.searchsorted(sa, np.arange(C))
-    slot = np.arange(n, dtype=np.int64) - first[sa]
-    order = np.full((C + 1) * cap, -1, np.int32)
-    order[sa * cap + slot] = sort_idx.astype(np.int32)
-    return order
+    return np.concatenate([ivf._cluster_slots(assign, C, cap).reshape(-1),
+                           np.full(cap, -1, np.int32)])
 
 
 def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,

@@ -1,7 +1,8 @@
 """The CUDA kernels (gather_score and the fused beam step, K1, also as the
 insert build's searches; the class-max scans, K2, K3 and K4,
 the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
-edges, and K6 and its chunk runs) against their plain twins, on a card.
+edges, and K6 and its chunk runs) against their plain twins, on a card;
+and the IVF index, which has no kernel of its own, against the CPU.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -770,6 +771,34 @@ def test_routed_index_on_card_matches_cpu(card):
     assert built.comp.is_cuda and built.C == cpu.C
     ids, _ = built.search(ds.queries, 10, batch_size=128)
     assert (ids >= 0).all()
+
+
+def test_ivf_index_on_card_matches_cpu(card):
+    """IVFIndex (no kernel of its own: torch products) on the card against
+    the same layout on the CPU: search, search_routed with a spill, and the
+    build itself on the card."""
+    from shine_tpu_torch import IVFIndex
+    from shine_tpu_torch.models.ivf import IVFData
+
+    ds = synthetic_dataset(n=6000, dim=32, num_queries=200, seed=13, compute_gt=False)
+    cpu = IVFIndex(ds.base, num_clusters=64, seed=7, device="cpu")
+    gpu = IVFIndex.from_layout(IVFData(*(t.to(card) for t in cpu.data)), "l2")
+    for run in (lambda ix: ix.search(ds.queries, 10, probes=8),
+                lambda ix: ix.search_routed(ds.queries, 10, probes=8, shared=48, tile=32),
+                lambda ix: ix.search_routed(ds.queries, 10, probes=8, shared=4, tile=64)):
+        (a, da), (b, db) = run(cpu), run(gpu)
+        same = a == b
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(db[same], da[same], rtol=RTOL, atol=ATOL)
+    # the builds themselves on the card
+    for built in (IVFIndex(ds.base, num_clusters=64, seed=7, device=card),
+                  IVFIndex.from_device(torch.from_numpy(ds.base).to(card),
+                                       num_clusters=64, seed=7, device=card)):
+        ids = built.data.block_ids
+        assert built.data.blocks.is_cuda
+        assert torch.equal(torch.sort(ids[ids >= 0]).values.cpu(),
+                           torch.arange(6000, dtype=ids.dtype))
+        assert (built.search(ds.queries, 10, probes=8)[0] >= 0).all()
 
 
 # --- K5 and K6: the block-max scans ------------------------------------------

@@ -254,7 +254,7 @@ def test_route_cols_matches_jax(G, T, p, C, P):
     probes = np.stack([
         np.stack([(rng.integers(0, C) + rng.choice(min(C, 3 * p), p, replace=False)) % C
                   for _ in range(T)]) for _ in range(G)]).astype(np.int32)
-    cols, cov, qg = trs._route_cols(torch.from_numpy(probes), C, P)
+    cols, cov, qg = tivf._route_cols(torch.from_numpy(probes), C, P)
     w_cols, w_cov, w_qg = jrs._route_cols(jnp.asarray(probes), C, P)
     np.testing.assert_array_equal(cols.numpy(), np.asarray(w_cols))
     np.testing.assert_array_equal(_bits(cov.numpy()), _bits(np.asarray(w_cov)))
