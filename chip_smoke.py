@@ -118,11 +118,13 @@ the same knobs:
      --device-build: recall >= 0.90, beam_step and gather_score launched;
      --index ivf --probes 32 --seed 1234 and --index ivf --ivf-routed --seed
      1234: the recall of phase 23's library call at the same seed and knobs
-     exactly, no kernel launched.
+     exactly, gather_score (the probe rows and the re-rank) the only kernel
+     launched.
 
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
-family; IVF launches no kernel of the table (its products are torch, as
-the JAX package's are XLA):
+family; IVF has no kernel of its own (the JAX package's products are XLA):
+on the card it scores the probed rows and re-ranks through K1's
+gather_score, one fixed sum order per (query, row) (ROADMAP C11):
 
  23. IVFIndex(base, seed=1234) built on the host (C=7,813, cap 160), its
      stage seconds (k-means, choices, capacity assignment, fill, upload) and
@@ -166,6 +168,27 @@ exact ground truth on the card:
      torch.bmm of each group's queries against its gathered blocks (the
      yardstick, gather untimed, never called by the port).
 
+Phase 24 runs last, on row-keyed data (rows regenerated by id from the
+JAX package's threefry at seed 17, d=128, L2, 2048 queries):
+
+ 24. the capacity path: (a) regen_rows on 1,048,576 ids and regen_score at
+     B=4096, kk=80 against their plain versions, bit for bit, L2 and IP,
+     with CUDA-event times and the bound; (b) bench.py's capacity_split_1m
+     row (device_rowkeyed_split_dataset, int8, SplitFlatIndex.from_parts
+     with the row source, kb=64, batch 2048: recall@10 >= 0.90, K3 int8 and
+     regen_score launched); (c) the row-keyed ext table at the same size
+     through FastFlatIndex.from_ext with the row source at the auto knobs
+     (the same gate, K2 and regen_score launched); (d) capacity-routed-41.9m:
+     build_routed_split of 41,943,040 row-keyed rows with no resident base
+     (cap_target 4096, cls 1024, int8, seed 17; stage times; peak allocated
+     memory below the f32 base's 21.5 GB; the scorer crosscheck > 0.995),
+     served at p:P:T 16:192:32 and 32:256:32 (recall@10 >= 0.90 there) and
+     once with the fallback spill: recall, eps and margin recall, coverage,
+     spilled queries, QPS, K4 and regen_score launches, one profile;
+     (e) ROADMAP C11: FastFlat, split int8, routed, IVF and HNSW on a 65,536
+     x 128 set serve 64 queries inside batches of 64, 2048 and 16,384 with
+     equal ids and distance bits. One [capacity] summary line.
+
 Every count of kernel launches is set to 0 just before the run it reads.
 Each kernel's entry in the JSON table pairs those launches with the time,
 error and bound taken at the shape its route ran. Any failure raises. On
@@ -207,7 +230,15 @@ from shine_tpu_torch import (
 )
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
-from shine_tpu_torch.io import recall_at_k, save_dataset, save_graph, synthetic_dataset
+from shine_tpu_torch.io import (
+    margin_mask,
+    recall_at_k,
+    recall_at_k_eps_regen,
+    save_dataset,
+    save_graph,
+    synthetic_dataset,
+)
+from shine_tpu_torch.io import device_synth as tds
 from shine_tpu_torch.models import routed_split as rs
 from shine_tpu_torch.models.ivf import IVFData, ivf_search
 from shine_tpu_torch.models.fastbuild import fast_build_graph
@@ -219,6 +250,7 @@ from shine_tpu_torch.ops import blockmax as bm
 from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops import scan_routed as k4
 from shine_tpu_torch.ops import beam_step as bs
+from shine_tpu_torch.ops import regen as rg
 from shine_tpu_torch.ops.beam import Beam
 from shine_tpu_torch.ops.distance import check_precision, exact_knn, squared_norms
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
@@ -358,6 +390,8 @@ def reset_launches() -> None:
         fn.form_launches.clear()
     k4.routed_classmax_scan.launches = 0
     k4.routed_classmax_scan.form_launches.clear()
+    rg.regen_rows.launches = 0
+    rg.regen_score.launches = 0
 
 
 def kernel_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> list[dict]:
@@ -963,8 +997,8 @@ def profile_batch(index, queries: np.ndarray, what: str) -> None:
     profile_run(lambda: index.search_device(pre, 10, batch_size=B), what)
 
 
-def profile_run(run, what: str) -> None:
-    """``profile_batch`` of any one-batch call ``run``."""
+def profile_run(run, what: str, batch: int = B) -> None:
+    """``profile_batch`` of any one-batch call ``run`` of ``batch`` queries."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -980,7 +1014,7 @@ def profile_run(run, what: str) -> None:
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] {what}, one batch of {B}: span {span_ms:.3f} ms (profiled), "
+    log(f"[profile] {what}, one batch of {batch}: span {span_ms:.3f} ms (profiled), "
         f"device busy {busy:.3f} ms ({100 * busy / span_ms:.1f}%)")
     for ms, count, key in rows[:8]:
         if ms > 0:
@@ -2001,9 +2035,9 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
          + ["--index", "hnsw", "--device-build", *CLI_HNSW],
          ("beam_step", "gather_score")),
         ("ivf", data + ["--index", "ivf", "--probes", str(IVF_E2E_PROBES),
-                        "--seed", str(IVF_SEED)], ()),
+                        "--seed", str(IVF_SEED)], ("gather_score",)),
         ("ivf_routed", data + ["--index", "ivf", "--ivf-routed", "--seed",
-                               str(IVF_SEED)], ()),
+                               str(IVF_SEED)], ("gather_score",)),
     )
     out = {}
     for name, argv, kernels in runs:
@@ -2022,7 +2056,7 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
         missing = [k for k in kernels if not launches.get(k)]
         if missing:
             raise AssertionError(f"cli {name}: {missing} never launched")
-        if name.startswith("ivf") and launches:
+        if name.startswith("ivf") and set(launches) - {"gather_score"}:
             raise AssertionError(f"cli {name}: IVF launched {launches}")
         if name == "auto_zipf" and "-> fastflat" not in err:
             raise AssertionError(f"cli auto: resolved otherwise: {err.strip()}")
@@ -2032,6 +2066,362 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
     log(f"[cli] phase 22: {time.perf_counter() - t_phase:.1f} s")
     log(f"[cli] summary {json.dumps(out)}")
     return out
+
+
+# --- phase 24: the row-keyed capacity path -------------------------------------
+
+# the JAX package's capacity recipe (scripts/scale_capacity_routed.py): rows
+# and 2048 queries from the row-keyed generator at seed 17, d=128, L2
+CAP_SEED, CAP_NQ = 17, 2048
+CAP_1M = 1_048_576  # bench.py's capacity_split_1m row (bench.py:608-641)
+CAP_N = 41_943_040  # scale_capacity_routed.py's N
+CAP_BUILD = dict(cap_target=4096, cls=1024, cap_slack=1.05, comp_dtype="int8",
+                 seed=CAP_SEED)
+# (name, probes, shared, tile) at 41.9M; the JAX record on this generator
+# read recall@10 0.9549 at 32:256:32 (results/scale_capacity_routed.jsonl)
+CAP_ROUTES = (("16:192:32", 16, 192, 32), ("32:256:32", 32, 256, 32))
+CAP_GATE_ROUTE = "32:256:32"
+CAP_MIN_RECALL = 0.90  # the int8 flat gate (PERF.md section 2)
+CAP_MIN_CROSSCHECK = 0.995  # the scale script's scorer gate
+F32_BASE_BYTES = CAP_N * D * 4  # the f32 base the build must never hold
+# the kernels' shapes on the main path: a 1M-row build chunk's worth of ids,
+# and the routed re-rank's batch (B=4096, kk=8k=80)
+REGEN_ROWS_M, REGEN_B, REGEN_KK = 1_048_576, 4096, 80
+# 32-bit integer work: a threefry2x32 hash is 20 rounds of add, rotate and
+# xor plus 5 key injections of 3 adds and 2 first adds (77); a row's draw
+# takes 7 hashes and randint's three remainders, an element one hash and 3
+# bit operations. H100 SXM: 64 INT32 lanes a SM, 132 SMs, 1.98 GHz boost
+HASH_OPS = 77
+ROW_OPS, ELEM_OPS = 7 * HASH_OPS + 3, HASH_OPS + 3
+PEAK_INT32 = 132 * 64 * 1.98e9
+# ROADMAP C11: one query's answer at every batch size, per family
+C11_BATCHES = (64, 2048, 16_384)
+C11_N = 65_536
+
+
+def _regen_bound(rows: int, d: int, nbytes: int) -> tuple[float, str]:
+    """The function's least time: each row regenerated once (the IP kernel
+    regenerates a candidate's row twice, once for its norm and once for its
+    dot; only its time pays for that)."""
+    return bound_ms(nbytes, rows * (ROW_OPS + d * ELEM_OPS), PEAK_INT32)
+
+
+def regen_vs_plain(dev) -> dict[str, list[dict]]:
+    """24a: regen_rows on REGEN_ROWS_M ids and regen_score at B=4096,
+    kk=80, d=128, L2 and IP, against their plain versions on the same
+    inputs, bit for bit; CUDA-event times of both and the bound."""
+    k1, centers, _ = tds._rowkeyed_recipe(CAP_N, D, 1, 64, CAP_SEED, True, dev)
+    gen = torch.Generator().manual_seed(CAP_SEED)
+    ids = torch.randint(0, CAP_N, (REGEN_ROWS_M,), generator=gen).to(dev)
+    cand = torch.randint(0, CAP_N, (REGEN_B, REGEN_KK), generator=gen).to(torch.int32)
+    cand[torch.rand((REGEN_B, REGEN_KK), generator=gen) < 0.05] = -1
+    cand = cand.to(dev)
+    out: dict[str, list[dict]] = {"regen_rows": [], "regen_score": []}
+    for metric in (METRIC_L2, METRIC_IP):
+        ip = metric == METRIC_IP
+        got = rg.regen_rows(k1, centers, ids, normalize=ip)
+        want = rg.regen_rows_ref(k1, centers, ids, normalize=ip)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        del want
+        ms = cuda_ms(lambda: rg.regen_rows(k1, centers, ids, normalize=ip))
+        plain = cuda_ms(lambda: rg.regen_rows_ref(k1, centers, ids, normalize=ip),
+                        reps=3, warmup=1)
+        bound, by = _regen_bound(REGEN_ROWS_M, D, REGEN_ROWS_M * (4 + 4 * D))
+        case = {"metric": "ip" if ip else "l2", "m": REGEN_ROWS_M, "d": D,
+                "bit_equal": equal, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by}
+        out["regen_rows"].append(case)
+        log(f"[capacity] 24a regen_rows {case}")
+        if not equal:
+            raise AssertionError(f"regen_rows ({case['metric']}): kernel != plain, "
+                                 f"max err {err:.3e}")
+        q = (rg.regen_rows(k1, centers, ids[:REGEN_B], normalize=ip)
+             + 0.3 * torch.randn((REGEN_B, D), generator=torch.Generator(dev).manual_seed(1),
+                                 device=dev))
+        if ip:
+            q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-30)
+        q = q.contiguous()
+        got = rg.regen_score(k1, centers, q, cand, metric)
+        want = rg.regen_score_ref(k1, centers, q, cand, metric)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        ms = cuda_ms(lambda: rg.regen_score(k1, centers, q, cand, metric))
+        plain = cuda_ms(lambda: rg.regen_score_ref(k1, centers, q, cand, metric),
+                        reps=3, warmup=1)
+        live = int((cand >= 0).sum())
+        bound, by = _regen_bound(live, D, cand.numel() * 8 + REGEN_B * D * 4)
+        case = {"metric": "ip" if ip else "l2", "B": REGEN_B, "kk": REGEN_KK, "d": D,
+                "bit_equal": equal, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by}
+        out["regen_score"].append(case)
+        log(f"[capacity] 24a regen_score {case}")
+        if not equal:
+            raise AssertionError(f"regen_score ({case['metric']}): kernel != plain, "
+                                 f"max err {err:.3e}")
+    del ids, cand, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launched(what: str, *names: str) -> dict:
+    """The capacity path's launches since reset_launches; fails on a kernel
+    of ``names`` that never launched."""
+    got = _capacity_launches()
+    for name in names:
+        if not got[name]:
+            raise AssertionError(f"{what}: {name} never launched")
+    return got
+
+
+def _capacity_launches() -> dict[str, int]:
+    return {"regen_rows": rg.regen_rows.launches, "regen_score": rg.regen_score.launches,
+            "classmax_scan_split[int8]": sum(
+                n for (dt, _), n in cm.classmax_scan_split.form_launches.items()
+                if dt == "int8"),
+            "classmax2_scan": cm.classmax2_scan.launches,
+            "routed_classmax_scan[int8,T32]": k4.routed_classmax_scan.form_launches.get(
+                ("int8", 32), 0),
+            "routed_classmax_scan[int8,T16]": k4.routed_classmax_scan.form_launches.get(
+                ("int8", 16), 0)}
+
+
+def _timed_serve(run, nq: int) -> tuple:
+    """One warm-up call, then the counts at 0 and one timed call: (result,
+    qps, launches)."""
+    run()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, nq / (time.perf_counter() - t0), _capacity_launches()
+
+
+def capacity_flat(dev) -> dict:
+    """24b and 24c: bench's capacity_split_1m shape through SplitFlatIndex
+    and the ext table through FastFlatIndex, both re-ranked from
+    regenerated rows."""
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    sds = tds.device_rowkeyed_split_dataset(n=CAP_1M, dim=D, num_queries=CAP_NQ,
+                                            seed=CAP_SEED, gt_k=10, comp_dtype="int8",
+                                            device=dev)
+    torch.cuda.synchronize()
+    build_launches = _launched("24b ingestion", "regen_rows")
+    sidx = SplitFlatIndex.from_parts(sds.comp_dev, sds.aux_dev, sds.n, dim=D,
+                                     row_source=sds.row_source)
+    pre = sidx.preload(sds.queries, batch_size=CAP_NQ)
+    (ids, _), qps, launches = _timed_serve(lambda: sidx.search(
+        sds.queries, 10, kb=64, batch_size=CAP_NQ, preloaded=pre), CAP_NQ)
+    recall = recall_at_k(ids, sds.ground_truth, 10)
+    out["split_1m"] = {"seconds_build": time.perf_counter() - t0, "recall@10": recall,
+                       "qps": qps, "launches": launches, "build_launches": build_launches,
+                       "knobs": sidx._resolve_knobs(64, 0, None, None, False)}
+    log(f"[capacity] 24b capacity_split_1m (int8, kb=64, batch {CAP_NQ}): "
+        f"{json.dumps(out['split_1m'])}")
+    if recall < CAP_MIN_RECALL:
+        raise AssertionError(f"24b: recall@10 {recall:.4f} < {CAP_MIN_RECALL}")
+    _launched("24b", "classmax_scan_split[int8]", "regen_score")
+    del sidx, sds, pre
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    eds = tds.device_rowkeyed_ext_dataset(n=CAP_1M, dim=D, num_queries=CAP_NQ,
+                                          seed=CAP_SEED, gt_k=10, device=dev)
+    torch.cuda.synchronize()
+    build_launches = _launched("24c ingestion", "regen_rows")
+    fidx = FastFlatIndex.from_ext(eds.ext_dev, eds.n, dim=D, row_source=eds.row_source)
+    pre = fidx.preload(eds.queries, batch_size=CAP_NQ)
+    (ids, _), qps, launches = _timed_serve(lambda: fidx.search(
+        eds.queries, 10, batch_size=CAP_NQ, preloaded=pre), CAP_NQ)
+    recall = recall_at_k(ids, eds.ground_truth, 10)
+    eps = tds.streaming_eps_recall(eds, ids, 10)
+    out["ext_1m"] = {"seconds_build": time.perf_counter() - t0, "recall@10": recall,
+                     "eps_recall@10": eps, "qps": qps, "launches": launches,
+                     "build_launches": build_launches,
+                     "knobs": fidx._resolve_knobs(0, 0, None, None, False)}
+    log(f"[capacity] 24c ext 1M (FastFlat auto knobs, batch {CAP_NQ}): "
+        f"{json.dumps(out['ext_1m'])}")
+    if recall < CAP_MIN_RECALL:
+        raise AssertionError(f"24c: recall@10 {recall:.4f} < {CAP_MIN_RECALL}")
+    if not launches["classmax2_scan"] or not launches["regen_score"]:
+        raise AssertionError(f"24c: a kernel of the path never launched: {launches}")
+    del fidx, eds, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def capacity_routed(dev) -> dict:
+    """24d, the capacity-routed-41.9m cell: the routed build of 41,943,040
+    row-keyed rows with no resident base, its scorer crosscheck and peak
+    memory, then 2048 queries at each of CAP_ROUTES and once with the
+    fallback spill."""
+    t0 = time.perf_counter()
+    k1, centers, queries = tds._rowkeyed_recipe(CAP_N, D, CAP_NQ, 64, CAP_SEED, True, dev)
+    q_np = queries.cpu().numpy()
+    row_source = (k1, centers)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stages = []
+
+    def say(m):
+        stages.append(m)
+        log(f"[capacity] {m}")
+
+    reset_launches()
+    index, gt = build_routed_split(CAP_N, D, row_source=row_source, queries=q_np, gt_k=11,
+                                   log=say, **CAP_BUILD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    build_launches = _launched("24d build", "regen_rows")
+    table_gb = (index.comp.numel() * index.comp.element_size()
+                + index.aux_r.numel() * 4 + index.gid.numel() * 4) / 1e9
+    log(f"[capacity] 24d build: {build_s:.2f} s, C={index.C} cap={index.cap} tables "
+        f"{table_gb:.3f} GB, peak allocated {peak / 1e9:.3f} GB (before the build "
+        f"{mem0 / 1e9:.3f} GB; the f32 base {F32_BASE_BYTES / 1e9:.3f} GB), "
+        f"base resident: {index.base_dev is not None}")
+    if peak >= F32_BASE_BYTES or index.base_dev is not None:
+        raise AssertionError(f"24d: peak {peak / 1e9:.3f} GB reaches the f32 base's "
+                             f"{F32_BASE_BYTES / 1e9:.3f} GB")
+    t1 = time.perf_counter()
+    cross = tds.rowkeyed_scorer_crosscheck(row_source, q_np)
+    log(f"[capacity] 24d scorer crosscheck: overlap {cross:.4f} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if cross <= CAP_MIN_CROSSCHECK:
+        raise AssertionError(f"24d: scorer crosscheck {cross:.4f} <= {CAP_MIN_CROSSCHECK}")
+    mm = margin_mask(q_np, None, gt, 10, row_source=row_source)
+    out = {"n": CAP_N, "C": index.C, "cap": index.cap, "table_gb": table_gb,
+           "build_s": build_s, "peak_gb": peak / 1e9, "crosscheck": cross,
+           "margin_share": float(mm.mean()), "build_launches": build_launches,
+           "stages": stages, "routes": {}}
+    pre = index.preload(q_np, batch_size=CAP_NQ)
+    for name, p, P, T in CAP_ROUTES + (("spill 16:192:32", 16, 192, 32),):
+        fb = 0.5 if name.startswith("spill") else 0.0
+        (ids, _), qps, launches = _timed_serve(lambda: index.search(
+            q_np, 10, probes=p, shared=P, tile=T, batch_size=CAP_NQ, preloaded=pre,
+            with_dists=False, fallback=fb), CAP_NQ)
+        r = {"recall@10": recall_at_k(ids, gt, 10),
+             "eps_recall@10": recall_at_k_eps_regen(ids, q_np, row_source, gt, 10),
+             "margin_recall@10": recall_at_k(ids[mm], gt[mm], 10),
+             "coverage": index.last_coverage, "spilled": index.last_fallback,
+             "qps": qps, "launches": launches}
+        out["routes"][name] = r
+        log(f"[capacity] 24d {name}: {json.dumps(r)}")
+        if not launches["routed_classmax_scan[int8,T32]"] or not launches["regen_score"]:
+            raise AssertionError(f"24d {name}: K4 or regen_score never launched")
+    gate = out["routes"][CAP_GATE_ROUTE]["recall@10"]
+    if gate < CAP_MIN_RECALL:
+        raise AssertionError(f"24d: recall@10 {gate:.4f} at {CAP_GATE_ROUTE} < "
+                             f"{CAP_MIN_RECALL}")
+    profile_run(lambda: index.search(q_np, 10, probes=32, shared=256, tile=32,
+                                     batch_size=CAP_NQ, preloaded=pre, fallback=0),
+                "capacity-routed-41.9m 32:256:32", CAP_NQ)
+    del index, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def _c11_runs(dev) -> dict[str, tuple]:
+    """Each family's search at C11_N x 128 rows: (index, run(q, B) -> ids,
+    dists, the set of 64 queries, the rows that fill a batch)."""
+    ds = synthetic_dataset(n=C11_N, dim=D, num_queries=C11_BATCHES[-1], seed=12,
+                           compute_gt=False)
+    q64, filler = ds.queries[:64], ds.queries[64:]
+    flat = FastFlatIndex(ds.base, device=dev)
+    split = SplitFlatIndex(ds.base, comp_dtype="int8", device=dev)
+    ivf = IVFIndex(ds.base, num_clusters=256, seed=7, device=dev)
+    graph = build_graph(ds.base, HNSWParams(M=16, ef_construction=100),
+                        threads=min(os.cpu_count() or 1, 32))
+    hnsw = HNSWIndex(graph, device=dev)
+    routed = build_routed_split(C11_N, D, base_dev=torch.from_numpy(ds.base).to(dev),
+                                cap_target=512, cls=128, seed=3)
+    # the routed family grants clusters to a tile: each query fills its own
+    # T=16 tile (16 copies), so its grant is its own wishes in any batch
+    rep = np.repeat(ds.queries, 16, axis=0)
+    return {
+        "fastflat": (lambda q, b: flat.search(q, 10, batch_size=b), q64, filler),
+        "split_int8": (lambda q, b: split.search(q, 10, batch_size=b), q64, filler),
+        "routed": (lambda q, b: routed.search(q, 10, probes=8, tile=16, shared=8,
+                                              batch_size=b, fallback=0), rep[:64], rep[64:]),
+        "ivf": (lambda q, b: ivf.search(q, 10, probes=16, batch_size=b), q64, filler),
+        "hnsw": (lambda q, b: hnsw.search(q, SearchParams(k=10, ef=64), batch_size=b),
+                 q64, filler),
+    }
+
+
+def c11_check(dev) -> dict[str, dict]:
+    """24e, ROADMAP C11: one set of 64 queries inside batches of 64, 2,048 and
+    16,384, per family; equal ids and equal distance bits, else the phase
+    fails naming the family and the batch."""
+    out = {}
+    for family, (run, q64, filler) in _c11_runs(dev).items():
+        res = []
+        for b in C11_BATCHES:
+            q = np.ascontiguousarray(np.concatenate([q64, filler[:b - 64]]))
+            ids, dd = run(q, b)
+            res.append((ids[:64], np.asarray(dd[:64], np.float32).view(np.uint32)))
+        same = {b: bool(np.array_equal(r[0], res[0][0]) and np.array_equal(r[1], res[0][1]))
+                for b, r in zip(C11_BATCHES[1:], res[1:])}
+        ids_same = {b: bool(np.array_equal(r[0], res[0][0]))
+                    for b, r in zip(C11_BATCHES[1:], res[1:])}
+        out[family] = {"equal": same, "ids_equal": ids_same}
+        log(f"[c11] {family}: equal ids and distance bits against batch 64: {same} "
+            f"(ids alone: {ids_same})")
+    bad = [f for f, r in out.items() if not all(r["equal"].values())]
+    if bad:
+        raise AssertionError(f"C11: a query's answer depends on its batch in {bad}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def capacity_phase(dev) -> tuple[list[dict], dict]:
+    """Phase 24; the regen kernels' entries of the kernel table."""
+    t_phase = time.perf_counter()
+    cases = regen_vs_plain(dev)
+    flat_out = capacity_flat(dev)
+    routed_out = capacity_routed(dev)
+    c11 = c11_check(dev)
+    serve_launches = sum(r["launches"]["regen_score"] for r in flat_out.values()) + sum(
+        r["launches"]["regen_score"] for r in routed_out["routes"].values())
+    build_launches = sum(r["build_launches"]["regen_rows"] for r in flat_out.values()) + (
+        routed_out["build_launches"]["regen_rows"])
+    kernels = []
+    for name, launches, replaces in (
+            ("regen_score", serve_launches, "shine_tpu/ops/distance.py:281"),
+            ("regen_rows", build_launches, "shine_tpu/io/device_synth.py:450")):
+        main = next(c for c in cases[name] if c["metric"] == "l2")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "shine_tpu_torch/csrc/regen_rows.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "note": ("not a TPU kernel: an XLA fusion in the JAX package; launches: "
+                     + ("the re-ranks of phase 24's timed serving runs (24b, 24c, 24d)"
+                        if name == "regen_score" else
+                        "the builds of phase 24 (24b and 24c ingestion, 24d's routed build)")),
+            "cases": cases[name],
+        })
+    summary = {"flat": flat_out, "routed": {k: v for k, v in routed_out.items()
+                                            if k != "stages"}, "c11": c11,
+               "seconds": time.perf_counter() - t_phase}
+    log(f"[capacity] summary {json.dumps(summary)}")
+    log(f"[capacity] phase 24: {summary['seconds']:.1f} s")
+    return kernels, summary
 
 
 def main() -> None:
@@ -2151,6 +2541,7 @@ def main() -> None:
         shutil.rmtree(cli_dir, ignore_errors=True)
     del ds, gt
     k4_kernels = routed_phases(dev)
+    regen_kernels, _ = capacity_phase(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     main_step = step_cases[0]
@@ -2188,7 +2579,9 @@ def main() -> None:
         "bound_by": main_k1["bound_by"],
         "library_ms": None,
         "note": ("launches: the descent entry's pass (its greedy walk and first "
-                 "distance); the dense entry's path runs beam_step alone"),
+                 "distance); the dense entry's path runs beam_step alone; on the "
+                 "card it also scores every exact re-rank (rerank_topk) and IVF's "
+                 "probed rows (ops/distance.py:pair_dots), counted in their phases"),
         "cases": k1_cases,
         "build_launches": {"device_build": devbuild["launches"]["gather_score"],
                            "online": online["launches"]["gather_score"]},
@@ -2241,7 +2634,7 @@ def main() -> None:
                              "own test does), so no path of the port launches it: 0 on "
                              "every served path; held against its twin in phase 14")
         kernels.append(entry)
-    kernels += k3_kernels + k4_kernels
+    kernels += k3_kernels + k4_kernels + regen_kernels
     for k in kernels:  # the class-max sweeps of the builds
         if k["name"] in K2_FORMS:
             k["build_launches"] = {b: builds[b]["launches"].get(k["name"], 0)

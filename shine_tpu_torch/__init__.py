@@ -21,7 +21,11 @@ products, as the JAX package does with XLA. The command line, ``python -m
 shine_tpu_torch`` (``cli.py``), builds or loads any of them from dataset
 files (``io/fbin.py``, ``io/datasets.py``) or a synthetic set, serves a
 plain or Zipf-skewed workload (``io/skew.py``) and prints the run's
-Statistics document (``utils/``). Entry points run on the CUDA card unless
+Statistics document (``utils/``). The row-keyed datasets
+(``io/device_synth.py``) regenerate any base row from its id
+(``ops/threefry.py``, the kernels of ``csrc/regen_rows.cu``), so the flat
+and routed indexes serve bases larger than the card holds as f32, re-ranking
+exactly from regenerated rows. Entry points run on the CUDA card unless
 the caller names another device; on the CPU each kernel's plain torch twin
 runs instead. This package imports neither JAX nor the JAX package.
 """
@@ -33,6 +37,7 @@ from shine_tpu_torch.convert import (
     fastflat_from_jax,
     ivf_from_jax,
     routed_split_from_jax,
+    row_source_from_jax,
     splitflat_from_jax,
 )
 from shine_tpu_torch.models.build import (
@@ -73,4 +78,5 @@ __all__ = [
     "splitflat_from_jax",
     "routed_split_from_jax",
     "ivf_from_jax",
+    "row_source_from_jax",
 ]

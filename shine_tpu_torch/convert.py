@@ -10,7 +10,7 @@ norms) are this system's state. ``device_graph_from_jax``,
 ``build_state_from_jax``, ``fastflat_from_jax``, ``splitflat_from_jax``,
 ``routed_split_from_jax`` and ``ivf_from_jax`` take their fields as
 numpy arrays, so that both packages serve one index, and import nothing of
-JAX.
+JAX. ``row_source_from_jax`` carries a row-keyed base's (key, centers).
 """
 
 from __future__ import annotations
@@ -144,6 +144,7 @@ def fastflat_from_jax(
     dim: int,
     metric: str | int,
     device: torch.device | str | None = None,
+    row_source=None,
 ) -> FastFlatIndex:
     """The port's FastFlatIndex holding the JAX FastFlatIndex's state, on
     ``device`` (the CUDA card unless another is given): ``ext`` (ml_dtypes
@@ -152,11 +153,13 @@ def fastflat_from_jax(
     the JAX index's ``interpret`` flag, which becomes the port's
     ``blockmax`` route (the one that flag picks in the JAX package). The
     table is cut to the port's width; the columns dropped are the JAX
-    package's zero lane padding. Both packages then answer the same
-    queries from the same state."""
+    package's zero lane padding. ``row_source`` (``row_source_from_jax``)
+    gives a table-only index the exact regen re-rank. Both packages then
+    answer the same queries from the same state."""
     device = resolve_device(device)
     ext = _cut_to_width(np.asarray(arrays["ext"]), ext_width(dim), "ext")
     self = FastFlatIndex.from_ext(_to_torch(ext).to(device), n, metric, dim=dim,
+                                  row_source=row_source,
                                   blockmax=bool(arrays.get("interpret", False)))
     _attach_rows(self, arrays, device)
     return self
@@ -169,6 +172,7 @@ def splitflat_from_jax(
     dim: int,
     metric: str | int,
     device: torch.device | str | None = None,
+    row_source=None,
 ) -> SplitFlatIndex:
     """The port's SplitFlatIndex holding the JAX SplitFlatIndex's state, on
     ``device`` (the CUDA card unless another is given): ``comp`` (ml_dtypes
@@ -176,13 +180,14 @@ def splitflat_from_jax(
     and ``perm``, as numpy (``vectors`` and ``sqnorms`` None for a
     table-only index, ``perm`` None for an unshuffled one). ``comp`` is
     cut to the port's width; the columns dropped are the JAX package's
-    zero lane padding."""
+    zero lane padding. ``row_source`` (``row_source_from_jax``) gives a
+    table-only index the exact regen re-rank."""
     device = resolve_device(device)
     comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
     self = SplitFlatIndex.from_parts(
         _to_torch(comp).to(device),
         _to_torch(np.asarray(arrays["aux"], np.float32)).to(device), n, metric,
-        dim=dim)
+        dim=dim, row_source=row_source)
     _attach_rows(self, arrays, device)
     return self
 
@@ -196,30 +201,49 @@ def routed_split_from_jax(
     cls: int,
     cap: int | None = None,
     device: torch.device | str | None = None,
+    row_source=None,
 ) -> RoutedSplitIndex:
     """The port's RoutedSplitIndex holding the JAX RoutedSplitIndex's
     state, on ``device`` (the CUDA card unless another is given):
     ``centroids``, ``comp`` (ml_dtypes bf16, carried as raw bits, or
     int8), ``aux_r``, ``gid`` and the f32 ``base`` as numpy, and optionally
-    its ``sqnorms`` (else computed from the base). ``comp`` is cut to the
-    port's width; the columns dropped are the JAX package's zero lane
-    padding, and its ingest-pad rows past (C+1)*cap are kept."""
+    its ``sqnorms`` (else computed from the base); or, for a row-keyed base,
+    no ``base`` and its ``row_source`` (``row_source_from_jax``). ``comp``
+    is cut to the port's width; the columns dropped are the JAX package's
+    zero lane padding, and its ingest-pad rows past (C+1)*cap are kept."""
     device = resolve_device(device)
     mid = metric_id(metric)
     comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
-    base = _to_torch(np.asarray(arrays["base"], np.float32)).to(device)
-    if arrays.get("sqnorms") is not None:
-        sq = _to_torch(np.asarray(arrays["sqnorms"], np.float32)).to(device)
-    elif mid == METRIC_L2:
-        sq = squared_norms(base)
-    else:
-        sq = torch.zeros(n, dtype=torch.float32, device=device)
+    base = sq = None
+    if arrays.get("base") is not None:
+        base = _to_torch(np.asarray(arrays["base"], np.float32)).to(device)
+        if arrays.get("sqnorms") is not None:
+            sq = _to_torch(np.asarray(arrays["sqnorms"], np.float32)).to(device)
+        elif mid == METRIC_L2:
+            sq = squared_norms(base)
+        else:
+            sq = torch.zeros(n, dtype=torch.float32, device=device)
     return RoutedSplitIndex(
         _to_torch(np.asarray(arrays["centroids"], np.float32)).to(device),
         _to_torch(comp).to(device),
         _to_torch(np.asarray(arrays["aux_r"], np.float32)).to(device),
         _to_torch(np.asarray(arrays["gid"], np.int32)).to(device),
-        n, dim, mid, cls=cls, cap=cap, base_dev=base, sqnorms=sq)
+        n, dim, mid, cls=cls, cap=cap, row_source=row_source, base_dev=base,
+        sqnorms=sq)
+
+
+def row_source_from_jax(key: np.ndarray, centers: np.ndarray, *,
+                        device: torch.device | str | None = None):
+    """The port's row source from a JAX row-keyed base's (key, centers) as
+    numpy (``np.asarray`` of each): the key as an int64 tensor (2,) of
+    its uint32 words on the CPU, the centres f32 on ``device`` (the CUDA
+    card unless another is given). Both packages then regenerate the same
+    rows (``ops/regen.py``)."""
+    key = np.asarray(key)
+    if key.shape != (2,):
+        raise ValueError(f"a raw threefry key is uint32[2], got {key.shape}")
+    return (torch.from_numpy(key.astype(np.uint32).astype(np.int64)),
+            _to_torch(np.asarray(centers, np.float32)).to(resolve_device(device)))
 
 
 def ivf_from_jax(

@@ -13,7 +13,15 @@ from shine_tpu_torch.io.datasets import (
     synthetic_dataset,
 )
 from shine_tpu_torch.io.fbin import read_bin, read_bin_header, write_bin
-from shine_tpu_torch.io.recall import brute_force_knn, recall_at_k
+from shine_tpu_torch.io.recall import (
+    brute_force_knn,
+    gt_crosscheck,
+    margin_mask,
+    numpy_subset_gt,
+    recall_at_k,
+    recall_at_k_eps,
+    recall_at_k_eps_regen,
+)
 from shine_tpu_torch.io.skew import skewed_workload, zipf_ranks
 
 __all__ = [
@@ -29,7 +37,12 @@ __all__ = [
     "skewed_workload",
     "zipf_ranks",
     "brute_force_knn",
+    "gt_crosscheck",
+    "numpy_subset_gt",
     "recall_at_k",
+    "recall_at_k_eps",
+    "recall_at_k_eps_regen",
+    "margin_mask",
     "save_graph",
     "load_graph",
     "save_routed_split",

@@ -69,8 +69,9 @@ def load_graph(path: str) -> GraphSoA:
 def save_routed_split(idx, path: str) -> None:
     """Write a RoutedSplitIndex's clustered split tables and centroids to
     one .npz in the JAX package's format (bf16 components as a uint16
-    view, ``cap`` in the header). The base is not stored: give it again at
-    load."""
+    view, ``cap`` in the header). A row source rides along (``rs_key``
+    uint32[2], ``rs_centers`` f32), so the exact regen re-rank survives the
+    round trip; a resident base is not stored: give it again at load."""
     if idx.comp.dtype == torch.int8:
         comp, comp_tag = idx.comp.cpu().numpy(), "int8"
     else:
@@ -84,8 +85,13 @@ def save_routed_split(idx, path: str) -> None:
         "cls": int(idx.cls),
         "cap": int(idx.cap),
         "comp_dtype": comp_tag,
-        "has_row_source": False,
+        "has_row_source": idx.row_source is not None,
     }
+    arrays = {}
+    if idx.row_source is not None:
+        key, centers = idx.row_source
+        arrays["rs_key"] = np.asarray(torch.as_tensor(key).cpu().numpy(), np.uint32)
+        arrays["rs_centers"] = centers.cpu().numpy().astype(np.float32)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -96,6 +102,7 @@ def save_routed_split(idx, path: str) -> None:
             aux_r=idx.aux_r.cpu().numpy(),
             gid=idx.gid.cpu().numpy(),
             centroids=idx.centroids.cpu().numpy(),
+            **arrays,
         )
     os.replace(tmp, path)
 
@@ -104,9 +111,11 @@ def load_routed_split(path: str, *, base_dev: torch.Tensor | None = None,
                       device: torch.device | str | None = None):
     """Load a RoutedSplitIndex written by either package onto ``device``
     (the base's device when ``base_dev`` is given, else the CUDA card
-    unless another is named). ``base_dev`` (n, d) is the resident base the
-    re-rank reads. The components are cut to the port's width (the JAX
-    package pads them to 128 lanes with zeros)."""
+    unless another is named), with its row source when the file carries
+    one (the key as an int64 tensor (2,) on the CPU, the centres on the
+    device). ``base_dev`` (n, d) is a resident base for the re-rank. The
+    components are cut to the port's width (the JAX package pads them to
+    128 lanes with zeros)."""
     from shine_tpu_torch.convert import _cut_to_width, _to_torch
     from shine_tpu_torch.device import resolve_device
     from shine_tpu_torch.models.routed_split import RoutedSplitIndex
@@ -120,9 +129,10 @@ def load_routed_split(path: str, *, base_dev: torch.Tensor | None = None,
             raise ValueError(f"unsupported checkpoint version {header['version']}")
         if header.get("kind") != "routed_split":
             raise ValueError("not a routed_split checkpoint")
+        row_source = None
         if header["has_row_source"]:
-            raise NotImplementedError("row_source checkpoints (rows regenerated "
-                                      "from a key) are not ported yet: ROADMAP A6")
+            row_source = (torch.from_numpy(z["rs_key"].astype(np.int64)),
+                          _to_torch(z["rs_centers"].astype(np.float32)).to(dev))
         comp = _cut_to_width(z["comp"], comp_width(header["dim"]), "comp")
         comp = torch.from_numpy(comp.view(np.int16) if header["comp_dtype"] == "bf16"
                                 else comp)
@@ -136,4 +146,5 @@ def load_routed_split(path: str, *, base_dev: torch.Tensor | None = None,
     return RoutedSplitIndex(
         arrays["centroids"], comp.to(dev), arrays["aux_r"], arrays["gid"],
         header["n"], header["dim"], header["metric"], cls=header["cls"],
-        cap=header.get("cap"), base_dev=base_dev, sqnorms=sqnorms)
+        cap=header.get("cap"), row_source=row_source, base_dev=base_dev,
+        sqnorms=sqnorms)

@@ -20,9 +20,12 @@ package's ``FastFlatIndex`` takes when it interprets on the CPU
 (``interpret=True``). ``SplitFlatIndex`` scans the split table, bf16 or
 int8 components with an f32 norm and scale a row (``ops/scan_split.py``, the K3 kernel), which
 holds a row in 256 (bf16) or 136 (int8) bytes at d=128. Without f32 rows
-``SplitFlatIndex`` re-ranks from its own tables. The four scan routes are
-those of the JAX package: keep1 or keep2, the select fused into the kernel
-or not.
+``SplitFlatIndex`` re-ranks from its own tables. Built from tables alone
+(``from_ext``, ``from_parts``) with a ``row_source`` (the key and centres of
+a row-keyed base, ``io/device_synth.py``), both re-rank exactly from rows
+regenerated by id (``ops/distance.py:regen_rerank_topk``): exact re-rank
+recall at the tables' memory alone. The four scan routes are those of the
+JAX package: keep1 or keep2, the select fused into the kernel or not.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from shine_tpu_torch.ops.beam import smallest_positions
 from shine_tpu_torch.ops.distance import (
     check_precision,
     matmul_nt,
+    regen_rerank_topk,
     rerank_topk,
     rerank_topk_ext,
     rerank_topk_split,
@@ -61,8 +65,6 @@ from shine_tpu_torch.ops.scan_split import (
 )
 
 CHUNK_QUANTUM = 1024
-_ROW_SOURCE_MSG = ("row_source (exact re-rank from regenerated rows) is not "
-                   "ported yet: ROADMAP A6")
 
 
 def _top_by_position(d: torch.Tensor, ids: torch.Tensor, kk: int):
@@ -237,12 +239,17 @@ def _candidates(out: tuple, kb_eff: int, fused: bool):
     return torch.cat([v1, v2], 1), torch.cat([cand1, cand2], 1)
 
 
-def _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank):
+def _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
+                  row_source=None):
     """Trim to ``prerank`` candidates by the scan's scores, then re-rank
-    exactly in f32."""
+    exactly in f32: from the resident rows, else from rows regenerated by
+    id from ``row_source``."""
     if prerank and max(prerank, k) < cand.shape[-1]:
         cand = score_trim(vals, cand, max(prerank, k))
-    return rerank_topk(vectors, sqnorms, q, cand, k, metric)
+    if vectors is not None:
+        return rerank_topk(vectors, sqnorms, q, cand, k, metric)
+    key, centers = row_source
+    return regen_rerank_topk(key, centers, q, cand, k, metric)
 
 
 def _blockmax_candidates(ext, q_ext, kb: int):
@@ -261,7 +268,7 @@ def _blockmax_candidates(ext, q_ext, kb: int):
 def fast_flat_search(
     ext, vectors, sqnorms, q_ext, q, *, k, kb, tq, tn, cls, metric,
     keep2=False, n=0, approx_sel=False, prerank=0, fused_sel=False,
-    blockmax=False,
+    blockmax=False, row_source=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batch: class-max scan, select of kb classes, optional score
     trim, exact re-rank. (dists (B, k), ids (B, k)). ``approx_sel`` takes
@@ -269,8 +276,9 @@ def fast_flat_search(
     select is ``select_lanes``. With ``blockmax`` the block-max route
     (``_blockmax_candidates``) replaces the scan and the select, and
     ``cls``, ``keep2``, ``approx_sel`` and ``fused_sel`` play no part.
-    Without f32 rows (``vectors`` None) the re-rank reads the bf16 table
-    and ``prerank`` is not applied, as in the JAX package."""
+    Without f32 rows (``vectors`` None) the re-rank regenerates the rows
+    from ``row_source``, or without one reads the bf16 table and
+    ``prerank`` is not applied, as in the JAX package."""
     if blockmax:
         vals, cand = _blockmax_candidates(ext, q_ext, kb)
     else:
@@ -285,21 +293,23 @@ def fast_flat_search(
         vals, cand = _candidates(out, kb_eff, fused)
     limit = n or vectors.shape[0]
     cand = torch.where(cand < limit, cand, -1)  # pad rows and empty classes
-    if vectors is None:
+    if vectors is None and row_source is None:
         return rerank_topk_ext(ext, q, cand, k, metric)
-    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank)
+    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
+                         row_source)
 
 
 def split_flat_search(
     comp, aux, vectors, sqnorms, q, *, k, kb, cls, metric, keep2=False, n=0,
-    approx_sel=False, prerank=0, fused_sel=False,
+    approx_sel=False, prerank=0, fused_sel=False, row_source=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batch on the split tables (the JAX package's
     ``split_flat_search_at`` and ``_split_flat_batch``): pad the f32
     queries ``q`` (B, d) to the component width, class-max scan (K3),
     select of kb classes, optional score trim, exact re-rank; without f32
-    rows the re-rank reads the split tables (``rerank_topk_split``) and
-    ``prerank`` is not applied. (dists (B, k), ids (B, k))."""
+    rows the re-rank regenerates the rows from ``row_source``, or without
+    one reads the split tables (``rerank_topk_split``) and ``prerank`` is
+    not applied. (dists (B, k), ids (B, k))."""
     q_pad = pack_split_query(q, comp.shape[1])
     kb_eff = min(kb, cls)
     fused = fused_sel and not approx_sel
@@ -310,9 +320,10 @@ def split_flat_search(
         out = cm.classmax_scan_split(comp, aux, q_pad, cls=cls, keep2=keep2)
     vals, cand = _candidates(out, kb_eff, fused)
     cand = torch.where(cand < (n or comp.shape[0]), cand, -1)
-    if vectors is None:
+    if vectors is None and row_source is None:
         return rerank_topk_split(comp, aux, q, cand, k, metric)
-    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank)
+    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
+                         row_source)
 
 
 class _ClassMaxIndex:
@@ -322,6 +333,7 @@ class _ClassMaxIndex:
 
     perm: np.ndarray | None
     _perm_dev: torch.Tensor | None
+    row_source = None  # (key, centers) of a row-keyed base, tables-only indexes
 
     def preload(self, queries: np.ndarray, *, batch_size: int = 4096):
         """Stage the queries on the device once, zero-padded to a multiple
@@ -459,11 +471,13 @@ class FastFlatIndex(_ClassMaxIndex):
                  *, dim: int | None = None, row_source=None,
                  blockmax: bool = False) -> "FastFlatIndex":
         """From a packed bf16 table alone: no f32 rows are kept and the
-        re-rank reads the table (``rerank_topk_ext``). ``dim`` is the true
-        dimension (the table is padded); it drives ``kb_auto``."""
-        if row_source is not None:
-            raise NotImplementedError(_ROW_SOURCE_MSG)
+        re-rank reads the table (``rerank_topk_ext``), or with
+        ``row_source`` = (key, centers) of a row-keyed base
+        (``io/device_synth.py``) re-ranks exactly from rows regenerated by
+        id (``regen_rerank_topk``). ``dim`` is the true dimension (the
+        table is padded); it drives ``kb_auto``."""
         self = cls.__new__(cls)
+        self.row_source = row_source
         self.metric = metric_id(metric)
         self.blockmax = blockmax
         n_pad, dp = ext_dev.shape
@@ -527,7 +541,8 @@ class FastFlatIndex(_ClassMaxIndex):
             self.ext, self.vectors, self.sqnorms, q_ext, qj, k=k, kb=kb,
             tq=tq, tn=max(self.tn, cls), cls=cls, metric=self.metric,
             keep2=keep2, n=self.n, approx_sel=approx_sel, prerank=prerank,
-            fused_sel=fused_sel, blockmax=self.blockmax)
+            fused_sel=fused_sel, blockmax=self.blockmax,
+            row_source=self.row_source)
 
     def cost_counters(self, nq: int, k: int = 10, *, kb: int = 0,
                       batch_size: int = 4096) -> dict:
@@ -613,12 +628,13 @@ class SplitFlatIndex(_ClassMaxIndex):
                    metric: str | int = "l2", *, dim: int | None = None,
                    row_source=None) -> "SplitFlatIndex":
         """From packed split tables alone (``pack_split_device``, padded):
-        no f32 rows are kept and the re-rank reads the tables. ``dim`` is
-        the true dimension (the table may be wider); it drives ``kb``. The
-        rows past n must be pad rows (comp 0, nrm <= NEG), so that none
-        can take a class from a real row."""
-        if row_source is not None:
-            raise NotImplementedError(_ROW_SOURCE_MSG)
+        no f32 rows are kept and the re-rank reads the tables, or with
+        ``row_source`` = (key, centers) of a row-keyed base
+        (``io/device_synth.py``) re-ranks exactly from rows regenerated by
+        id (``regen_rerank_topk``). ``dim`` is the true dimension (the table
+        may be wider); it drives ``kb``. The rows past n must be pad rows
+        (comp 0, nrm <= NEG), so that none can take a class from a real
+        row."""
         n_pad, dpc = comp_dev.shape
         if n_pad % QUANTUM or n > n_pad:
             raise ValueError(f"the tables need rows % {QUANTUM} == 0 and n <= rows")
@@ -633,6 +649,7 @@ class SplitFlatIndex(_ClassMaxIndex):
         self.metric = metric_id(metric)
         self.comp, self.aux = comp_dev, aux_dev
         self.vectors = self.sqnorms = self.perm = self._perm_dev = None
+        self.row_source = row_source
         self.n, self.dim = n, dim if dim is not None else dpc
         self.comp_dtype = "int8" if comp_dev.dtype == torch.int8 else "bf16"
         return self
@@ -643,15 +660,16 @@ class SplitFlatIndex(_ClassMaxIndex):
 
     def _resolve_knobs(self, kb, cls, keep2, fused_sel, approx_sel):
         """The JAX package's rules: kb 32 below d=512, else 128; with an
-        exact re-rank and keep2 left to the rule, cls=4096 without keep2
-        once keep2_auto(n_pad, 2048) holds, else cls 1024 or 2048 and
-        keep2 by keep2_auto; the select fused at keep2 with kb <= 32, or
-        at kb <= 16."""
+        exact re-rank (f32 rows or a row source) and keep2 left to the
+        rule, cls=4096 without keep2 once keep2_auto(n_pad, 2048) holds,
+        else cls 1024 or 2048 and keep2 by keep2_auto; the select fused at
+        keep2 with kb <= 32, or at kb <= 16."""
         n_pad = int(self.comp.shape[0])
+        exact_rerank = self.vectors is not None or self.row_source is not None
         if kb <= 0:
             kb = 32 if self.dim < 512 else 128
         if cls <= 0:
-            if (self.vectors is not None and keep2 is None
+            if (exact_rerank and keep2 is None
                     and keep2_auto(n_pad, 2048)):
                 cls, keep2 = 4096, False
             else:
@@ -667,7 +685,8 @@ class SplitFlatIndex(_ClassMaxIndex):
         return split_flat_search(
             self.comp, self.aux, self.vectors, self.sqnorms, qj, k=k, kb=kb,
             cls=cls, metric=self.metric, keep2=keep2, n=self.n,
-            approx_sel=approx_sel, prerank=prerank, fused_sel=fused_sel)
+            approx_sel=approx_sel, prerank=prerank, fused_sel=fused_sel,
+            row_source=self.row_source)
 
     def cost_counters(self, nq: int, k: int = 10, *, kb: int = 0,
                       batch_size: int = 4096) -> dict:

@@ -48,7 +48,9 @@ from shine_tpu_torch.ops.distance import (
     check_precision,
     cluster_sums,
     matmul_nt,
+    pair_dots,
     pairwise_distance,
+    query_sqnorms,
     rerank_topk,
     squared_norms,
 )
@@ -495,21 +497,28 @@ def ivf_search(
     each query's p nearest clusters (``top_k``: exact, the lower cluster
     first on a tie), the rows of those blocks scored densely from bf16
     values, the ``rerank * k`` best re-ranked exactly in f32. Returns (ids
-    (B, k) int32, dists (B, k) f32).
+    (B, k) int32, dists (B, k) f32). The block rows are scored by K1's
+    ``gather_score`` (``ops/distance.py:pair_dots``), one fixed sum order
+    per (query, row) on the card, so a query's result does not depend on
+    its batch (ROADMAP C11).
 
-    The probe blocks are gathered and scored ``probe_chunk`` probes at a
-    time (default: about 512 MB of bf16 blocks a step, rounded down to a
-    divisor of p); the result does not depend on it. ``approx_probes`` is
-    the JAX package's opt-in to ``approx_max_k`` above 4096 clusters, which
-    is exact off a TPU; the port's probes are exact either way."""
+    The probe blocks are scored ``probe_chunk`` probes at a time (default:
+    all p on the card; on the CPU about 512 MB of gathered f32 rows a step,
+    rounded down to a divisor of p); the result does not depend on it.
+    ``approx_probes`` is the JAX package's opt-in to ``approx_max_k`` above
+    4096 clusters, which is exact off a TPU; the port's probes are exact
+    either way."""
     del approx_probes  # exact, as approx_max_k is off a TPU
     q = queries.to(torch.float32)
     B, d = q.shape
     cap = data.cap
     probes = top_k(-ivf_stage1(data, q, metric=metric), p)[1]  # (B, p)
-    qn = (q * q).sum(dim=-1)[:, None]  # (B, 1)
-    qb = q.to(torch.bfloat16).to(torch.float32)[:, None, None, :]  # (B, 1, 1, d)
-    pc = probe_chunk or max(1, min(p, (1 << 29) // max(B * cap * d * 2, 1)))
+    qb = q.to(torch.bfloat16).to(torch.float32)
+    qn = query_sqnorms(q)[:, None]  # (B, 1)
+    table = data.blocks.view(-1, d)
+    slots = torch.arange(cap, dtype=torch.int64, device=q.device)
+    pc = probe_chunk or (p if q.is_cuda else
+                         max(1, min(p, (1 << 29) // max(B * cap * d * 4, 1))))
     pc = min(pc, p)
     while p % pc:
         pc -= 1
@@ -517,10 +526,8 @@ def ivf_search(
     flat_ids = data.block_ids[probes].reshape(B, p * cap)
     sqs = data.block_sq[probes].reshape(B, p * cap)
     for j in range(0, p, pc):
-        # one (1, d) x (d, cap) product a (query, probe): the chunk changes
-        # how many there are, never their shape
-        dots = torch.matmul(qb, _widened(data.blocks, probes[:, j:j + pc])
-                            .transpose(-1, -2))  # (B, pc, 1, cap)
+        rows = (probes[:, j:j + pc, None].to(torch.int64) * cap + slots).reshape(B, -1)
+        dots = pair_dots(table, qb, rows)
         sl = slice(j * cap, (j + pc) * cap)
         dd[:, sl] = _scores(dots.reshape(B, pc * cap), qn, sqs[:, sl],
                             flat_ids[:, sl], metric)

@@ -10,19 +10,23 @@ tile, and each tile of T queries is granted the P clusters its queries
 wish for most, rank by rank (``models/ivf.py:route_batch``, which the IVF
 family shares). The routed class-max scan (K4, ``ops/scan_routed.py``)
 reduces each query's scores over those blocks to one best row a class
-lane; the best ``kk`` lanes are re-ranked exactly in f32 from the resident
-base. Queries whose own wishes were granted less
-than ``fallback`` are served again in narrow tiles that grant every wish.
+lane; the best ``kk`` lanes are re-ranked exactly in f32, from rows
+regenerated by id with a ``row_source`` (the key and centres of a
+row-keyed base, ``io/device_synth.py``; ``ops/distance.py:
+regen_rerank_topk``) or else from a resident base. Queries whose own wishes
+were granted less than ``fallback`` are served again in narrow tiles that
+grant every wish.
 
 The build (``build_routed_split``) trains the centroids on a sample, streams
 every row's R nearest centroids, assigns rows to clusters under a capacity
 (nearest first, re-choosing the overflow among clusters with room) and
-packs the rows in cluster order. Its random draws (the training sample,
-the k-means init, the spatial order's first centre) come from
-``torch.Generator``s seeded with ``seed`` on the CPU, so the CPU and the
-card plan alike; the JAX package draws with ``jax.random``, so a seed gives
-another plan there. ``row_source`` (rows regenerated from a key) is not
-ported yet: the base stays resident on the device.
+packs the rows in cluster order. With a ``row_source`` every stage reads
+its rows through ``regen_rows`` (a kernel on the card) and the f32 base
+never exists as one array: the index is its tables alone, ~136 bytes a row
+in int8 at d=128. Its random draws (the training sample, the k-means init,
+the spatial order's first centre) come from ``torch.Generator``s seeded
+with ``seed`` on the CPU, so the CPU and the card plan alike; the JAX
+package draws with ``jax.random``, so a seed gives another plan there.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ from shine_tpu_torch.ops.beam import dist_id_key, smallest_positions
 from shine_tpu_torch.ops.classmax import top_k
 from shine_tpu_torch.ops.distance import (
     matmul_nt,
+    regen_rerank_topk,
     rerank_topk,
     squared_norms,
 )
+from shine_tpu_torch.ops.regen import make_rowfn
 from shine_tpu_torch.ops.scan_routed import aux_routed_layout_chunk, routed_classmax_scan
 from shine_tpu_torch.ops.scan_split import (
     COMP_DTYPES,
@@ -51,9 +57,6 @@ from shine_tpu_torch.ops.scan_split import (
     pack_split_device,
     pack_split_query,
 )
-
-_ROW_SOURCE_MSG = ("row_source (rows regenerated from a key) is not ported "
-                   "yet: ROADMAP A6")
 
 
 def _round_up(x: int, q: int) -> int:
@@ -102,16 +105,22 @@ def scan_select(comp, aux_r, gid, q_s, cols, *, T: int, cap: int, cls: int,
 
 
 def routed_split_search_at(cents, comp, aux_r, gid, base_dev, sqnorms, q, *,
-                           k, p, P, T, kk, metric, C, cap, cls):
+                           k, p, P, T, kk, metric, C, cap, cls, row_source=None):
     """One routed batch of f32 queries ``q`` (B, d), B a multiple of T:
-    routing, the routed scan and select, the exact f32 re-rank. Returns
+    routing, the routed scan and select, the exact f32 re-rank (from rows
+    regenerated by id with ``row_source``, else from ``base_dev``). Returns
     (dists (B, k), ids (B, k), coverage, q_granted (B,)) in the batch's
     own order."""
     perm, inv, cols, coverage, q_granted = route_batch(
         cents, q, metric=metric, p=p, P=P, T=T, C=C)
     q_s = q[perm]
     cand = scan_select(comp, aux_r, gid, q_s, cols, T=T, cap=cap, cls=cls, kk=kk)
-    d_out, i_out = rerank_topk(base_dev, sqnorms, q_s, cand, k, metric)
+    if row_source is not None:
+        d_out, i_out = regen_rerank_topk(*row_source, q_s, cand, k, metric)
+    else:
+        if base_dev is None:
+            raise ValueError("the re-rank needs row_source or base_dev")
+        d_out, i_out = rerank_topk(base_dev, sqnorms, q_s, cand, k, metric)
     return d_out[inv], i_out[inv], coverage, q_granted[inv]
 
 
@@ -120,14 +129,15 @@ class RoutedSplitIndex:
     of its tensors: ``centroids`` (C, d) f32, ``comp`` ((C+1)*cap or more
     rows, dpc) bf16 or int8 cluster-major with the pad cluster C,
     ``aux_r`` (C+1, 2*members, cls) f32, ``gid`` (rows,) int32 global row
-    ids (-1 pad), and the resident f32 base with its squared norms (zeros
-    for IP) for the exact re-rank. Build it with ``build_routed_split``."""
+    ids (-1 pad), and for the exact re-rank either ``row_source`` = (key,
+    centers) of a row-keyed base, whose rows are regenerated by id (then
+    nothing else is resident), or the resident f32 base with its squared
+    norms (zeros for IP). Build it with ``build_routed_split``."""
 
     def __init__(self, centroids, comp, aux_r, gid, n: int, dim: int,
                  metric: int, *, cls: int, cap: int | None = None,
                  row_source=None, base_dev=None, sqnorms=None):
-        if row_source is not None:
-            raise NotImplementedError(_ROW_SOURCE_MSG)
+        self.row_source = row_source
         self.centroids = centroids
         self.comp = comp
         self.aux_r = aux_r
@@ -151,11 +161,12 @@ class RoutedSplitIndex:
 
     def recenter_routing(self, *, chunk: int = 262_144) -> None:
         """Replace each routing centroid with the mean of the rows its
-        cluster holds (read from the resident base by ``gid``); a cluster
-        that holds none keeps its centroid. A cluster's rows are one run of
-        ``cap`` slots, so each mean is a plain row sum over the run, the
-        same on every run (no float atomics); ``chunk`` bounds the rows
-        gathered at once (at least one cluster)."""
+        cluster holds (regenerated, or read from the resident base, by
+        ``gid``); a cluster that holds none keeps its centroid. A cluster's
+        rows are one run of ``cap`` slots, so each mean is a plain row sum
+        over the run, the same on every run (no float atomics); ``chunk``
+        bounds the rows gathered at once (at least one cluster)."""
+        rowfn = make_rowfn(self.row_source, self.base_dev, self.metric)
         C, cap = self.C, self.cap
         d = self.centroids.shape[1]
         per = max(1, chunk // cap)  # clusters a step
@@ -165,7 +176,7 @@ class RoutedSplitIndex:
             c1 = min(c0 + per, C)
             ids = self.gid[c0 * cap:c1 * cap].view(c1 - c0, cap)
             valid = (ids >= 0).to(torch.float32)
-            x = self.base_dev[ids.clamp_min(0).long()].to(torch.float32)
+            x = rowfn(ids.clamp_min(0).reshape(-1)).view(c1 - c0, cap, d)
             sums[c0:c1] = (x * valid[..., None]).sum(dim=1)
             counts[c0:c1] = valid.sum(dim=1)
         self.centroids = torch.where(
@@ -247,7 +258,7 @@ class RoutedSplitIndex:
     def _search_at(self, q, **kw):
         return routed_split_search_at(
             self.centroids, self.comp, self.aux_r, self.gid, self.base_dev,
-            self.sqnorms, q.to(torch.float32), **kw)
+            self.sqnorms, q.to(torch.float32), row_source=self.row_source, **kw)
 
     def cost_counters(self, nq: int, k: int = 10, *, probes: int = 0,
                       shared: int = 0, tile: int = 0) -> dict:
@@ -267,13 +278,6 @@ class RoutedSplitIndex:
 
 
 # --- builder ------------------------------------------------------------------
-
-
-def _rowfn(base_dev: torch.Tensor):
-    """Global ids (m,) -> (m, d) f32 rows of the resident base."""
-    def rowfn(ids: torch.Tensor) -> torch.Tensor:
-        return base_dev[ids.long()].to(torch.float32)
-    return rowfn
 
 
 def fold_gt_stream(rowfn, n: int, queries: np.ndarray, metric: int, *,
@@ -408,27 +412,32 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
     return cents_dev, order, C, cap
 
 
-def pack_clustered(base_dev: torch.Tensor, gid: torch.Tensor, metric: int, *,
+def pack_clustered(rows, gid: torch.Tensor, metric: int, *,
                    cap: int, cls: int, comp_dtype: str
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The split tables of the rows ``gid`` names, in its cluster-major
-    order ((C+1)*cap slots, -1 for an empty one), packed on the base's
-    device a few clusters at a time: (comp ((C+1)*cap, dpc), aux_r (C+1,
-    2*cap/cls, cls)). Empty slots are pad rows: comp 0, nrm NEG."""
+    order ((C+1)*cap slots, -1 for an empty one), packed on gid's device a
+    few clusters at a time: (comp ((C+1)*cap, dpc), aux_r (C+1, 2*cap/cls,
+    cls)). ``rows`` is the resident base (n, d) or a row provider (ids ->
+    (m, d) f32 rows, ``make_rowfn``), which streams the rows in that
+    order without a base. Empty slots are pad rows: comp 0, nrm NEG."""
     if comp_dtype not in COMP_DTYPES:
         raise ValueError(f"comp_dtype must be 'bf16' or 'int8', got {comp_dtype!r}")
+    rowfn = rows if callable(rows) else make_rowfn(None, rows, metric)
     n_pad = gid.shape[0]
     rchunk = min(_round_up(65_536, cap), n_pad)  # whole clusters a step
-    dev = base_dev.device
-    comp = torch.empty((n_pad, comp_width(base_dev.shape[1])),
-                       dtype=COMP_DTYPES[comp_dtype], device=dev)
-    aux_r = torch.empty((n_pad // cap, 2 * (cap // cls), cls),
-                        dtype=torch.float32, device=dev)
+    dev = gid.device
+    comp = aux_r = None
     for lo in range(0, n_pad, rchunk):
         ids = gid[lo:lo + rchunk]
         valid = ids >= 0
-        x = base_dev[ids.clamp_min(0).long()].to(torch.float32)
+        x = rowfn(ids.clamp_min(0)).to(torch.float32)
         x = torch.where(valid[:, None], x, 0.0)
+        if comp is None:
+            comp = torch.empty((n_pad, comp_width(x.shape[1])),
+                               dtype=COMP_DTYPES[comp_dtype], device=dev)
+            aux_r = torch.empty((n_pad // cap, 2 * (cap // cls), cls),
+                                dtype=torch.float32, device=dev)
         comp_c, aux_c = pack_split_device(x, metric, comp_dtype=comp_dtype)
         aux_c[0] = torch.where(valid, aux_c[0], NEG)
         comp[lo:lo + ids.shape[0]] = comp_c
@@ -456,8 +465,10 @@ def build_routed_split(
     gt_k: int = 10,
     log=None,
 ):
-    """Build the clustered split tables of the resident base ``base_dev``
-    (n, dim) on its device.
+    """Build the clustered split tables of a row-keyed base, ``row_source``
+    = (key, centers) (rows regenerated by id on the centres' device; no
+    base is ever resident), or of the resident base ``base_dev`` (n, dim)
+    on its device.
 
     cap is ``cap_target`` rounded up to a multiple of 4*cls, and C =
     ceil(cap_slack*n/cap) clusters follow (at least 2; the JAX package's
@@ -469,16 +480,21 @@ def build_routed_split(
     nearest first, and lay out cluster-major; D. pack the rows in that
     order. With ``queries``, the exact ground truth is folded first.
     Returns the index, or (index, gt) when ``queries`` is given."""
-    if row_source is not None:
-        raise NotImplementedError(_ROW_SOURCE_MSG)
-    if base_dev is None:
-        raise ValueError("build_routed_split needs base_dev, the resident rows")
     metric = metric_id(metric)
     say = log if log is not None else (lambda *_: None)
-    dev = base_dev.device
-    rowfn = _rowfn(base_dev)
-    if tuple(base_dev.shape) != (n, dim):
-        raise ValueError(f"base_dev is {tuple(base_dev.shape)}, not ({n}, {dim})")
+    if row_source is not None:
+        dev = row_source[1].device
+        if row_source[1].shape[1] != dim:
+            raise ValueError(f"the row source's rows are {row_source[1].shape[1]} "
+                             f"wide, not {dim}")
+        base_dev = None
+    elif base_dev is not None:
+        dev = base_dev.device
+        if tuple(base_dev.shape) != (n, dim):
+            raise ValueError(f"base_dev is {tuple(base_dev.shape)}, not ({n}, {dim})")
+    else:
+        raise ValueError("build_routed_split needs row_source or base_dev")
+    rowfn = make_rowfn(row_source, base_dev, metric)
     cents_dev, order, C, cap = _plan_routed(
         n, dim, rowfn=rowfn, cap_target=cap_target, cls=cls,
         cap_slack=cap_slack, train_size=train_size,
@@ -486,18 +502,23 @@ def build_routed_split(
         device=dev)
     gt_i = None
     if queries is not None:
+        t0 = time.perf_counter()
         gt_i = fold_gt_stream(rowfn, n, queries, metric, gt_k=gt_k, device=dev)
-        say("# routed_split: exact ground truth folded")
+        say(f"# routed_split: exact ground truth folded "
+            f"({time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
     gid = torch.from_numpy(order).to(dev)
-    comp, aux_r = pack_clustered(base_dev, gid, metric, cap=cap, cls=cls,
+    comp, aux_r = pack_clustered(rowfn, gid, metric, cap=cap, cls=cls,
                                  comp_dtype=comp_dtype)
     say(f"# routed_split: clustered tables packed "
         f"({time.perf_counter() - t0:.2f} s)")
-    sq = (squared_norms(base_dev) if metric == METRIC_L2
-          else torch.zeros(n, dtype=torch.float32, device=dev))
+    sq = None
+    if base_dev is not None:
+        sq = (squared_norms(base_dev) if metric == METRIC_L2
+              else torch.zeros(n, dtype=torch.float32, device=dev))
     idx = RoutedSplitIndex(cents_dev, comp, aux_r, gid, n, dim, metric, cls=cls,
-                           cap=cap, base_dev=base_dev, sqnorms=sq)
+                           cap=cap, row_source=row_source, base_dev=base_dev,
+                           sqnorms=sq)
     if queries is not None:
         return idx, gt_i
     return idx

@@ -4,8 +4,10 @@
 ``build/shine_tpu_torch/`` under the repository root (beside the CUDA
 kernel library), keyed on a hash of the source and the flags, so an edit
 triggers a rebuild and nothing is written beside the source. The builder
-(``shine_hnsw_build``) and the reverse-edge merge of the scan-speed build
-(``shine_reverse_merge``, through ``reverse_merge``) are bound.
+(``shine_hnsw_build``), its level-0 repair on a given graph
+(``shine_hnsw_repair_level0``, through ``repair_level0``) and the
+reverse-edge merge of the scan-speed build (``shine_reverse_merge``, through
+``reverse_merge``) are bound.
 """
 
 from __future__ import annotations
@@ -79,6 +81,18 @@ def load() -> ctypes.CDLL:
             i32p,  # upper_neighbors
             i64p,  # meta
         ]
+        lib.shine_hnsw_repair_level0.restype = ctypes.c_int64
+        lib.shine_hnsw_repair_level0.argtypes = [
+            f32p,  # vecs
+            ctypes.c_int64,  # n
+            ctypes.c_int,  # d
+            ctypes.c_int,  # M
+            ctypes.c_int,  # efc
+            ctypes.c_int,  # metric
+            ctypes.c_int32,  # entry_point
+            i32p,  # levels (n,), in place
+            i32p,  # neighbors0 (n, 2M), in place
+        ]
         lib.shine_reverse_merge.restype = ctypes.c_int
         lib.shine_reverse_merge.argtypes = [
             i32p,  # fwd_sel (n, M)
@@ -93,6 +107,25 @@ def load() -> ctypes.CDLL:
         ]
         _lib = lib
         return _lib
+
+
+def repair_level0(vecs: np.ndarray, levels: np.ndarray, neighbors0: np.ndarray,
+                  entry_point: int, *, efc: int, metric: int = 0
+                  ) -> tuple[np.ndarray, np.ndarray, int]:
+    """The threaded build's level-0 repair run on a given graph: every
+    vertex that level 0 does not reach from ``entry_point`` gets an in-edge
+    from a reachable one. ``neighbors0`` is (n, 2M), -1 padded. Returns
+    copies of (levels, neighbors0) after the repair and the number of
+    vertices repaired."""
+    lib = load()
+    vecs = np.ascontiguousarray(vecs, np.float32)
+    levels = np.array(levels, np.int32)
+    neighbors0 = np.array(neighbors0, np.int32)
+    n, d = vecs.shape
+    M = neighbors0.shape[1] // 2
+    repaired = lib.shine_hnsw_repair_level0(vecs, n, d, M, efc, metric, entry_point,
+                                            levels, neighbors0)
+    return levels, neighbors0, int(repaired)
 
 
 def reverse_merge(fwd_sel: np.ndarray, fwd_d: np.ndarray, ids: np.ndarray,

@@ -8,6 +8,19 @@
 // the levels below never read), so both packages build the same graph from
 // the same inputs at threads=1 (tests/test_torch_graph.py holds them to it);
 // on more threads the port's graph keeps every vertex reachable.
+//
+// A second repair for threaded builds (ROADMAP C1, repair_level0): vertices
+// inserted at once do not see each other, so a vertex can enter the graph
+// through a few far neighbours whose full lists later prune it (the
+// shrink-if-full heuristic keeps a diverse subset), and once its last
+// in-edge is gone no later insert finds it: a seeded loop of 3,000 builds of
+// 200 rows on 8 threads left a level-0 vertex unreachable in 161. No memory
+// is raced; the order is. After a threaded build every vertex that level 0
+// does not reach from the entry point gets an in-edge from the nearest
+// reachable vertex with room in its list (or, if none has room, in place of
+// the nearest one's farthest neighbour that the entry point still reaches
+// without that edge), in rounds until level 0 reaches every vertex. A build
+// on one thread is left as it is, the JAX package's graph.
 // The builder and the reverse-edge merge of the scan-speed build
 // (models/fastbuild.py) are copied; that file's host search, which nothing in
 // the port calls, is left out.
@@ -376,6 +389,114 @@ class Builder {
     for (auto& th : pool) th.join();
   }
 
+  // Give every level-0 vertex that the entry point does not reach an
+  // in-edge from a reachable one (the header's second repair), in rounds:
+  // each round marks what the entry point reaches afresh and links every
+  // vertex it misses, until a round finds none (or can link none). A
+  // replaced edge is one whose target the entry point still reaches without
+  // it, so no repair cuts another vertex off. Returns the number of
+  // vertices repaired.
+  int64_t repair_level0() {
+    if (entry_point_ < 0) return 0;
+    std::vector<char> seen(n_, 0);
+    std::vector<int32_t> stack;
+    auto reach = [&](int32_t from) {  // mark everything level 0 reaches from it
+      stack.assign(1, from);
+      seen[from] = 1;
+      while (!stack.empty()) {
+        const int32_t* ls = list0(stack.back());
+        stack.pop_back();
+        for (int j = 0; j < Mmax0_ && ls[j] >= 0; ++j)
+          if (!seen[ls[j]]) {
+            seen[ls[j]] = 1;
+            stack.push_back(ls[j]);
+          }
+      }
+    };
+    // whether level 0 reaches w from the entry point without u's slot j
+    std::vector<uint64_t> mark(n_, 0);
+    uint64_t mark_stamp = 0;
+    auto reached_without = [&](int32_t u, int slot, int32_t w) {
+      if (w == entry_point_) return true;
+      ++mark_stamp;
+      stack.assign(1, entry_point_);
+      mark[entry_point_] = mark_stamp;
+      while (!stack.empty()) {
+        const int32_t x = stack.back();
+        stack.pop_back();
+        const int32_t* ls = list0(x);
+        for (int j = 0; j < Mmax0_ && ls[j] >= 0; ++j) {
+          const int32_t y = ls[j];
+          if ((x == u && j == slot) || mark[y] == mark_stamp) continue;
+          if (y == w) return true;
+          mark[y] = mark_stamp;
+          stack.push_back(y);
+        }
+      }
+      return false;
+    };
+    // link v from a vertex of near (reachable, nearest first): the first
+    // with room in its list, else in place of the farthest neighbour of the
+    // nearest one that can spare it
+    auto link = [&](int32_t v, const std::vector<PairDI>& near) {
+      for (const PairDI& c : near)
+        if (c.id != v && degree(c.id, 0) < Mmax0_) {
+          const int deg = degree(c.id, 0);
+          list0(c.id)[deg] = v;
+          deg0_[c.id].store(deg + 1, std::memory_order_release);
+          return true;
+        }
+      for (const PairDI& c : near) {
+        if (c.id == v) continue;
+        int32_t* ls = list0(c.id);
+        std::vector<PairDI> slots;  // (distance to c, slot), farthest first
+        for (int j = 0; j < Mmax0_; ++j) slots.push_back({dist(vec(c.id), vec(ls[j])), j});
+        std::sort(slots.begin(), slots.end(), NearerFirst());  // descending
+        for (const PairDI& sj : slots)
+          if (reached_without(c.id, sj.id, ls[sj.id])) {
+            ls[sj.id] = v;
+            return true;
+          }
+      }
+      return false;
+    };
+    std::vector<uint64_t> visited(n_, 0);
+    uint64_t stamp = 0;
+    int64_t repaired = 0;
+    for (;;) {
+      std::fill(seen.begin(), seen.end(), 0);
+      reach(entry_point_);
+      int64_t linked = 0;
+      for (int32_t v = 0; v < n_; ++v) {
+        if (seen[v] || levels_[v] < 0) continue;
+        const float* q = vec(v);
+        PairDI ep{dist(q, vec(entry_point_)), entry_point_};
+        // the search walks level 0 from the entry point: all it returns is
+        // reachable
+        std::vector<PairDI> near =
+            search_level(q, ep, 0, std::max(efc_, Mmax0_), /*lock=*/false, visited, ++stamp);
+        if (!link(v, near)) continue;
+        reach(v);
+        ++linked;
+      }
+      repaired += linked;
+      if (linked == 0) return repaired;
+    }
+  }
+
+  // Take over a finished level-0 graph (levels, lists and entry point as
+  // shine_hnsw_build writes them) so that repair_level0 can run on it.
+  void adopt(const int32_t* levels, const int32_t* neighbors0, int32_t entry_point) {
+    std::copy(levels, levels + n_, levels_);
+    std::copy(neighbors0, neighbors0 + n_ * Mmax0_, neighbors0_);
+    for (int64_t i = 0; i < n_; ++i) {
+      int c = 0;
+      while (c < Mmax0_ && neighbors0_[i * Mmax0_ + c] >= 0) ++c;
+      deg0_[i].store(c, std::memory_order_relaxed);
+    }
+    entry_point_ = entry_point;
+  }
+
   int32_t entry_point() const { return entry_point_; }
   int top_level() const { return top_level_; }
   int64_t upper_used() const {
@@ -425,10 +546,27 @@ int shine_hnsw_build(const float* vecs, int64_t n, int d, int M, int efc,
   Builder b(vecs, n, d, M, efc, seed, metric, levels, neighbors0, upper_row,
             upper_neighbors, upper_cap, level_cap);
   b.run(threads);
+  if (threads > 1) b.repair_level0();
   meta[0] = b.entry_point();
   meta[1] = b.top_level();
   meta[2] = b.upper_used();
   return b.overflowed() ? 1 : 0;
+}
+
+// The threaded build's level-0 repair (repair_level0) run on a given graph
+// of n vectors: levels[n] and neighbors0[n * 2M] are read and rewritten in
+// place. Returns the number of vertices repaired. It lets the tests hand the
+// repair graphs that no build is sure to produce.
+int64_t shine_hnsw_repair_level0(const float* vecs, int64_t n, int d, int M, int efc,
+                                 int metric, int32_t entry_point, int32_t* levels,
+                                 int32_t* neighbors0) {
+  const std::vector<int32_t> lv(levels, levels + n), nb(neighbors0, neighbors0 + n * 2 * M);
+  std::vector<int32_t> upper_row(n);
+  int32_t upper_neighbors = 0;
+  Builder b(vecs, n, d, M, efc, 0, metric, levels, neighbors0, upper_row.data(),
+            &upper_neighbors, 0, 0);
+  b.adopt(lv.data(), nb.data(), entry_point);
+  return b.repair_level0();
 }
 
 // Host reverse-edge merge for the fastbuild pipeline — the C++ twin of

@@ -29,6 +29,9 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # each kernel's registers and spills, into build_log
 ]
+# flags of one source only: regen_rows.cu rounds every f32 multiply and add
+# on its own, as torch's elementwise ops do, to equal its plain version
+FILE_FLAGS = {"regen_rows.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,6 +49,7 @@ def lib_path() -> str:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     return os.path.join(_BUILD, f"libshine_kernels_{h.hexdigest()[:12]}.so")
 
 
@@ -84,7 +88,8 @@ def _build(path: str) -> None:
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        log = _run_all([[nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(os.path.basename(src), []),
+                         "-c", "-o", obj, src]
                         for src, obj in zip(_sources(), objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     finally:
@@ -215,6 +220,35 @@ def _bind(lib: ctypes.CDLL) -> None:
         i32,  # dp
         vp,  # max1 (B, N_pad/32) f32
         vp,  # arg1 (B, N_pad/32) i32
+        vp,  # cudaStream_t
+    ]
+    u32 = ctypes.c_uint32
+    lib.shine_regen_rows.restype = i32
+    lib.shine_regen_rows.argtypes = [
+        u32,  # key word 0
+        u32,  # key word 1
+        vp,  # centers (nc, d) f32
+        i32,  # nc
+        i32,  # d
+        vp,  # ids (m,) i32
+        i64,  # m
+        i32,  # normalize
+        vp,  # out (m, d) f32
+        vp,  # cudaStream_t
+    ]
+    lib.shine_regen_score.restype = i32
+    lib.shine_regen_score.argtypes = [
+        u32,  # key word 0
+        u32,  # key word 1
+        vp,  # centers (nc, d) f32
+        i32,  # nc
+        i32,  # d
+        vp,  # q (B, d) f32
+        vp,  # cand_ids (B, K) i32
+        i32,  # B
+        i32,  # K
+        i32,  # ip
+        vp,  # out (B, K) f32
         vp,  # cudaStream_t
     ]
     lib.shine_classmax_select.restype = i32

@@ -52,9 +52,11 @@ def dist_id_key(d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def smallest_positions(d: torch.Tensor, k: int) -> torch.Tensor:
     """Positions (int64) of the k smallest entries of each row of ``d``,
     ascending, the lower position first among equal values:
-    ``lax.top_k(-d, k)``'s order, with -0.0 and +0.0 tied."""
+    ``lax.top_k(-d, k)``'s order, with -0.0 and +0.0 tied. The keys are
+    unique, so a sorted ``topk`` of them is the full sort's first k."""
     pos = torch.arange(d.shape[1], device=d.device).expand_as(d)
-    return torch.sort(dist_id_key(d, pos), dim=1)[1][:, :k]
+    k = min(k, d.shape[1])
+    return torch.topk(dist_id_key(d, pos), k, dim=1, largest=False, sorted=True)[1]
 
 
 def _sort_by(key: torch.Tensor, *cols: torch.Tensor) -> list[torch.Tensor]:

@@ -128,6 +128,26 @@ def exact_knn(
     return best_i.to(torch.int32), best_d
 
 
+def candidate_distance(
+    queries: torch.Tensor,  # (B, d)
+    cand_vecs: torch.Tensor,  # (B, K, d) gathered candidate rows
+    metric: int = METRIC_L2,
+    *,
+    cand_sqnorm: torch.Tensor | None = None,  # (B, K)
+) -> torch.Tensor:
+    """(B, K) f32 distances of each query to its own K gathered rows:
+    ||q||^2 - 2<q, v> + ||v||^2 (L2; the stored norms when given) or
+    1 - <q, v> (IP)."""
+    check_precision()
+    q = queries.to(torch.float32)
+    c = cand_vecs.to(torch.float32)
+    dots = torch.einsum("bd,bkd->bk", q, c)
+    if metric == METRIC_IP:
+        return 1.0 - dots
+    cn = cand_sqnorm if cand_sqnorm is not None else squared_norms(c)
+    return squared_norms(q)[:, None] - 2.0 * dots + cn
+
+
 def _sort_keep(d: torch.Tensor, cand_ids: torch.Tensor, k: int):
     """(d, ids) sorted by (dist, id), -1 ids last among equal dists, cut
     to k: ``lax.sort`` on (d, key_i) with two keys."""
@@ -137,13 +157,38 @@ def _sort_keep(d: torch.Tensor, cand_ids: torch.Tensor, k: int):
 
 
 def _l2_or_ip(dots: torch.Tensor, q: torch.Tensor, metric: int,
-              row_sq: torch.Tensor | None) -> torch.Tensor:
+              row_sq: torch.Tensor | None,
+              qn: torch.Tensor | None = None) -> torch.Tensor:
     if metric == METRIC_IP:
         return 1.0 - dots
-    qn = (q * q).sum(dim=-1)  # per query: a rank-invariant offset
+    if qn is None:
+        qn = (q * q).sum(dim=-1)  # per query: a rank-invariant offset
     if row_sq is None:  # ``dots`` already holds 2<q, v> - ||v||^2
         return qn[..., None] - dots
     return qn[..., None] - 2.0 * dots + row_sq
+
+
+def pair_dots(table: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, K) f32 <q[b], table[ids[b, k]]> of f32 queries (B, d) and the
+    rows of an f32 or bf16 table (N, d), the ids in range. K1's
+    ``gather_score`` (``csrc/gather_score.cu``, its plain twin on the CPU)
+    sums each (query, row) pair in one fixed order on the card, so a
+    query's products do not depend on its batch (a batched cuBLAS product
+    picks its kernel by the batch's size: ROADMAP C11)."""
+    from shine_tpu_torch.ops.gather_score import gather_score
+
+    B = q.shape[0]
+    zero = torch.zeros(B, dtype=torch.float32, device=q.device)
+    return gather_score(table.contiguous(), q.to(torch.float32).contiguous(), zero,
+                        ids.to(torch.int32).contiguous(), l2=False)
+
+
+def query_sqnorms(q: torch.Tensor) -> torch.Tensor:
+    """(B,) ||q||^2 of f32 queries, each in one fixed order on the card
+    (``pair_dots`` of each query with itself)."""
+    ids = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
+    q = q.to(torch.float32).contiguous()
+    return pair_dots(q, q, ids)[:, 0]
 
 
 def rerank_topk(
@@ -155,14 +200,42 @@ def rerank_topk(
     metric: int = METRIC_L2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact f32 re-rank of K candidates down to k: (dists (..., k), ids
-    (..., k)) ascending by (dist, id); -1 candidates score +inf."""
+    (..., k)) ascending by (dist, id); -1 candidates score +inf. The
+    products and ||q||^2 come from ``pair_dots`` and ``query_sqnorms``, so
+    on the card a query's result does not depend on its batch."""
     check_precision()
     q = queries.to(torch.float32)
     safe = cand_ids.clamp_min(0).long()
-    cv = vectors[safe].to(torch.float32)  # (..., K, d)
-    dots = torch.einsum("...d,...kd->...k", q, cv)
-    d = _l2_or_ip(dots, q, metric, sqnorms[safe])
+    q2 = q.reshape(-1, q.shape[-1])
+    dots = pair_dots(vectors, q2, safe.reshape(q2.shape[0], -1)).reshape(safe.shape)
+    qn = None if metric == METRIC_IP else query_sqnorms(q2).reshape(q.shape[:-1])
+    d = _l2_or_ip(dots, q, metric, sqnorms[safe], qn)
     d = torch.where(cand_ids >= 0, d, torch.inf)
+    return _sort_keep(d, cand_ids, k)
+
+
+def regen_rerank_topk(
+    key: torch.Tensor,  # (2,) the row-keyed base's key
+    centers: torch.Tensor,  # (nc, d) f32 mixture centres
+    queries: torch.Tensor,  # (..., d) f32
+    cand_ids: torch.Tensor,  # (..., K) int32 global row ids, -1 pad
+    k: int,
+    metric: int = METRIC_L2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 re-rank with no resident base: each candidate's row is
+    regenerated from its id and scored against its query
+    (``ops/regen.py:regen_score``, a kernel on the card), then (dists
+    (..., k), ids (..., k)) ascending by (dist, id); -1 candidates score
+    +inf. The sums run over d in index order, so a query's result does not
+    depend on its batch."""
+    from shine_tpu_torch.ops.regen import regen_score
+
+    q = queries.to(torch.float32)
+    lead = cand_ids.shape[:-1]
+    cand2 = cand_ids.reshape(-1, cand_ids.shape[-1]).to(torch.int32).contiguous()
+    d = regen_score(key, centers, q.reshape(-1, q.shape[-1]).contiguous(), cand2,
+                    metric)
+    d = d.reshape(lead + (cand_ids.shape[-1],))
     return _sort_keep(d, cand_ids, k)
 
 

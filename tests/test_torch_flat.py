@@ -221,8 +221,19 @@ def test_fastflat_from_device_and_from_ext():
     # no permutation on a table-only index: map its rows back by hand
     e_ids = dev_idx.perm[e_ids]
     assert recall_at_k(e_ids, ds.ground_truth, 10) > 0.9
-    with pytest.raises(NotImplementedError, match="A6"):
-        FastFlatIndex.from_ext(dev_idx.ext, 8192, row_source=(0, None))
+    # a row-keyed table with its row source re-ranks exactly from rows
+    # regenerated by id: its distances are those of the exact rows
+    from shine_tpu_torch.io.device_synth import device_rowkeyed_ext_dataset
+    from shine_tpu_torch.ops.regen import regen_rows
+
+    rk = device_rowkeyed_ext_dataset(n=8192, dim=16, num_queries=32, seed=3,
+                                     num_clusters=8, device="cpu")
+    rs_idx = FastFlatIndex.from_ext(rk.ext_dev, rk.n, dim=16, row_source=rk.row_source)
+    r_ids, r_d = rs_idx.search(rk.queries, 10, kb=32)
+    assert recall_at_k(r_ids, rk.ground_truth, 10) > 0.97
+    rows = regen_rows(*rk.row_source, torch.from_numpy(r_ids[:, 0].astype(np.int64)))
+    want = ((rows.numpy() - rk.queries) ** 2).sum(1)
+    np.testing.assert_allclose(r_d[:, 0], want, rtol=1e-5, atol=1e-3)
 
 
 def test_cost_counters_match_jax_shapes():

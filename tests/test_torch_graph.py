@@ -6,6 +6,7 @@ numpy oracle, and entry points that refuse to run without a CUDA card
 unless asked for the CPU."""
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -81,6 +82,59 @@ def test_multithreaded_build_is_exact_on_tiny_graph():
         if recall_at_k(ids, gt_ids, 10) != 1.0:
             inexact.append(i)
     assert inexact == [], f"{len(inexact)} of 20 builds are inexact"
+
+
+def _unreachable_level0(g) -> np.ndarray:
+    """The vertices that level 0 does not reach from the entry point."""
+    seen = np.zeros(len(g.neighbors0), bool)
+    seen[g.entry_point] = True
+    frontier = np.array([g.entry_point])
+    while len(frontier):
+        nxt = g.neighbors0[frontier].ravel()
+        nxt = np.unique(nxt[nxt >= 0])
+        frontier = nxt[~seen[nxt]]
+        seen[frontier] = True
+    return np.nonzero(~seen)[0]
+
+
+def test_multithreaded_build_reaches_every_vertex():
+    """ROADMAP C1's remnant: on 8 threads a vertex could lose its last
+    level-0 in-edge to its neighbours' shrink-if-full pruning (161 of 3,000
+    seeded builds of 200 rows); the build's repair pass links each such
+    vertex from its nearest reachable one, so on every one of 300 builds
+    level 0 reaches every vertex from the entry point."""
+    bad = []
+    for i in range(300):
+        ds = synthetic_dataset(n=200, dim=8, num_queries=1, seed=i % 50,
+                               compute_gt=False)
+        g = build_graph(ds.base, HNSWParams(M=8, ef_construction=64, seed=i),
+                        threads=8)
+        if len(_unreachable_level0(g)):
+            bad.append(i)
+    assert bad == [], f"{len(bad)} of 300 builds left a vertex unreachable"
+
+
+def test_level0_repair_keeps_what_a_replaced_edge_reached():
+    """ROADMAP C1's repair, its full-list branch: every reachable list is
+    full, so the unreachable vertex v takes a slot of its nearest reachable
+    vertex u. u's farthest neighbour w is reached only through u (w and x
+    link to each other and nothing else reaches them), so that edge must
+    stay: the repair gives up u's edge to the entry point instead, and
+    level 0 then reaches every vertex."""
+    u, w, x, v = 4, 5, 6, 7
+    vecs = np.array([[0, 0], [1, 0], [2, 0], [3, 0], [9, 0], [-10, 5], [-10, 6],
+                     [10, 0]], np.float32)
+    lists = np.array([[1, 2, 3, u], [0, 2, 3, u], [0, 1, 3, u], [0, 1, 2, u],
+                      [w, 0, 1, 3], [x, 0, 1, 2], [w, 0, 1, 2], [0, 1, 2, 3]], np.int32)
+    g = SimpleNamespace(neighbors0=lists, entry_point=0)
+    assert list(_unreachable_level0(g)) == [v]
+    _, fixed, repaired = native.repair_level0(vecs, np.zeros(8, np.int32), lists, 0,
+                                              efc=16)
+    assert repaired == 1
+    assert list(fixed[u]) == [w, v, 1, 3]
+    np.testing.assert_array_equal(np.delete(fixed, u, 0), np.delete(lists, u, 0))
+    g.neighbors0 = fixed
+    assert len(_unreachable_level0(g)) == 0
 
 
 def test_native_library_builds_under_build_dir():

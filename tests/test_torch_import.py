@@ -60,7 +60,9 @@ def _clean_env():
     "shine_tpu_torch.io",
     "shine_tpu_torch.io.checkpoint",
     "shine_tpu_torch.io.datasets",
+    "shine_tpu_torch.io.device_synth",
     "shine_tpu_torch.io.fbin",
+    "shine_tpu_torch.io.recall",
     "shine_tpu_torch.io.skew",
     "shine_tpu_torch.models.build",
     "shine_tpu_torch.models.dynamic",
@@ -73,10 +75,12 @@ def _clean_env():
     "shine_tpu_torch.ops.blockmax",
     "shine_tpu_torch.ops.classmax",
     "shine_tpu_torch.ops.gather_score",
+    "shine_tpu_torch.ops.regen",
     "shine_tpu_torch.ops.scan",
     "shine_tpu_torch.ops.scan_routed",
     "shine_tpu_torch.ops.scan_split",
     "shine_tpu_torch.ops.distance",
+    "shine_tpu_torch.ops.threefry",
     "shine_tpu_torch.parallel.placement",
     "shine_tpu_torch.utils",
     "shine_tpu_torch.utils.stats",

@@ -1,8 +1,10 @@
 """The CUDA kernels (gather_score and the fused beam step, K1, also as the
 insert build's searches; the class-max scans, K2, K3 and K4,
 the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
-edges, and K6 and its chunk runs) against their plain twins, on a card;
-and the IVF index, which has no kernel of its own, against the CPU.
+edges, and K6 and its chunk runs; regen_rows and regen_score of the
+capacity path) against their plain twins, on a card; the IVF index, which
+has no kernel of its own, against the CPU; and ROADMAP C11, one query's
+answer at any batch size, for every family.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -1370,3 +1372,148 @@ def test_device_build_refuses_ef_above_the_kernel_limit(card, monkeypatch):
         device_build_graph(rows, HNSWParams(M=8, ef_construction=bs.MAX_EF + 1),
                            device=card)
     assert bs.beam_step.launches == before
+
+
+# --- the row-keyed capacity path: regen_rows and regen_score ----------------
+
+def _row_source(card, d, nc=64, seed=17):
+    from shine_tpu_torch.ops import threefry as tf
+
+    k0, k1 = tf.split(tf.prng_key(seed), 2)
+    return k1, (tf.normal(k0, (nc, d)) * 4.0).to(card)
+
+
+@pytest.mark.parametrize("d", [16, 128, 960])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_regen_rows_kernel_bit_for_bit(card, d, normalize):
+    from shine_tpu_torch.ops import regen
+
+    key, centers = _row_source(card, d)
+    ids = torch.randint(0, 2**31 - 1, (5000,), generator=torch.Generator().manual_seed(d))
+    ids[:3] = torch.tensor([0, 1, 2**31 - 1])
+    before = regen.regen_rows.launches
+    got = regen.regen_rows(key, centers, ids.to(card), normalize=normalize)
+    torch.cuda.synchronize()
+    assert regen.regen_rows.launches == before + 1
+    want = regen.regen_rows_ref(key, centers, ids.to(card), normalize=normalize)
+    assert torch.equal(got, want)
+    # the CPU's log1p rounds otherwise than the card's: a few ulps, no more
+    cpu = regen.regen_rows_ref(key, centers.cpu(), ids, normalize=normalize)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=4e-6 * (1 if normalize else 32))
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("metric", [0, 1])
+def test_regen_score_kernel_bit_for_bit(card, d, metric):
+    from shine_tpu_torch.ops import regen
+
+    key, centers = _row_source(card, d)
+    rng = np.random.default_rng(d + metric)
+    B, K = 300, 80
+    cand = rng.integers(0, 1 << 30, size=(B, K)).astype(np.int32)
+    cand[rng.random((B, K)) < 0.1] = -1
+    rows = regen.regen_rows(key, centers, torch.from_numpy(cand[:, 0]).clamp_min(0).to(card),
+                            normalize=metric == 1)
+    q = (rows + 0.3 * torch.randn(rows.shape, generator=torch.Generator(card).manual_seed(1),
+                                  device=card)).contiguous()
+    cand_t = torch.from_numpy(cand).to(card)
+    before = regen.regen_score.launches
+    got = regen.regen_score(key, centers, q, cand_t, metric)
+    torch.cuda.synchronize()
+    assert regen.regen_score.launches == before + 1
+    assert torch.equal(got, regen.regen_score_ref(key, centers, q, cand_t, metric))
+    assert torch.equal(torch.isinf(got), cand_t < 0)
+    # one query's scores are the same bits in a batch of one
+    assert torch.equal(regen.regen_score(key, centers, q[7:8].contiguous(),
+                                         cand_t[7:8].contiguous(), metric), got[7:8])
+
+
+def test_regen_kernels_reject_what_they_cannot_take(card):
+    from shine_tpu_torch.ops import regen
+
+    key, centers = _row_source(card, 16)
+    q = torch.zeros(2, 16, device=card)
+    with pytest.raises(ValueError):  # queries on another device
+        regen.regen_score(key, centers, q.cpu(), torch.zeros(2, 3, dtype=torch.int32,
+                                                              device=card), 0)
+    with pytest.raises(TypeError):  # int64 candidates
+        regen.regen_score(key, centers, q, torch.zeros(2, 3, dtype=torch.int64, device=card), 0)
+    with pytest.raises(TypeError):
+        regen.regen_rows(key, centers.double(), torch.arange(3, device=card))
+    assert regen.regen_rows(key, centers, torch.zeros(0, dtype=torch.int64,
+                                                      device=card)).shape == (0, 16)
+
+
+# --- ROADMAP C11: one query, one answer at any batch size ----------------------
+
+C11_BATCHES = (64, 2048, 16_384)
+
+
+def _c11_batch(q64: np.ndarray, filler: np.ndarray, B: int) -> np.ndarray:
+    return np.ascontiguousarray(np.concatenate([q64, filler[:B - len(q64)]]))
+
+
+def _c11_same(results, what: str) -> None:
+    (i0, d0), *rest = results
+    for (i, dd), B in zip(rest, C11_BATCHES[1:]):
+        assert np.array_equal(i, i0), f"{what}: ids differ at batch {B}"
+        assert np.array_equal(np.asarray(dd, np.float32).view(np.uint32),
+                              np.asarray(d0, np.float32).view(np.uint32)), (
+            f"{what}: distance bits differ at batch {B}")
+
+
+@pytest.fixture(scope="module")
+def c11_set():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return synthetic_dataset(n=65_536, dim=32, num_queries=C11_BATCHES[-1], seed=12,
+                             compute_gt=False)
+
+
+@pytest.mark.parametrize("family", ["fastflat", "split_int8", "ivf", "hnsw"])
+def test_c11_one_query_one_answer_at_any_batch(card, c11_set, family):
+    """64 queries served inside batches of 64, 2,048 and 16,384: the same
+    ids and the same distance bits."""
+    from shine_tpu_torch import FastFlatIndex, IVFIndex, SplitFlatIndex
+
+    ds = c11_set
+    q64, filler = ds.queries[:64], ds.queries[64:]
+    if family == "fastflat":
+        idx = FastFlatIndex(ds.base, device=card)
+        run = lambda q, B: idx.search(q, 10, batch_size=B)  # noqa: E731
+    elif family == "split_int8":
+        idx = SplitFlatIndex(ds.base, comp_dtype="int8", device=card)
+        run = lambda q, B: idx.search(q, 10, batch_size=B)  # noqa: E731
+    elif family == "ivf":
+        idx = IVFIndex(ds.base, num_clusters=256, seed=7, device=card)
+        run = lambda q, B: idx.search(q, 10, probes=16, batch_size=B)  # noqa: E731
+    else:
+        graph = build_graph(ds.base, HNSWParams(M=8, ef_construction=64), threads=8)
+        idx = HNSWIndex(graph, device=card)
+        run = lambda q, B: idx.search(q, SearchParams(k=10, ef=64), batch_size=B)  # noqa: E731
+    results = []
+    for B in C11_BATCHES:
+        ids, dd = run(_c11_batch(q64, filler, B), B)
+        results.append((ids[:64], dd[:64]))
+    _c11_same(results, family)
+
+
+def test_c11_routed_one_query_one_answer_at_any_batch(card, c11_set):
+    """The routed family grants clusters to tiles, so a query's grant
+    follows its tile-mates: each query here fills its own T=16 tile (16
+    copies), the set is 4 queries x 16, and its results must not change
+    with the batch around it (64, 2,048, 16,384 queries)."""
+    from shine_tpu_torch import build_routed_split
+
+    ds = c11_set
+    base = torch.from_numpy(ds.base).to(card)
+    idx = build_routed_split(65_536, 32, base_dev=base, cap_target=512, cls=128, seed=3)
+    rep = np.repeat(ds.queries, 16, axis=0)
+    q64, filler = rep[:64], rep[64:]
+    results = []
+    for B in C11_BATCHES:
+        ids, dd = idx.search(_c11_batch(q64, filler, B), 10, probes=8, tile=16, shared=8,
+                             batch_size=B, fallback=0)
+        results.append((ids[:64], dd[:64]))
+        assert idx.last_coverage == 1.0
+    _c11_same(results, "routed")

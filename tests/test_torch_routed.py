@@ -34,6 +34,7 @@ from shine_tpu_torch.io import (
 from shine_tpu_torch.models import ivf as tivf
 from shine_tpu_torch.models import routed_split as trs
 from shine_tpu_torch.ops import scan_routed as tk
+from shine_tpu_torch.ops.regen import make_rowfn
 from shine_tpu_torch.ops.scan_split import NEG, pack_split_query
 from shine_tpu_torch.parallel import placement as tpl
 
@@ -422,7 +423,7 @@ def test_plan_routed_matches_jax_with_its_draws(small_base, monkeypatch):
     w_cents, w_order, C, cap, _ = jrs._plan_routed(
         N, D, rowfn=lambda ids: base_j[ids], shards=1, achunk=262_144, **kw)
     cents, order, C2, cap2 = trs._plan_routed(
-        N, D, rowfn=trs._rowfn(torch.from_numpy(base)), **kw)
+        N, D, rowfn=make_rowfn(None, torch.from_numpy(base), 0), **kw)
     assert (C2, cap2) == (C, cap)
 
     def assign_of(o):
@@ -473,7 +474,7 @@ def test_port_build_recall_matches_jax_build(small_base, jax_idx, port_idx):
 
 def test_fold_gt_stream_matches_jax(small_base):
     base, queries, gt = small_base
-    got = trs.fold_gt_stream(trs._rowfn(torch.from_numpy(base)), N, queries, 0,
+    got = trs.fold_gt_stream(make_rowfn(None, torch.from_numpy(base), 0), N, queries, 0,
                              rchunk=5000)
     base_j = jnp.asarray(base)
     want = jrs.fold_gt_stream(lambda ids: base_j[ids], N, queries, 0, rchunk=4096)
@@ -544,6 +545,13 @@ def test_entry_points_default_to_the_card(tmp_path, small_base, jax_idx):
     jc.save_routed_split(jax_idx, path)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_routed_split(path)
-    with pytest.raises(NotImplementedError):
-        RoutedSplitIndex(torch.zeros(2, D), torch.zeros(3, D), torch.zeros(3, 8, 1),
-                         torch.zeros(3), 2, D, 0, cls=1, row_source=(0, 0))
+    # a row-keyed index holds its row source and no base; without a card
+    # its carrier refuses as the others do
+    rs = (torch.tensor([0, 7]), torch.zeros(4, D))
+    idx = RoutedSplitIndex(torch.zeros(2, D), torch.zeros(3, D), torch.zeros(3, 8, 1),
+                           torch.zeros(3), 2, D, 0, cls=1, row_source=rs)
+    assert idx.row_source is rs and idx.base_dev is None
+    arrays.pop("base")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        routed_split_from_jax(arrays, n=N, dim=D, metric="l2", cls=jax_idx.cls,
+                              row_source=rs)

@@ -389,9 +389,16 @@ def test_splitflat_from_parts_matches_jax(int_case, comp_dtype):
 
 
 def test_splitflat_from_parts_refuses_bad_tables():
+    # the working path: a row-keyed set's tables with its row source
+    from shine_tpu_torch.io.device_synth import device_rowkeyed_split_dataset
+
+    rk = device_rowkeyed_split_dataset(n=16_384, dim=16, num_queries=32, seed=2,
+                                       num_clusters=8, device="cpu")
+    rs_idx = SplitFlatIndex.from_parts(rk.comp_dev, rk.aux_dev, rk.n, dim=16,
+                                       row_source=rk.row_source)
+    assert rs_idx.row_source is rk.row_source and rs_idx.vectors is None
+    assert recall_at_k(rs_idx.search(rk.queries, 10)[0], rk.ground_truth, 10) > 0.97
     comp, aux = ts.pack_split_tables(np.ones((5000, 16), np.float32), 0, 8192)
-    with pytest.raises(NotImplementedError, match="A6"):
-        SplitFlatIndex.from_parts(comp, aux, 5000, row_source=(0, None))
     with pytest.raises(ValueError, match="pad rows"):  # a real row past n
         SplitFlatIndex.from_parts(comp, aux, 4000)
     with pytest.raises(ValueError):
