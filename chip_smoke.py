@@ -121,6 +121,29 @@ the same knobs:
      exactly, gather_score (the probe rows and the re-rank) the only kernel
      launched.
 
+Phase 25 (after phase 22, on the same set and phase 5's graph, loaded from
+the file phase 22 served) ports the sharded HNSW path, its shards stacked on
+the one card (``parallel/mesh.py``), ``SearchParams(k=10, ef=96,
+frontier=8)``, batch 4096, the first 8,192 queries after a warm-up batch:
+
+ 25. ShardedIndex on nine routes: dense at S=4 and S=8, compact at S=8 with
+     and without the slack ladder, bf16 rows at S=4, the static replica of
+     100,000 vertices (the CLI's --cache ratio 0.1) and the adaptive one
+     after ``warm`` at S=8, static and adaptive routing at S=4; each logs
+     recall@10 (>= 0.90), QPS, K1's launches (> 0, no other kernel), the
+     hit rate, rpc_rounds, lanes and wire bytes a query and the lockstep
+     host reads a batch; ids agree with the single-card index of the same
+     rows on >= 99.9% of slots; every f32 route gives dense S=4's ids and
+     distance bits. Then one profiled S=8 dense batch; a 65,536
+     x 16 integer-row graph (threads=1) served on a card mesh and a CPU
+     mesh of 8 shards, dense and compact, with the replica and routing:
+     ids, bits and counters equal; save_graph_sharded at S=4 under build/,
+     loaded back equal and removed; the CLI in process: --index hnsw
+     --load-index --num-queries 8192 --shards 4 --cache --routing (dense
+     S=4's recall exactly, gather_score launched) and --index flat --shards 4
+     --num-queries 1000 (phase 22's FlatIndex recall exactly). One
+     [sharded] summary line.
+
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
 on the card it scores the probed rows and re-ranks through K1's
@@ -231,11 +254,14 @@ from shine_tpu_torch import (
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import (
+    load_graph,
+    load_graph_sharded,
     margin_mask,
     recall_at_k,
     recall_at_k_eps_regen,
     save_dataset,
     save_graph,
+    save_graph_sharded,
     synthetic_dataset,
 )
 from shine_tpu_torch.io import device_synth as tds
@@ -260,6 +286,7 @@ from shine_tpu_torch.ops.scan_split import (
     pack_split_query,
     pack_split_tables,
 )
+from shine_tpu_torch.parallel import ShardedIndex, shard_mesh
 
 N, D, NQ, SEED = 1_000_000, 128, 10_000, 7
 B, K = 4096, 256  # bench batch; E * 2M = 8 * 32 candidate lanes per step
@@ -2068,6 +2095,260 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
     return out
 
 
+# --- phase 25: the sharded HNSW serving path ------------------------------------
+
+SHARD_CACHE = int(cli.CACHE_RATIO * N)  # the CLI's --cache: 100,000 vertices
+# (name, shards, ShardedIndex kwargs, SearchParams kwargs); every f32 route
+# must give dense_s4's ids and distance bits
+SHARD_ROUTES = (
+    ("dense_s4", 4, {}, {}),
+    ("dense_s8", 8, {}, {}),
+    ("compact_s8", 8, {}, {"exchange": "compact"}),
+    ("compact_s8_ladder", 8, {}, {"exchange": "compact", "adaptive_slack": True}),
+    ("bf16_s4", 4, {"rows": "bf16"}, {}),
+    ("cache_s8", 8, {"cache_capacity": SHARD_CACHE}, {}),
+    ("adaptive_cache_s8", 8, {"cache_capacity": SHARD_CACHE, "adaptive_cache": True},
+     {}),
+    ("routing_s4", 4, {"routing": True}, {}),
+    ("adaptive_routing_s4", 4, {"routing": "adaptive"}, {}),
+)
+# two batches of 4096 (the ladder and adaptive routing see a second batch);
+# cut from 10,000 when the whole script passed 1,050 s on a slow host
+SHARD_QUERIES = 2 * B
+SHARD_MIN_AGREE = 0.999  # ids against the single-card index (tests/test_sharded.py)
+SHARD_INT = (65_536, 16)  # the integer-row graph served on a card and a CPU mesh
+SHARD_INT_QUERIES = 256
+SHARD_COUNTERS = ("cache_hits", "cache_misses", "rpc_rounds", "ici_lanes",
+                  "ici_bytes", "readbacks", "batches", "last_hops")
+
+
+def _zero_counters(index: ShardedIndex) -> None:
+    for c in SHARD_COUNTERS:
+        setattr(index, c, 0)
+
+
+def _serve_sharded(graph, ds, gt, dev, name: str, S: int, kw: dict, spkw: dict
+                   ) -> tuple[dict, np.ndarray, np.ndarray]:
+    """One route: the index on S shards stacked on the card, a warm-up pass
+    (``warm`` for the adaptive cache, else one batch), then every query
+    timed. Returns (the route's numbers, ids, distances)."""
+    t0 = time.perf_counter()
+    index = ShardedIndex(graph, shard_mesh(S, device=dev), **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sp = SearchParams(k=SEARCH.k, ef=SEARCH.ef, frontier=SEARCH.frontier, **spkw)
+    q = ds.queries[:SHARD_QUERIES]
+    if kw.get("adaptive_cache"):
+        index.warm(q, sp, batch_size=B)
+    else:
+        index.search(q[:B], sp, batch_size=B)
+    torch.cuda.synchronize()
+    _zero_counters(index)
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, dd = index.search(q, sp, batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    nq = len(q)
+    looked = index.cache_hits + index.cache_misses
+    out = {
+        "shards": S, "index": {k: v for k, v in kw.items()}, "search": spkw,
+        "recall@10": recall_at_k(ids, gt[:nq], 10), "qps": nq / wall,
+        "wall_s": wall, "setup_s": setup_s,
+        "gather_score_launches": launches.get("gather_score", 0),
+        "hit_rate": index.cache_hits / looked if looked else 0.0,
+        "rpc_rounds": index.rpc_rounds, "ici_lanes_per_query": index.ici_lanes / nq,
+        "ici_bytes_per_query": index.ici_bytes / nq,
+        "readbacks_per_batch": index.readbacks / index.batches,
+        "batches": index.batches, "mean_hops": index.last_hops / nq,
+        "steps": index.last_steps, "refreshes": index.refreshes,
+    }
+    log(f"[sharded] {name} S={S}: recall@10={out['recall@10']:.4f} "
+        f"qps={out['qps']:.1f} wall={wall:.3f} s setup={setup_s:.2f} s "
+        f"K1 launches={out['gather_score_launches']} hit_rate={out['hit_rate']:.4f} "
+        f"rpc_rounds={index.rpc_rounds} ici_lanes/q={out['ici_lanes_per_query']:.1f} "
+        f"ici_bytes/q={out['ici_bytes_per_query']:.1f} "
+        f"readbacks/batch={out['readbacks_per_batch']:.1f} steps={index.last_steps} "
+        f"mean_hops={out['mean_hops']:.2f} refreshes={index.refreshes}")
+    if out["recall@10"] < MIN_RECALL:
+        raise AssertionError(f"sharded {name}: recall@10 {out['recall@10']:.4f} "
+                             f"< {MIN_RECALL}")
+    if not out["gather_score_launches"] or set(launches) != {"gather_score"}:
+        raise AssertionError(f"sharded {name}: launches {launches}")
+    del index
+    torch.cuda.empty_cache()
+    return out, ids, dd
+
+
+def _profile_sharded(graph, ds, dev) -> dict:
+    """Device time of one S=8 dense batch by kind of kernel (by name: K1;
+    the merge's sorts; the copies and concatenations of the collectives
+    and gathers; reductions, the psum sums among them), the host reads,
+    and the card's busy share of the batch's span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index = ShardedIndex(graph, shard_mesh(8, device=dev))
+    q = ds.queries[:B]
+    index.search(q, SEARCH, batch_size=B)
+    torch.cuda.synchronize()
+    reads0 = index.readbacks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search(q, SEARCH, batch_size=B)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"gather_score": 0.0, "sort": 0.0, "copy_cat": 0.0, "reduce": 0.0,
+             "other": 0.0}
+    memcpy_dtoh = 0
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if "memcpy dtoh" in key or "device -> host" in key:
+            memcpy_dtoh += e.count
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kind = ("gather_score" if "gather_score" in key else
+                "sort" if "sort" in key or "radix" in key else
+                "copy_cat" if "copy" in key or "cat" in key or "memcpy" in key else
+                "reduce" if "reduce" in key else "other")
+        kinds[kind] += ms
+    busy = sum(kinds.values())
+    out = {"span_ms": span_ms, "busy_ms": busy, "busy_share": busy / span_ms,
+           "by_kind_ms": kinds, "readbacks": index.readbacks - reads0,
+           "memcpy_dtoh": memcpy_dtoh, "steps": index.last_steps}
+    log(f"[profile] sharded dense S=8, one batch of {B}: span {span_ms:.3f} ms "
+        f"(profiled), device busy {busy:.3f} ms ({100 * busy / span_ms:.1f}%), "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items())
+        + f"; {out['readbacks']} lockstep reads, {memcpy_dtoh} DtoH copies, "
+        f"{index.last_steps} steps")
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_int_check(dev) -> dict:
+    """An integer-row graph (every sum exact) served on a card mesh and on a
+    CPU mesh of 8 shards, dense and compact, with the replica and routing:
+    ids, distance bits and counters equal."""
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(-8, 9, size=SHARD_INT).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(SHARD_INT_QUERIES, SHARD_INT[1])
+                           ).astype(np.float32)
+    t0 = time.perf_counter()
+    graph = build_graph(base, HNSWParams(M=8, ef_construction=64), threads=1)
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s}
+    for spkw in ({}, {"exchange": "compact"}):
+        got = []
+        for where in (dev, "cpu"):
+            index = ShardedIndex(graph, shard_mesh(8, device=where),
+                                 cache_capacity=4096, routing=True)
+            t0 = time.perf_counter()
+            ids, dd = index.search(queries, SearchParams(k=10, ef=64, frontier=4,
+                                                         **spkw),
+                                   batch_size=SHARD_INT_QUERIES)
+            got.append((ids, dd, {c: getattr(index, c) for c in SHARD_COUNTERS
+                                  if c != "readbacks"}, time.perf_counter() - t0))
+        (gi, gd, gc, gs), (ci, cd, cc, cs) = got
+        what = spkw.get("exchange", "dense")
+        if not (np.array_equal(gi, ci) and np.array_equal(gd.view(np.int32),
+                                                           cd.view(np.int32))):
+            raise AssertionError(f"sharded integer rows, {what}: card and CPU "
+                                 f"meshes differ")
+        if gc != cc:
+            raise AssertionError(f"sharded integer rows, {what}: counters {gc} "
+                                 f"against {cc}")
+        out[what] = {"card_s": gs, "cpu_s": cs, **gc}
+        log(f"[sharded] integer rows {SHARD_INT[0]} x {SHARD_INT[1]}, {what}, "
+            f"S=8, cache 4096, routing: card and CPU meshes equal (ids, bits, "
+            f"counters {gc}); card {gs:.2f} s, CPU {cs:.2f} s")
+    return out
+
+
+def _sharded_checkpoint(graph, directory: str) -> float:
+    """save_graph_sharded at S=4, loaded back equal, then removed."""
+    t0 = time.perf_counter()
+    save_graph_sharded(graph, directory, 4)
+    back = load_graph_sharded(directory)
+    for f in ("vectors", "levels", "neighbors0", "upper_row", "upper_neighbors"):
+        if not np.array_equal(getattr(back, f), getattr(graph, f)):
+            raise AssertionError(f"sharded checkpoint: {f} differs")
+    if (back.entry_point, back.top_level) != (graph.entry_point, graph.top_level):
+        raise AssertionError("sharded checkpoint: entry point differs")
+    shutil.rmtree(directory)
+    secs = time.perf_counter() - t0
+    log(f"[sharded] checkpoint: save_graph_sharded at S=4, loaded back equal, "
+        f"removed: {secs:.2f} s")
+    return secs
+
+
+def sharded_phase(ds, gt, graph_path: str, data_dir: str, flat_recall: float,
+                  dev) -> dict:
+    """Phase 25: the sharded HNSW path on phase 5's graph. Returns its
+    numbers; raises on any failed gate."""
+    t_phase = time.perf_counter()
+    graph = load_graph(graph_path)
+    q = ds.queries[:SHARD_QUERIES]
+    single = {}
+    for rows in ("f32", "bf16"):
+        index = HNSWIndex(graph, rows=rows, device=dev)
+        single[rows] = index.search(q, SEARCH, batch_size=B)[0]
+        del index
+        torch.cuda.empty_cache()
+    routes, ref = {}, None
+    for name, S, kw, spkw in SHARD_ROUTES:
+        routes[name], ids, dd = _serve_sharded(graph, ds, gt, dev, name, S, kw,
+                                               spkw)
+        rows = kw.get("rows", "f32")
+        agree = float((ids == single[rows]).mean())
+        routes[name]["agree_single"] = agree
+        if agree < SHARD_MIN_AGREE:
+            raise AssertionError(f"sharded {name}: ids agree with the single-card "
+                                 f"{rows} index on {agree:.5f} of slots")
+        if rows == "f32":
+            if ref is None:
+                ref = (ids, dd.view(np.int32))
+            elif not (np.array_equal(ids, ref[0])
+                      and np.array_equal(dd.view(np.int32), ref[1])):
+                raise AssertionError(f"sharded {name}: ids or distance bits differ "
+                                     f"from {SHARD_ROUTES[0][0]}")
+        log(f"[sharded]   {name}: ids agree with the single-card {rows} index on "
+            f"{agree:.5f} of slots" + ("; bits equal to dense_s4" if rows == "f32"
+                                       else ""))
+    out = {"routes": routes, "profile": _profile_sharded(graph, ds, dev),
+           "integer_rows": _sharded_int_check(dev),
+           "checkpoint_s": _sharded_checkpoint(
+               graph, os.path.join(os.path.dirname(graph_path), "sharded4"))}
+    del graph
+    data = ["--data-path", data_dir, *CLI_COMMON]
+    cli_runs = (
+        ("sharded_hnsw", data + ["--index", "hnsw", "--load-index", graph_path,
+                                 *CLI_HNSW, "--num-queries", str(SHARD_QUERIES),
+                                 "--shards", "4", "--cache", "--routing"],
+         routes["dense_s4"]["recall@10"], "gather_score"),
+        ("sharded_flat", data + ["--index", "flat", "--shards", "4",
+                                 "--num-queries", str(CLI_FLAT_QUERIES)],
+         flat_recall, None),
+    )
+    for name, argv, want, kernel in cli_runs:
+        doc, launches, _ = run_cli(argv, name)
+        got = doc["queries"]["recall"]
+        if got != want:
+            raise AssertionError(f"cli {name}: recall@10 {got} against {want}")
+        if kernel and not launches.get(kernel):
+            raise AssertionError(f"cli {name}: {kernel} never launched")
+        if doc["meta"]["num_shards"] != 4 or len(doc["meta"]["shard_devices"]) != 4:
+            raise AssertionError(f"cli {name}: meta {doc['meta']}")
+        out[name] = {"recall": got, "qps": doc["queries"]["queries_per_sec"],
+                     "cache": doc["cache"], "launches": launches,
+                     "shard_devices": doc["meta"]["shard_devices"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase 25: {out['phase_s']:.1f} s")
+    log(f"[sharded] summary {json.dumps(out)}")
+    return out
+
+
 # --- phase 24: the row-keyed capacity path -------------------------------------
 
 # the JAX package's capacity recipe (scripts/scale_capacity_routed.py): rows
@@ -2520,7 +2801,7 @@ def main() -> None:
         t0 = time.perf_counter()
         save_dataset(ds, data_dir)
         log(f"[cli] set saved: {time.perf_counter() - t0:.2f} s")
-        cli_phase(ds, gt, graph_path, data_dir, {
+        cli_runs = cli_phase(ds, gt, graph_path, data_dir, {
             "hnsw": (("eq", native_served["f32"][0]), native_served["f32"][1], 5),
             "hnsw_scan_build": (("eq", builds["pool0"]["recall@10"]),
                                 builds["pool0"]["qps"], "16, pool 0"),
@@ -2537,6 +2818,8 @@ def main() -> None:
                            ivf["fine_routed_cli"]["qps"],
                            "23, search_routed on the fine layout"),
         }, dev)
+        sharded = sharded_phase(ds, gt, graph_path, data_dir,
+                                cli_runs["flat"]["queries"]["recall"], dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
     del ds, gt
@@ -2585,6 +2868,8 @@ def main() -> None:
         "cases": k1_cases,
         "build_launches": {"device_build": devbuild["launches"]["gather_score"],
                            "online": online["launches"]["gather_score"]},
+        "sharded_launches": {r: v["gather_score_launches"]
+                             for r, v in sharded["routes"].items()},
     }]
     for route, _, name, cls, kb in plan:
         # the numbers at the shape whose launches the entry reports

@@ -25,8 +25,12 @@ Statistics document (``utils/``). The row-keyed datasets
 (``io/device_synth.py``) regenerate any base row from its id
 (``ops/threefry.py``, the kernels of ``csrc/regen_rows.cu``), so the flat
 and routed indexes serve bases larger than the card holds as f32, re-ranking
-exactly from regenerated rows. Entry points run on the CUDA card unless
-the caller names another device; on the CPU each kernel's plain torch twin
+exactly from regenerated rows. ``parallel/`` serves the HNSW graph sharded
+over a one-process mesh of S shards (``ShardedIndex``: the owner-computed
+exchange, dense or compact, a hot-vertex replica, query routing; every
+distance through ``gather_score``) and the exact scan sharded by rows
+(``ShardedFlatIndex``); on the one card the shards stack. Entry points run
+on the CUDA card unless the caller names another device; on the CPU each kernel's plain torch twin
 runs instead. This package imports neither JAX nor the JAX package.
 """
 
@@ -36,8 +40,10 @@ from shine_tpu_torch.convert import (
     device_graph_from_jax,
     fastflat_from_jax,
     ivf_from_jax,
+    replica_from_jax,
     routed_split_from_jax,
     row_source_from_jax,
+    sharded_graph_from_jax,
     splitflat_from_jax,
 )
 from shine_tpu_torch.models.build import (
@@ -51,6 +57,7 @@ from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
+from shine_tpu_torch.parallel import ShardedFlatIndex, ShardedIndex, shard_mesh
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 
 __all__ = [
@@ -79,4 +86,9 @@ __all__ = [
     "routed_split_from_jax",
     "ivf_from_jax",
     "row_source_from_jax",
+    "ShardedIndex",
+    "ShardedFlatIndex",
+    "shard_mesh",
+    "sharded_graph_from_jax",
+    "replica_from_jax",
 ]

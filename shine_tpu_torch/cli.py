@@ -11,16 +11,23 @@ same flags, defaults and branches, on one CUDA card:
 
 ``--device {cuda,cpu}`` (default cuda) is the one flag the port adds: every
 index and build runs there, and without a card the run fails unless it
-asks for the CPU, where each kernel's plain twin runs. The flags of paths
-the port does not have yet stay in the parser and make ``main`` exit with
-status 2 before any data is read, naming the ROADMAP item they wait for:
-``--megabatch`` (A2), ``--shards`` > 1, ``--cache``, ``--cache-ratio``,
-``--adaptive-cache``, ``--routing``, ``--adaptive-routing``, ``--exchange
-compact`` and ``--adaptive-slack`` (A8). ``--ivf-routed`` with another
-family than ivf is ignored, as in the JAX command line.
+asks for the CPU, where each kernel's plain twin runs. ``--shards N``
+serves ``--index hnsw`` (``ShardedIndex``, with ``--cache``,
+``--cache-ratio``, ``--adaptive-cache``, ``--routing``,
+``--adaptive-routing``, ``--exchange`` and ``--adaptive-slack``) and
+``--index flat`` (``ShardedFlatIndex``) on a mesh of N shards
+(``parallel/mesh.py``: shard s on card s modulo the visible cards, stacked
+on a single card, or all on the CPU); with one shard those flags are
+ignored, as in the JAX command line. The paths the port does not have yet
+make ``main`` exit with status 2 before any data is read, naming the
+ROADMAP item they wait for: ``--megabatch`` (A2); ``--shards`` > 1 with
+fastflat, split, routed or ivf (A8b), with auto, ``--device-build`` or
+``--fast-build`` (A8c). ``--ivf-routed`` with another family than ivf is
+ignored, as in the JAX command line.
 
 Output: the run's Statistics document (``utils/stats.py``, the JAX
-package's keys plus ``meta.device``) as the last line on stdout. Build time
+package's keys plus ``meta.device``, and ``meta.shard_devices`` on a
+mesh) as the last line on stdout. Build time
 is host wall time with the card synchronised before each clock read; the
 kernel library and the native builder are built before the build clock
 starts, and the first batch is served once, untimed, before the timed run.
@@ -53,6 +60,7 @@ from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import build_routed_split
 from shine_tpu_torch.ops import _build as kernels
+from shine_tpu_torch.parallel import ShardedFlatIndex, ShardedIndex, shard_mesh
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 from shine_tpu_torch.utils.timing import sync_clock
 
@@ -118,43 +126,48 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported: ROADMAP A2)")
     q.add_argument("--exchange", choices=("dense", "compact"),
                    default="dense", help="sharded-HNSW exchange pattern "
-                   "(compact is not ported: ROADMAP A8)")
+                   "(compact: bucketed all_to_all owner exchange)")
     q.add_argument("--adaptive-slack", action="store_true",
-                   help="compact exchange's slack ladder (not ported: "
-                   "ROADMAP A8)")
+                   help="compact exchange: probe the bucket-slack ladder on "
+                   "live batches, serve at the fewest measured wire bytes")
     q.add_argument("--no-recall", action="store_true")
     run = p.add_argument_group("run")
     run.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="where every index and build runs; cpu runs the "
                           "kernels' plain twins")
     run.add_argument("--shards", type=int, default=1,
-                     help="device mesh size (only 1 is ported: ROADMAP A8)")
+                     help="shards of the mesh, over the visible cards or on the "
+                     "CPU (hnsw and flat; the other families: ROADMAP A8b)")
     run.add_argument("--cache", action="store_true",
-                     help="hot-vertex replica (not ported: ROADMAP A8)")
+                     help="sharded hnsw: hot-vertex replica")
     run.add_argument("--cache-ratio", type=float, default=CACHE_RATIO,
-                     help="the replica's share of the nodes (ROADMAP A8)")
+                     help="the replica's share of the nodes")
     run.add_argument("--adaptive-cache", action="store_true",
-                     help="not ported: ROADMAP A8")
+                     help="refresh the hot set from live access counts")
     run.add_argument("--routing", action="store_true",
-                     help="affinity routing (not ported: ROADMAP A8)")
+                     help="sharded hnsw: affinity routing")
     run.add_argument("--adaptive-routing", action="store_true",
-                     help="not ported: ROADMAP A8")
+                     help="cross-batch quota feedback (update_limits analogue)")
     run.add_argument("--label", default="")
     return p
 
 
+SHARDED_SCANS = ("fastflat", "split", "routed", "ivf")
+
+
 def unported_flags(args: argparse.Namespace) -> list[tuple[str, str]]:
     """(flag, ROADMAP item) of each flag given whose path is not ported."""
+    mesh = args.shards > 1
+    shards = f"--shards {args.shards}"
     checks = (
         (args.megabatch, "--megabatch", "A2"),
-        (args.shards > 1, f"--shards {args.shards}", "A8"),
-        (args.cache, "--cache", "A8"),
-        (args.cache_ratio != CACHE_RATIO, "--cache-ratio", "A8"),
-        (args.adaptive_cache, "--adaptive-cache", "A8"),
-        (args.routing, "--routing", "A8"),
-        (args.adaptive_routing, "--adaptive-routing", "A8"),
-        (args.exchange == "compact", "--exchange compact", "A8"),
-        (args.adaptive_slack, "--adaptive-slack", "A8"),
+        (mesh and args.index in SHARDED_SCANS, f"{shards} --index {args.index}",
+         "A8b"),
+        (mesh and args.index == "auto", f"{shards} --index auto", "A8c"),
+        (mesh and args.index == "hnsw" and args.device_build,
+         f"{shards} --device-build", "A8c"),
+        (mesh and args.index == "hnsw" and args.fast_build,
+         f"{shards} --fast-build", "A8c"),
     )
     return [(flag, item) for given, flag, item in checks if given]
 
@@ -219,8 +232,16 @@ def main(argv: list[str] | None = None) -> int:
         M=args.m, ef_construction=args.ef_construction, metric=metric,
         seed=args.seed,
     )
-    sp = SearchParams(k=args.k, ef=args.ef_search, frontier=args.frontier)
+    sp = SearchParams(k=args.k, ef=args.ef_search, frontier=args.frontier,
+                      exchange=args.exchange,
+                      adaptive_slack=args.adaptive_slack)
     stats.set_params(params, sp)
+    mesh = None
+    if args.shards > 1:
+        # shard s on card s % the visible cards (on one card they stack),
+        # or every shard on the CPU
+        mesh = shard_mesh(args.shards, device=None if dev.type == "cuda" else dev)
+        stats.meta["shard_devices"] = mesh.describe()
 
     if args.index == "auto":
         args.index = auto_index_family(ds.n, args.shards)
@@ -230,7 +251,8 @@ def main(argv: list[str] | None = None) -> int:
     # ---- build / load ----
     _load_libraries(args, dev)
     t0 = sync_clock(dev)
-    searcher, index_bytes, index_obj = _build(args, ds, params, sp, dev, timing)
+    searcher, index_bytes, index_obj = _build(args, ds, params, sp, dev, mesh,
+                                              timing)
     build_s = sync_clock(dev) - t0
     stats.set_build(
         num_vectors=ds.n, build_seconds=build_s, index_bytes=index_bytes
@@ -239,7 +261,12 @@ def main(argv: list[str] | None = None) -> int:
     # ---- warmup ----
     if warmup_q is not None and len(warmup_q):
         with timing.measure("warmup"):
-            searcher(warmup_q[: args.batch])
+            if hasattr(index_obj, "warm"):
+                # a whole warm-up pass heats the access counters and adapts
+                # the hot set before the timed run (compute_node.cc:116-131)
+                index_obj.warm(warmup_q, sp, batch_size=args.batch)
+            else:
+                searcher(warmup_q[: args.batch])
 
     # ---- timed queries ----
     s = SearchStats()
@@ -255,8 +282,10 @@ def main(argv: list[str] | None = None) -> int:
         s.recall = recall_at_k(ids, gt, args.k)
     s.expansions = getattr(index_obj, "last_hops", 0)
     if s.expansions:
-        # the traversal's exact counts: expansions, scored lanes, steps
-        s.distance_computations = index_obj.last_dists
+        # the traversal's exact counts: expansions, scored lanes, steps; the
+        # sharded search keeps the JAX package's hops * M_max0 estimate
+        s.distance_computations = (getattr(index_obj, "last_dists", 0)
+                                   or s.expansions * params.M_max0)
         s.steps = index_obj.last_steps
         s.hbm_gather_bytes = s.distance_computations * 4 * (ds.dim + 1)
     elif hasattr(index_obj, "cost_counters"):
@@ -278,16 +307,24 @@ def main(argv: list[str] | None = None) -> int:
         s.scanned_rows = cc["scanned_rows"]
         s.hbm_gather_bytes = cc["hbm_gather_bytes"]
         s.ici_exchange_bytes = cc["ici_exchange_bytes"]
+    if getattr(index_obj, "ici_bytes", 0):
+        # the sharded search's own count, both exchange modes
+        s.ici_exchange_bytes = int(index_obj.ici_bytes)
+    s.cache_hits = getattr(index_obj, "cache_hits", 0)
+    s.cache_misses = getattr(index_obj, "cache_misses", 0)
     stats.set_queries(s)
     stats.timings = timing.as_dict()
     print(stats.dumps())
     return 0
 
 
-def _build(args, ds, params, sp, dev, timing):
+def _build(args, ds, params, sp, dev, mesh, timing):
     """Returns (searcher(queries) -> ids, index_size_bytes, index_obj)."""
     if args.index == "flat":
-        idx = FlatIndex(ds.base, metric=params.metric, device=dev)
+        if mesh is not None:
+            idx = ShardedFlatIndex(ds.base, mesh, metric=params.metric)
+        else:
+            idx = FlatIndex(ds.base, metric=params.metric, device=dev)
         return (
             lambda q: idx.search(q, args.k, batch_size=args.batch)[0],
             ds.base.nbytes,
@@ -378,7 +415,19 @@ def _build(args, ds, params, sp, dev, timing):
         for a in (graph.vectors, graph.levels, graph.neighbors0,
                   graph.upper_row, graph.upper_neighbors)
     )
-    idx = HNSWIndex(graph, rows=args.rows, device=dev)
+    if mesh is not None:
+        # --cache-ratio of the node count (the reference's cache sizing,
+        # compute_node.cc:43-56); int8 rows raise: the sharded rows are
+        # f32 or bf16
+        cache_cap = int(args.cache_ratio * ds.n) if args.cache else 0
+        idx = ShardedIndex(
+            graph, mesh, cache_capacity=cache_cap,
+            routing="adaptive" if args.adaptive_routing else args.routing,
+            adaptive_cache=args.adaptive_cache and cache_cap > 0,
+            rows=args.rows,
+        )
+    else:
+        idx = HNSWIndex(graph, rows=args.rows, device=dev)
     return lambda q: idx.search(q, sp, batch_size=args.batch)[0], nbytes, idx
 
 

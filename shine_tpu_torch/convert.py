@@ -11,6 +11,8 @@ norms) are this system's state. ``device_graph_from_jax``,
 ``routed_split_from_jax`` and ``ivf_from_jax`` take their fields as
 numpy arrays, so that both packages serve one index, and import nothing of
 JAX. ``row_source_from_jax`` carries a row-keyed base's (key, centers).
+``sharded_graph_from_jax`` and ``replica_from_jax`` place the JAX
+``ShardedGraph`` and ``HotReplica`` on a mesh of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from shine_tpu_torch.models.routed_split import RoutedSplitIndex
 from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import ext_width
 from shine_tpu_torch.ops.scan_split import comp_width
+from shine_tpu_torch.parallel.hot_cache import HotReplica, replicate_replica
+from shine_tpu_torch.parallel.mesh import ShardMesh
+from shine_tpu_torch.parallel.sharded import ShardedGraph
 
 _TABLES = ("vectors_ext", "neighbors0", "upper_row", "upper_neighbors",
            "upper_ids", "upper_vecs_ext", "row_scl", "row_nrm")
@@ -264,3 +269,39 @@ def ivf_from_jax(
     if fields["blocks"].dtype != torch.bfloat16:
         raise ValueError(f"blocks must be bf16, got {fields['blocks'].dtype}")
     return IVFIndex.from_layout(IVFData(**fields), metric)
+
+
+def sharded_graph_from_jax(arrays: Mapping[str, np.ndarray], *,
+                           mesh: ShardMesh) -> ShardedGraph:
+    """The port's ShardedGraph on ``mesh`` from the JAX ShardedGraph's fields
+    as global numpy arrays (``{k: np.asarray(v) for k, v in
+    g._asdict().items()}``): the row-sharded tables cut into the mesh's
+    shards, the upper tables replicated."""
+    S = mesh.size
+    n_pad = arrays["vectors"].shape[0]
+    if n_pad % S:
+        raise ValueError(f"{n_pad} rows do not split over {S} shards")
+    per = n_pad // S
+
+    def cut(name: str) -> list[torch.Tensor]:
+        t = _to_torch(np.asarray(arrays[name]))
+        return mesh.put([t[s * per:(s + 1) * per].clone() for s in range(S)])
+
+    def rep(name: str) -> list[torch.Tensor]:
+        return mesh.replicate(_to_torch(np.asarray(arrays[name])))
+
+    return ShardedGraph(
+        vectors=cut("vectors"), vec_sqnorms=cut("vec_sqnorms"),
+        neighbors0=cut("neighbors0"), upper_ids=rep("upper_ids"),
+        upper_vecs=rep("upper_vecs"), upper_sqnorms=rep("upper_sqnorms"),
+        upper_adj=rep("upper_adj"), entry_u=int(np.asarray(arrays["entry_u"])),
+    )
+
+
+def replica_from_jax(arrays: Mapping[str, np.ndarray], *,
+                     mesh: ShardMesh) -> list[HotReplica]:
+    """The JAX HotReplica's fields as numpy arrays, replicated on ``mesh``:
+    one HotReplica a shard, shared by the shards of one device."""
+    rep = HotReplica(*(_to_torch(np.asarray(arrays[k])) for k in
+                       ("hot_ids", "hot_vecs", "hot_sq", "hot_neighbors")))
+    return replicate_replica(rep, mesh.devices)

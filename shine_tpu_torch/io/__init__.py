@@ -1,7 +1,10 @@
 from shine_tpu_torch.io.checkpoint import (
+    index_path,
     load_graph,
+    load_graph_sharded,
     load_routed_split,
     save_graph,
+    save_graph_sharded,
     save_routed_split,
 )
 from shine_tpu_torch.io.datasets import (
@@ -45,6 +48,9 @@ __all__ = [
     "margin_mask",
     "save_graph",
     "load_graph",
+    "save_graph_sharded",
+    "load_graph_sharded",
+    "index_path",
     "save_routed_split",
     "load_routed_split",
 ]

@@ -1,7 +1,8 @@
-"""Single-file checkpoints: the arrays of a ``GraphSoA``, or of a
-``RoutedSplitIndex``, plus a JSON header, in one ``.npz``. The format is
-that of ``shine_tpu/io/checkpoint.py`` (version 1), so that a file saved by
-either package loads in the other."""
+"""Checkpoints: the arrays of a ``GraphSoA``, or of a ``RoutedSplitIndex``,
+plus a JSON header, in one ``.npz``; or a graph in one ``.npz`` a shard
+(``save_graph_sharded``, as the reference writes one dump a memory node).
+The format is that of ``shine_tpu/io/checkpoint.py`` (version 1), so that a
+file or directory saved by either package loads in the other."""
 
 from __future__ import annotations
 
@@ -64,6 +65,94 @@ def load_graph(path: str) -> GraphSoA:
             entry_point=header["entry_point"],
             top_level=header["top_level"],
         )
+
+
+def save_graph_sharded(graph: GraphSoA, directory: str, num_shards: int) -> None:
+    """One file a shard, ``shard_{s}_of_{S}.npz`` (the reference's per-node
+    dumps, compute_node.cc:428-430). Shard s holds rows [s * rows, (s + 1) *
+    rows), the layout of ``parallel/sharded.py``; the upper-level lists ride
+    with shard 0 (they are replicated on load anyway)."""
+    os.makedirs(directory, exist_ok=True)
+    n = graph.n
+    rows = -(-n // num_shards)
+    header = {
+        "version": _FORMAT_VERSION,
+        "M": graph.params.M,
+        "ef_construction": graph.params.ef_construction,
+        "metric": graph.params.metric,
+        "seed": graph.params.seed,
+        "entry_point": int(graph.entry_point),
+        "top_level": int(graph.top_level),
+        "num_shards": num_shards,
+        "rows_per_shard": rows,
+        "n": n,
+    }
+    for s in range(num_shards):
+        lo, hi = s * rows, min((s + 1) * rows, n)
+        payload = {
+            "header": np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+            "vectors": graph.vectors[lo:hi],
+            "levels": graph.levels[lo:hi],
+            "neighbors0": graph.neighbors0[lo:hi],
+            "upper_row": graph.upper_row[lo:hi],
+        }
+        if s == 0:
+            payload["upper_neighbors"] = graph.upper_neighbors
+        path = os.path.join(directory, f"shard_{s}_of_{num_shards}.npz")
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, **payload)
+        os.replace(path + ".tmp", path)
+
+
+def load_graph_sharded(directory: str) -> GraphSoA:
+    """The whole graph from a directory of ``save_graph_sharded``."""
+    with np.load(os.path.join(directory, _find_shard0(directory))) as first:
+        header = json.loads(bytes(first["header"]).decode())
+    if header["version"] != _FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint version {header['version']}")
+    S = header["num_shards"]
+    parts = {"vectors": [], "levels": [], "neighbors0": [], "upper_row": []}
+    upper = None
+    for s in range(S):
+        with np.load(os.path.join(directory, f"shard_{s}_of_{S}.npz")) as z:
+            for k in parts:
+                parts[k].append(z[k])
+            if s == 0:
+                upper = z["upper_neighbors"]
+    params = HNSWParams(
+        M=header["M"],
+        ef_construction=header["ef_construction"],
+        metric=header["metric"],
+        seed=header["seed"],
+    )
+    return GraphSoA(
+        params=params,
+        vectors=np.concatenate(parts["vectors"]),
+        levels=np.concatenate(parts["levels"]),
+        neighbors0=np.concatenate(parts["neighbors0"]),
+        upper_row=np.concatenate(parts["upper_row"]),
+        upper_neighbors=upper,
+        entry_point=header["entry_point"],
+        top_level=header["top_level"],
+    )
+
+
+def _find_shard0(directory: str) -> str:
+    for f in sorted(os.listdir(directory)):
+        if f.startswith("shard_0_of_") and f.endswith(".npz"):
+            return f
+    raise FileNotFoundError(f"no shard_0_of_*.npz under {directory}")
+
+
+def index_path(root: str, name: str, params: HNSWParams, num_shards: int = 1) -> str:
+    """The file name that encodes the build parameters, after the
+    reference's ``index_m{M}_efc{EFC}_node{i}_of{n}.dat``
+    (compute_node.cc:428-430)."""
+    return os.path.join(
+        root,
+        f"{name}_m{params.M}_efc{params.ef_construction}_{params.metric}"
+        f"_s{num_shards}.npz",
+    )
 
 
 def save_routed_split(idx, path: str) -> None:

@@ -36,7 +36,7 @@ from shine_tpu_torch.ops.distance import matmul_nt, squared_norms
 from shine_tpu_torch.ops.scan import QUANTUM, ext_width
 from shine_tpu_torch.ops.scan_split import SPLIT_QUANTUM, pack_split_device
 
-_MESH_MSG = "mesh= (row-sharded ingestion) is not ported yet: ROADMAP A8"
+_MESH_MSG = "mesh= (row-sharded ingestion) is not ported yet: ROADMAP A8c"
 
 
 @dataclass

@@ -41,7 +41,7 @@ from the JAX package's by ulps on Gaussian rows (the port sums ``bias +
 (q_ext . v + |v|^2)``, the JAX package ``(|q|^2 - 2 q . v) + |v|^2``), and
 are equal on integer-valued rows, where a build equals the JAX build bit
 for bit. The sharded round (``make_sharded_insert_round``, ``mesh=``) is
-not ported (ROADMAP A8).
+not ported (ROADMAP A8c).
 """
 
 from __future__ import annotations
@@ -673,7 +673,7 @@ def device_build_graph(
     of "rounds"."""
     if mesh is not None:
         raise NotImplementedError("the sharded build (mesh=) is not ported "
-                                  "yet: ROADMAP A8")
+                                  "yet: ROADMAP A8c")
     n = vectors.shape[0]
     st = init_build_state(vectors, params, level_cap=level_cap, device=device)
     count = 1
@@ -719,4 +719,4 @@ def build_state_to_graph(st: BuildState, params: HNSWParams,
 def make_sharded_insert_round(*args, **kwargs):
     """The data-parallel round over a device mesh is not ported."""
     raise NotImplementedError("the sharded insert round is not ported yet: "
-                              "ROADMAP A8")
+                              "ROADMAP A8c")

@@ -44,7 +44,7 @@ class DynamicHNSWIndex:
     ):
         if mesh is not None:
             raise NotImplementedError("the sharded online index (mesh=) is not "
-                                      "ported yet: ROADMAP A8")
+                                      "ported yet: ROADMAP A8c")
         self.device = resolve_device(device)
         self.params = params or HNSWParams()
         self.capacity = capacity

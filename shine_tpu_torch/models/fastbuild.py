@@ -29,7 +29,7 @@ SHINE_SWEEP_INT8), ``host_select`` (SHINE_FASTBUILD_HOSTSEL), and the
 stage times (SHINE_FASTBUILD_TIMING) go into a ``timings`` dict that the
 caller passes.
 ``blockmax`` is the route the JAX package takes under ``interpret=True``.
-A mesh (the sharded build) is not ported (ROADMAP A8).
+A mesh (the sharded build) is not ported (ROADMAP A8c).
 """
 
 from __future__ import annotations
@@ -522,7 +522,7 @@ def fast_build_graph(
     (the promotion), "upper_levels" and the "total"."""
     if mesh is not None:
         raise NotImplementedError("the sharded build (mesh=) is not ported "
-                                  "yet: ROADMAP A8")
+                                  "yet: ROADMAP A8c")
     if base_dev is not None:
         dev = base_dev.device
         if device is not None and torch.device(device) != dev:

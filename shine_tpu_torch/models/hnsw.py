@@ -272,38 +272,48 @@ def _top_m(d: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(vals, 1), torch.cat(pos, 1)
 
 
+def dense_entry_positions(
+    q_ext: torch.Tensor, bias: torch.Tensor, upper_vecs: torch.Tensor, m: int,
+    l2: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The m nearest rows of ``upper_vecs`` (U, d) f32 to each query, from a
+    (B, U) fp32 sweep: (dists (B, m), positions (B, m) int64), ascending,
+    ties to the lower position. Above ENTRY_UCHUNK rows the sweep streams
+    chunks with a running top-m."""
+    B = q_ext.shape[0]
+    U = upper_vecs.shape[0]
+    uchunk = ENTRY_UCHUNK
+    dev = q_ext.device
+    if U <= uchunk:
+        du = bias[:, None] + matmul_nt(q_ext, upper_vecs)
+        if l2:
+            du += squared_norms(upper_vecs)[None, :]
+        return _top_m(du, m)
+    bd = torch.full((B, m), torch.inf, dtype=torch.float32, device=dev)
+    bi = torch.zeros((B, m), dtype=torch.int64, device=dev)
+    for lo in range(0, U, uchunk):
+        off = min(lo, U - uchunk)
+        blk = upper_vecs[off:off + uchunk]
+        du = bias[:, None] + matmul_nt(q_ext, blk)
+        if l2:
+            du += squared_norms(blk)[None, :]
+        # the clamped tail window (off < lo) re-covers ids that earlier
+        # chunks scored; a duplicate in the running top-m would displace
+        # a genuine m-th seed
+        du[:, : lo - off] = torch.inf
+        bd, pos = _top_m(torch.cat([bd, du], 1), m)
+        idx = torch.cat([bi, torch.arange(off, off + uchunk, device=dev)
+                         .expand(B, uchunk)], 1)
+        bi = torch.gather(idx, 1, pos)
+    return bd, bi
+
+
 def _dense_entry(
     g: DeviceGraph, q_ext: torch.Tensor, bias: torch.Tensor, m: int, l2: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Seeds from a (B, U) fp32 sweep over the upper vertices: (ids (B, m)
-    int32, dists (B, m)). Above ENTRY_UCHUNK vertices the sweep streams
-    chunks with a running top-m."""
-    B = q_ext.shape[0]
-    U = g.upper_ids.shape[0]
-    uchunk = ENTRY_UCHUNK
-    dev = q_ext.device
-    if U <= uchunk:
-        du = bias[:, None] + matmul_nt(q_ext, g.upper_vecs_ext)
-        if l2:
-            du += squared_norms(g.upper_vecs_ext)[None, :]
-        bd, bi = _top_m(du, m)
-    else:
-        bd = torch.full((B, m), torch.inf, dtype=torch.float32, device=dev)
-        bi = torch.zeros((B, m), dtype=torch.int64, device=dev)
-        for lo in range(0, U, uchunk):
-            off = min(lo, U - uchunk)
-            blk = g.upper_vecs_ext[off:off + uchunk]
-            du = bias[:, None] + matmul_nt(q_ext, blk)
-            if l2:
-                du += squared_norms(blk)[None, :]
-            # the clamped tail window (off < lo) re-covers ids that earlier
-            # chunks scored; a duplicate in the running top-m would displace
-            # a genuine m-th seed
-            du[:, : lo - off] = torch.inf
-            bd, pos = _top_m(torch.cat([bd, du], 1), m)
-            idx = torch.cat([bi, torch.arange(off, off + uchunk, device=dev)
-                             .expand(B, uchunk)], 1)
-            bi = torch.gather(idx, 1, pos)
+    int32, dists (B, m))."""
+    bd, bi = dense_entry_positions(q_ext, bias, g.upper_vecs_ext, m, l2)
     return g.upper_ids[bi], bd
 
 

@@ -47,7 +47,7 @@ from shine_tpu_torch.ops.scan_split import comp_width
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HNSW = ["--synthetic", "2000:16", "--index", "hnsw", "-m", "8",
         "--ef-construction", "50", "--ef-search", "64", "--num-queries", "100"]
-PORT_ONLY_META = {"device"}
+PORT_ONLY_META = {"device", "shard_devices"}
 DENSE_RECALL_GAP = 0.02
 EXPANSION_RTOL = 0.01
 
@@ -301,9 +301,15 @@ def test_ivf_routed_flag_ignored_elsewhere(capsys):
 
 UNPORTED = {
     "megabatch": (["--index", "fastflat", "--megabatch"], "A2"),
-    "shards": (["--index", "flat", "--shards", "2"], "A8"),
-    "cache": (["--cache"], "A8"),
-    "exchange": (["--exchange", "compact"], "A8"),
+    "shards": (["--index", "fastflat", "--shards", "2"], "A8b"),
+    "cache": (["--index", "split", "--shards", "2", "--cache"], "A8b"),
+    "exchange": (["--index", "auto", "--shards", "2", "--exchange", "compact"],
+                 "A8c"),
+    "routed": (["--index", "routed", "--shards", "4"], "A8b"),
+    "ivf": (["--index", "ivf", "--shards", "4", "--ivf-routed"], "A8b"),
+    "device_build": (["--index", "hnsw", "--shards", "4", "--device-build"],
+                     "A8c"),
+    "fast_build": (["--index", "hnsw", "--shards", "4", "--fast-build"], "A8c"),
 }
 
 
@@ -315,6 +321,52 @@ def test_unported_flags_exit_naming_their_item(case, capsys):
     assert rc != 0
     err = capsys.readouterr().err
     assert f"ROADMAP {item}" in err and "not ported" in err
+
+
+# the sharded runs, each on a graph the JAX command line stored: both
+# command lines serve it on a mesh of 4 shards (the port's on the CPU)
+SHARDED = {
+    "cache_routing": ["--cache", "--routing"],
+    "compact_slack": ["--exchange", "compact", "--adaptive-slack"],
+    "adaptive": ["--cache", "--cache-ratio", "0.2", "--adaptive-cache",
+                 "--adaptive-routing", "--zipf", "1.0", "--warmup", "100"],
+}
+
+
+@pytest.fixture(scope="module")
+def stored_graph(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("sharded") / "g.npz")
+    assert jax_main(HNSW + ["--store-index", path]) == 0
+    return path
+
+
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_sharded_hnsw_against_jax_cli(case, stored_graph, capsys):
+    capsys.readouterr()
+    argv = HNSW + ["--load-index", stored_graph, "--shards", "4", "--batch", "64",
+                   *SHARDED[case]]
+    jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
+    _same_shape(jdoc, tdoc)
+    assert tdoc["meta"]["num_shards"] == 4
+    assert tdoc["meta"]["shard_devices"] == ["cpu"] * 4
+    jq, tq = jdoc["queries"], tdoc["queries"]
+    assert tq["recall"] == jq["recall"]
+    assert tq["recall"] > 0.9
+    assert abs(tq["expansions"] - jq["expansions"]) <= EXPANSION_RTOL * jq["expansions"]
+    assert tq["distance_computations"] == 16 * tq["expansions"]  # M_max0
+    assert tq["ici_exchange_bytes"] > 0
+    if "--cache" in SHARDED[case]:
+        assert tdoc["cache"]["hits"] > 0
+
+
+def test_sharded_flat_against_jax_cli(capsys):
+    argv = DENSE_CASES["flat"] + ["--shards", "4"]
+    jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
+    _same_shape(jdoc, tdoc)
+    for key in ("scanned_rows", "distance_computations", "hbm_gather_bytes",
+                "ici_exchange_bytes"):
+        assert tdoc["queries"][key] == jdoc["queries"][key], key
+    assert tdoc["queries"]["recall"] == jdoc["queries"]["recall"] == pytest.approx(1.0)
 
 
 def test_cli_refuses_without_a_card(monkeypatch):

@@ -276,7 +276,7 @@ def test_build_defaults_to_the_card_and_refuses_a_mesh(int_rows):
         pytest.skip("a CUDA card is visible: the refusal path is not taken")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tfb.fast_build_graph(int_rows, HNSWParams(M=M))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8c"):
         tfb.fast_build_graph(int_rows, HNSWParams(M=M), device="cpu", mesh=object())
     with pytest.raises(ValueError):
         tfb.fast_build_graph(int_rows, HNSWParams(M=M), device="cuda",

@@ -81,7 +81,13 @@ def _clean_env():
     "shine_tpu_torch.ops.scan_split",
     "shine_tpu_torch.ops.distance",
     "shine_tpu_torch.ops.threefry",
+    "shine_tpu_torch.parallel",
+    "shine_tpu_torch.parallel.flat_sharded",
+    "shine_tpu_torch.parallel.hot_cache",
+    "shine_tpu_torch.parallel.mesh",
     "shine_tpu_torch.parallel.placement",
+    "shine_tpu_torch.parallel.router",
+    "shine_tpu_torch.parallel.sharded",
     "shine_tpu_torch.utils",
     "shine_tpu_torch.utils.stats",
     "shine_tpu_torch.utils.timing",

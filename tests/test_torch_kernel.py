@@ -3,8 +3,11 @@ insert build's searches; the class-max scans, K2, K3 and K4,
 the edges of classmax2_scan.cu's keep1 and keep2 scans and of K4; K5, its
 edges, and K6 and its chunk runs; regen_rows and regen_score of the
 capacity path) against their plain twins, on a card; the IVF index, which
-has no kernel of its own, against the CPU; and ROADMAP C11, one query's
-answer at any batch size, for every family.
+has no kernel of its own, against the CPU; ROADMAP C11, one query's
+answer at any batch size, for every family; and the sharded HNSW search
+stacked on the card: one answer, bit for bit, across shard counts,
+exchanges, the replica and routing, and equal to a CPU mesh on integer
+rows.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -1517,3 +1520,86 @@ def test_c11_routed_one_query_one_answer_at_any_batch(card, c11_set):
         results.append((ids[:64], dd[:64]))
         assert idx.last_coverage == 1.0
     _c11_same(results, "routed")
+
+
+# --- the sharded search, its shards stacked on the card ----------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_set():
+    ds = synthetic_dataset(n=20_000, dim=64, num_queries=256, seed=13)
+    return ds, build_graph(ds.base, HNSWParams(M=16, ef_construction=100),
+                           threads=1)
+
+
+def _sharded(graph, S, dev, *, kw=None, spkw=None, queries, batch=128):
+    from shine_tpu_torch.parallel import ShardedIndex, shard_mesh
+
+    idx = ShardedIndex(graph, shard_mesh(S, device=dev), **(kw or {}))
+    before = gather_score.launches
+    ids, dd = idx.search(queries, SearchParams(k=10, ef=64, frontier=4,
+                                               **(spkw or {})), batch_size=batch)
+    return ids, dd, gather_score.launches - before, idx
+
+
+def test_sharded_one_answer_across_shards_and_exchanges(card, sharded_set):
+    """S = 1, 2, 4 and 8 with the dense and the compact exchange (and the
+    compact one starved into overflow rounds): equal ids and distance bits
+    on Gaussian rows, every distance scored by K1."""
+    ds, graph = sharded_set
+    ref_i, ref_d, launches, _ = _sharded(graph, 1, card, queries=ds.queries)
+    assert launches > 0
+    for S in (1, 2, 4, 8):
+        for spkw in ({}, {"exchange": "compact"},
+                     {"exchange": "compact", "exchange_slack": 0.25}):
+            ids, dd, launches, idx = _sharded(graph, S, card, spkw=spkw,
+                                              queries=ds.queries)
+            assert launches > 0, (S, spkw)
+            np.testing.assert_array_equal(ids, ref_i, err_msg=f"{S} {spkw}")
+            np.testing.assert_array_equal(dd.view(np.int32), ref_d.view(np.int32),
+                                          err_msg=f"{S} {spkw}")
+            if spkw and S > 1:
+                assert idx.rpc_rounds > 0
+
+
+@pytest.mark.parametrize("kw,spkw", [
+    ({"cache_capacity": 2000}, {}),
+    ({"cache_capacity": 2000, "adaptive_cache": True, "refresh_every": 1},
+     {"exchange": "compact"}),
+    ({"routing": True}, {}),
+    ({"routing": "adaptive", "cache_capacity": 1000}, {"exchange": "compact"}),
+    ({"rows": "bf16"}, {"entry_mode": "descent"}),
+])
+def test_sharded_cache_and_routing_change_no_bit(card, sharded_set, kw, spkw):
+    ds, graph = sharded_set
+    rows = kw.get("rows", "f32")
+    ref_i, ref_d, _, _ = _sharded(graph, 4, card, kw={"rows": rows},
+                                  spkw={k: v for k, v in spkw.items()
+                                        if k == "entry_mode"},
+                                  queries=ds.queries)
+    ids, dd, launches, idx = _sharded(graph, 4, card, kw=kw, spkw=spkw,
+                                      queries=ds.queries)
+    assert launches > 0
+    np.testing.assert_array_equal(ids, ref_i)
+    np.testing.assert_array_equal(dd.view(np.int32), ref_d.view(np.int32))
+    if "cache_capacity" in kw:
+        assert idx.cache_hits > 0
+
+
+def test_sharded_card_mesh_equals_cpu_mesh_on_integer_rows(card):
+    rng = np.random.default_rng(21)
+    base = rng.integers(-8, 9, size=(8192, 16)).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(200, 16)).astype(np.float32)
+    graph = build_graph(base, HNSWParams(M=8, ef_construction=64), threads=1)
+    kw = {"cache_capacity": 500, "routing": True}
+    for spkw in ({}, {"exchange": "compact"}):
+        gi, gd, launches, gidx = _sharded(graph, 8, card, kw=kw, spkw=spkw,
+                                          queries=queries)
+        ci, cd, cpu_launches, cidx = _sharded(graph, 8, "cpu", kw=kw, spkw=spkw,
+                                              queries=queries)
+        assert launches > 0 and cpu_launches == 0
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_array_equal(gd.view(np.int32), cd.view(np.int32))
+        for c in ("last_hops", "cache_hits", "cache_misses", "rpc_rounds",
+                  "ici_lanes", "ici_bytes"):
+            assert getattr(gidx, c) == getattr(cidx, c), c

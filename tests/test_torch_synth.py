@@ -306,7 +306,7 @@ def test_chunk_keyed_ext_dataset_matches_jax():
 
 def test_mesh_refused_naming_a8():
     for fn in (tds.device_rowkeyed_split_dataset, tds.device_rowkeyed_ext_dataset):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A8c"):
             fn(n=16_384, dim=8, num_queries=4, mesh=object(), device="cpu")
 
 
