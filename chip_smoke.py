@@ -88,8 +88,8 @@ build and the online index:
      in phase 5 (f32 rows), recall@10 within 0.02 of the native graph's;
      two builds of the first 65,536 rows bit-identical; a 4096 x 16
      integer build equal on the CPU (twins) and on the card;
- 21. DynamicHNSWIndex(128, capacity=262,144) fed the set's first 262,144
-     rows in four chunks: each chunk's inserts/s and launches, then its
+ 21. DynamicHNSWIndex(128, capacity=262,144) fed the set's first 131,072
+     rows in two chunks: each chunk's inserts/s and launches, then its
      searcher's recall@10 against the exact top-10 of the inserted prefix;
      after the second chunk, the build's searches on the index's state,
      seeded by the greedy descent (ef=200, frontier=4): layer 0 for the
@@ -124,7 +124,7 @@ the same knobs:
 Phase 25 (after phase 22, on the same set and phase 5's graph, loaded from
 the file phase 22 served) ports the sharded HNSW path, its shards stacked on
 the one card (``parallel/mesh.py``), ``SearchParams(k=10, ef=96,
-frontier=8)``, batch 4096, the first 8,192 queries after a warm-up batch:
+frontier=8)``, batch 4096, the first 4,096 queries after a warm-up batch:
 
  25. ShardedIndex on nine routes: dense at S=4 and S=8, compact at S=8 with
      and without the slack ladder, bf16 rows at S=4, the static replica of
@@ -139,10 +139,60 @@ frontier=8)``, batch 4096, the first 8,192 queries after a warm-up batch:
      mesh of 8 shards, dense and compact, with the replica and routing:
      ids, bits and counters equal; save_graph_sharded at S=4 under build/,
      loaded back equal and removed; the CLI in process: --index hnsw
-     --load-index --num-queries 8192 --shards 4 --cache --routing (dense
+     --load-index --num-queries 4096 --shards 4 --cache --routing (dense
      S=4's recall exactly, gather_score launched) and --index flat --shards 4
      --num-queries 1000 (phase 22's FlatIndex recall exactly). One
      [sharded] summary line.
+
+Phase 26 ports the sharded scan families, every mesh 4 shards stacked on the
+card (``shard_mesh(4)``), batch 4096; its parts run where their inputs are.
+26a-c, f and g run after phase 25, on the 1M set and phase 22's saved copy:
+
+ 26a. ShardedFastFlatIndex (253,952 rows a shard) through phase 7's four
+     routes (one K2 form each, launched once a shard a batch): recall@10
+     (>= 0.98 at the auto knobs and the keep2 point, and at most 0.005 under
+     phase 7's auto), QPS beside phase 7's; a profile of one auto batch;
+     every K2 form on shard 0's table against its twin, K2a timed with its
+     bound;
+ 26b. ShardedSplitFlatIndex.from_host (seed 1234), int8 and bf16, at the
+     auto knobs: recall@10 (>= 0.90, >= 0.98), QPS, K3 launches, every id a
+     real row; both K3 functions, keep1 and keep2, on shard 0 against their
+     twins, the route's form timed;
+ 26c. ShardedIVFIndex (seed 1234, C = 7,816): compact search at probes 16,
+     32, 64 (recall never falling) with rpc_rounds, scanned lanes and host
+     reads a batch; a profile of one probes-32 batch; compact equal to
+     dense id for id on one batch;
+     search_routed at the command line's knobs; full probes over the first
+     65,536 rows (recall@10 >= 0.99, rerank 8);
+ 26g. ROADMAP C11 for sharded FastFlat, split int8 and IVF (64 queries alone
+     and in a batch of 2,048: equal ids and distance bits); a 65,536 x 16
+     integer-row set on a card mesh and a CPU mesh, every family (FastFlat,
+     split int8, IVF compact, dense and routed, routed split): ids, bits and
+     counters equal;
+ 26f. the command line with --shards 4 --seed 1234: --index fastflat,
+     split, routed --probes 0, ivf --probes 32 and ivf --ivf-routed, each
+     reading its library run's recall exactly (routed: the build at its
+     defaults with shards=4, dealt by from_single) and launching its kernels
+     (the tile-shared IVF search launches none).
+
+ 26d runs in phases 12-13, on phase 12's index (C = 1,076, a multiple of 4):
+     ShardedRoutedSplitIndex.from_single in base mode at the auto knobs and
+     the starved grant with its spill: coverage equal to the single card's,
+     recall@10 >= 0.90 at the auto knobs, overflow, lanes, spilled queries,
+     QPS, K4 launches; K4 on shard 0 (270 clusters, 98 lanes) against its
+     twin, timed.
+ 26e runs in phase 24, on row-keyed data (seed 17): the 1M split and ext
+     datasets ingested over the mesh equal phase 24's, tables and ground
+     truth, bit for bit, then served by from_dataset (kb=64) and from_ext
+     with the row source (recall@10 >= 0.90, K3 or K2 and regen_score
+     launched); build_routed_split_sharded of 4,194,304 rows (cap_target
+     4096, cls 1024, int8) with its stage seconds and peak allocated memory,
+     served at 32:256:32 (recall@10 >= 0.90); at 262,144 rows the direct
+     build equal to from_single of build_routed_split(shards=4), bit for bit.
+
+One [sharded-scan] summary line follows the last phase; each kernel's entry
+in the JSON table gains the launches of every phase-26 run that ran it and,
+for K2a, K3 keep1 and K4 at T=64, its numbers at a shard's shape.
 
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
@@ -266,7 +316,7 @@ from shine_tpu_torch.io import (
 )
 from shine_tpu_torch.io import device_synth as tds
 from shine_tpu_torch.models import routed_split as rs
-from shine_tpu_torch.models.ivf import IVFData, ivf_search
+from shine_tpu_torch.models.ivf import IVFData, build_ivf_layout, ivf_search
 from shine_tpu_torch.models.fastbuild import fast_build_graph
 from shine_tpu_torch.models import build as tb
 from shine_tpu_torch.models import hnsw as th
@@ -286,7 +336,15 @@ from shine_tpu_torch.ops.scan_split import (
     pack_split_query,
     pack_split_tables,
 )
-from shine_tpu_torch.parallel import ShardedIndex, shard_mesh
+from shine_tpu_torch.parallel import (
+    ShardedFastFlatIndex,
+    ShardedIndex,
+    ShardedIVFIndex,
+    ShardedRoutedSplitIndex,
+    ShardedSplitFlatIndex,
+    build_routed_split_sharded,
+    shard_mesh,
+)
 
 N, D, NQ, SEED = 1_000_000, 128, 10_000, 7
 B, K = 4096, 256  # bench batch; E * 2M = 8 * 32 candidate lanes per step
@@ -298,7 +356,9 @@ RTOL, ATOL = 1e-5, 1e-3  # distances are O(1e3); the two sum in other orders
 # in other orders
 FLAT_ATOL = 4e-3
 MIN_RECALL = 0.90
+# the CPU twins' end-to-end checks; each check's seconds (both sides)
 E2E_QUERIES, MIN_OVERLAP = 256, 0.99
+E2E_SECONDS: list[float] = []
 # K2 scores sum 144 bf16 products (each exact in f32) whose magnitudes add
 # up to ~6.6e3 at most on this set: two f32 sums in other orders differ by
 # at most 144 * 2^-23 * 6.6e3 = 0.11, so 0.25 is twice the worst case
@@ -623,6 +683,15 @@ def serve(graph, ds, gt, rows: str, dev, what: str = "native") -> tuple[int, flo
     return launches, recall, NQ / wall
 
 
+def _e2e_timed(fn):
+    """An end-to-end check whose seconds go into E2E_SECONDS."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        E2E_SECONDS.append(time.perf_counter() - t0)
+    return run
+
+
 def _compare(a_ids, a_d, b_ids, b_d, what: str, atol: float = ATOL) -> None:
     overlap = recall_at_k(b_ids, a_ids, 10)
     same = a_ids[:, :, None] == b_ids[:, None, :]  # (Q, k, k) id matches
@@ -637,6 +706,7 @@ def _compare(a_ids, a_d, b_ids, b_d, what: str, atol: float = ATOL) -> None:
     np.testing.assert_allclose(db, da, rtol=RTOL, atol=atol)
 
 
+@_e2e_timed
 def hnsw_end_to_end(graph, ds, dev) -> None:
     q = ds.queries[:E2E_QUERIES]
     cpu = HNSWIndex(graph, rows="f32", device="cpu")
@@ -839,6 +909,7 @@ def serve_flat(index: FastFlatIndex, ds, gt, plan) -> tuple[dict, dict]:
     return launches, served
 
 
+@_e2e_timed
 def flat_end_to_end(ds, gpu: FastFlatIndex) -> None:
     q = ds.queries[:E2E_QUERIES]
     cpu = FastFlatIndex(ds.base, device="cpu")
@@ -1048,6 +1119,7 @@ def profile_run(run, what: str, batch: int = B) -> None:
             log(f"[profile]   {ms:8.4f} ms {100 * ms / busy:5.1f}% x{count} {key[:90]}")
 
 
+@_e2e_timed
 def split_end_to_end(ds, gpu: SplitFlatIndex) -> None:
     q = ds.queries[:E2E_QUERIES]
     cpu = SplitFlatIndex(ds.base, comp_dtype=gpu.comp_dtype, device="cpu")
@@ -1139,6 +1211,7 @@ def serve_routed(index: RoutedSplitIndex, ds, gt) -> dict[str, dict]:
     return served
 
 
+@_e2e_timed
 def routed_end_to_end(ds, gpu: RoutedSplitIndex) -> None:
     q = ds.queries[:E2E_QUERIES]
     cpu = RoutedSplitIndex(
@@ -1335,6 +1408,7 @@ def routed_phases(dev) -> list[dict]:
     profile_run(lambda: index.search(ds.queries[:B], 10, batch_size=B), "routed auto")
     routed_end_to_end(ds, index)
     routed_rebuild_is_identical(index, r0, served, base_t, ds)
+    sharded_routed_phase(index, ds, gt, served, dev)
     cases = k4_vs_twin(index, ds, served, dev)
     kernels = []
     for route in ("auto", "tile32", "starved"):
@@ -1515,12 +1589,14 @@ def serve_blockmax(flat: FastFlatIndex, ds, gt) -> dict:
         raise AssertionError(f"fastflat blockmax: {launches} K5 and {classmax} class-max "
                              "launches")
     q = ds.queries[:E2E_QUERIES]
+    t_e2e = time.perf_counter()
     cpu = FastFlatIndex(ds.base, blockmax=True, device="cpu")
     t0 = time.perf_counter()
     a_ids, a_d = cpu.search(q, 10, batch_size=E2E_QUERIES)
     log(f"[e2e] fastflat blockmax on the CPU (twins): {time.perf_counter() - t0:.2f} s")
     b_ids, b_d = flat.search(q, 10, batch_size=E2E_QUERIES)
     _compare(a_ids, a_d, b_ids, b_d, "fastflat blockmax", FLAT_ATOL)
+    E2E_SECONDS.append(time.perf_counter() - t_e2e)
     flat.blockmax = False
     return {"launches": launches, "recall@10": recall, "qps": NQ / wall, "kb": kb}
 
@@ -1624,7 +1700,9 @@ DET_N = 65_536  # two builds of these rows must be bit-identical
 INT_BUILD_SET = dict(n=4096, d=16, seed=13)
 INT_BUILD = HNSWParams(M=8, ef_construction=40)
 # phase 21: the online index, fed ONLINE_CHUNKS chunks of the set's rows
-ONLINE_CAP, ONLINE_CHUNKS = 262_144, 4
+# chunks of ONLINE_CHUNK rows into an index of ONLINE_CAP (four chunks, the
+# index full, until the script passed 1,050 s on a slow host)
+ONLINE_CAP, ONLINE_CHUNK, ONLINE_CHUNKS = 262_144, 65_536, 2
 ONLINE_MIN_RECALL = 0.90
 ONLINE_STEP_CHECK = 2  # the build's beam_step is checked after this chunk
 GRAPH_FIELDS = ("levels", "neighbors0", "upper_row", "upper_neighbors")
@@ -1745,15 +1823,15 @@ def build_step_check(st, rows: np.ndarray, ef: int, B_up: int, dev) -> list[dict
 
 
 def online_phase(ds, dev) -> tuple[dict, list[dict]]:
-    """Phase 21: DynamicHNSWIndex fed the set's first ONLINE_CAP rows in
-    ONLINE_CHUNKS chunks; after each chunk its searcher serves the queries
-    against the exact top-10 of the inserted prefix (on the card). After
-    chunk ONLINE_STEP_CHECK the build's layer-0 and level-1 searches are
-    checked on its state (build_step_check). Returns (the phase's record,
-    that check's two cases)."""
-    chunk = ONLINE_CAP // ONLINE_CHUNKS
+    """Phase 21: DynamicHNSWIndex of capacity ONLINE_CAP fed the set's first
+    ONLINE_CHUNKS chunks of ONLINE_CHUNK rows; after each chunk its searcher
+    serves the queries against the exact top-10 of the inserted prefix (on
+    the card). After chunk ONLINE_STEP_CHECK the build's layer-0 and level-1
+    searches are checked on its state (build_step_check). Returns (the
+    phase's record, that check's two cases)."""
+    chunk = ONLINE_CHUNK
     index = DynamicHNSWIndex(D, capacity=ONLINE_CAP, params=BUILD, device=dev)
-    base_t = torch.from_numpy(ds.base[:ONLINE_CAP]).to(dev)
+    base_t = torch.from_numpy(ds.base[:chunk * ONLINE_CHUNKS]).to(dev)
     q_t = torch.from_numpy(ds.queries).to(dev)
     chunks, launches, step_cases = [], {"beam_step": 0, "gather_score": 0}, []
     for i in range(ONLINE_CHUNKS):
@@ -1889,10 +1967,12 @@ def ivf_phase(ds, gt, dev) -> dict:
 
     # the card against the CPU on the same layout; the probe chunk's identity
     q = ds.queries[:E2E_QUERIES]
+    t_e2e = time.perf_counter()
     cpu = IVFIndex.from_layout(IVFData(*(t.cpu() for t in fine.data)), "l2")
     a_ids, a_d = cpu.search(q, 10, probes=IVF_E2E_PROBES, batch_size=E2E_QUERIES)
     b_ids, b_d = fine.search(q, 10, probes=IVF_E2E_PROBES, batch_size=E2E_QUERIES)
     _compare(a_ids, a_d, b_ids, b_d, f"ivf fine probes={IVF_E2E_PROBES}", FLAT_ATOL)
+    E2E_SECONDS.append(time.perf_counter() - t_e2e)
     del cpu
     q_dev = torch.from_numpy(ds.queries[:B]).to(dev)
     kw = dict(k=10, p=IVF_E2E_PROBES, metric=METRIC_L2)
@@ -2112,9 +2192,10 @@ SHARD_ROUTES = (
     ("routing_s4", 4, {"routing": True}, {}),
     ("adaptive_routing_s4", 4, {"routing": "adaptive"}, {}),
 )
-# two batches of 4096 (the ladder and adaptive routing see a second batch);
-# cut from 10,000 when the whole script passed 1,050 s on a slow host
-SHARD_QUERIES = 2 * B
+# one batch of 4096 after the warm-up batch (the ladder and adaptive routing
+# see the second): cut from 10,000, then from two batches, when the whole
+# script passed 1,050 s on a slow host
+SHARD_QUERIES = B
 SHARD_MIN_AGREE = 0.999  # ids against the single-card index (tests/test_sharded.py)
 SHARD_INT = (65_536, 16)  # the integer-row graph served on a card and a CPU mesh
 SHARD_INT_QUERIES = 256
@@ -2349,6 +2430,627 @@ def sharded_phase(ds, gt, graph_path: str, data_dir: str, flat_recall: float,
     return out
 
 
+# --- phase 26: the sharded scan families, stacked on the card ------------------
+
+SCAN_S = 4  # shards of every phase-26 mesh, stacked on the one card
+SCAN_SEED = 1234  # the split shuffle, the IVF build and the CLI runs' --seed
+SCAN_FLAT_GAP = 0.005  # sharded FastFlat auto against phase 7's single card
+SCAN_SPLIT_MIN = {"int8": 0.90, "bf16": 0.98}
+SCAN_C11_BATCHES = (64, 2048)
+SCAN_INT = (65_536, 16)  # the integer-row set served on a card and a CPU mesh
+SCAN_INT_QUERIES = 256
+SCAN_INT_COUNTERS = ("rpc_rounds", "scanned_lanes", "last_coverage", "last_overflow",
+                     "last_lanes", "last_fallback")
+# 26e: the direct sharded routed build at the 4.19M operating point, and the
+# size at which it is held bit for bit against from_single
+SCAN_CAP_ROUTED_N, SCAN_CAP_SMALL_N = 4_194_304, 262_144
+SCAN_CAP_ROUTE = (32, 256, 32)  # p:P:T
+# every phase-26 number, printed as one [sharded-scan] summary line
+SHARDED_SCAN: dict = {}
+
+
+def _scan_launches() -> dict[str, int]:
+    """The launches since reset_launches of every kernel a sharded scan
+    family can run, by form, those above 0."""
+    counts = {name: f[0].launches for name, f in K2_FORMS.items()}
+    for name, (f, _, _) in K3_FUNCS.items():
+        counts.update({f"{name}[{dt},keep{2 if k2 else 1}]": n
+                       for (dt, k2), n in f.form_launches.items()})
+    counts.update({f"routed_classmax_scan[{dt},T{t}]": n
+                   for (dt, t), n in k4.routed_classmax_scan.form_launches.items()})
+    counts.update({"gather_score": gather_score.launches,
+                   "regen_score": rg.regen_score.launches,
+                   "regen_rows": rg.regen_rows.launches})
+    return {k: v for k, v in counts.items() if v}
+
+
+def _scan_timed(run, nq: int, warm=None) -> tuple:
+    """``warm()`` (default ``run()``) untimed, then the counts at 0 and one
+    timed ``run()``: (its result, QPS, launches, wall seconds)."""
+    (warm or run)()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, nq / wall, _scan_launches(), wall
+
+
+def _per_batch(launches: dict, name: str, batches: int, what: str) -> None:
+    """A kernel of the route launched once a shard a batch."""
+    if launches.get(name, 0) != SCAN_S * batches:
+        raise AssertionError(f"{what}: {name} launched {launches.get(name, 0)} times, "
+                             f"not {SCAN_S} shards x {batches} batches")
+
+
+def _shard_k2_bound(rows: int, width: int, cls: int) -> tuple[float, str]:
+    """K2a's work on one shard: its rows at the packed width read once, the
+    queries, the (B, cls) outputs."""
+    return bound_ms(rows * width * 2 + B * width * 2 + B * cls * 8,
+                    2.0 * B * rows * width, PEAK_BF16)
+
+
+def _shard_k2_check(index, q: np.ndarray, cls: int) -> dict:
+    """Every K2 form on shard 0's table (its own tensor, 253,952 rows at the
+    1M set) against its twin at the routes' shapes, the fused forms equal to
+    the unfused form plus select; K2a timed with its bound."""
+    ext = index.ext[0]
+    qe = pack_ext_query(torch.from_numpy(q[:B]).to(ext.device), ext.shape[1]).to(
+        torch.bfloat16)
+    out = {"rows": int(ext.shape[0]), "cls": cls}
+    unfused = {}
+    for name in ("classmax_scan", "classmax2_scan"):
+        fn, ref, _ = K2_FORMS[name]
+        got = fn(ext, qe, cls=cls)
+        err = _k2_err(got, ref(ext, qe, cls=cls), cls)
+        if err > K2_ATOL:
+            raise AssertionError(f"26a {name} on a shard: scores differ by {err}")
+        out[f"{name}_max_abs_err"] = err
+        unfused[name] = got
+    for name, kb in (("classmax_topk_scan", 16), ("classmax2_topk_scan", 32)):
+        got = K2_FORMS[name][0](ext, qe, kb=kb, cls=cls)
+        base_form = unfused[name.replace("_topk", "")]
+        vals, sel = cm.select_lanes(base_form[0], kb)
+        want = (vals,) + tuple(torch.gather(p, 1, sel) for p in base_form[1:])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"26a {name} on a shard: not the unfused form plus "
+                                 "select")
+        _check_rescored(ext, qe, got, name)
+    out["ms"] = cuda_ms(lambda: cm.classmax_scan(ext, qe, cls=cls), reps=10)
+    out["plain_ms"] = cuda_ms(lambda: cm.classmax_scan_ref(ext, qe, cls=cls), reps=3,
+                              warmup=1)
+    out["bound_ms"], out["bound_by"] = _shard_k2_bound(ext.shape[0], D + 2, cls)
+    out["max_abs_err"] = out["classmax_scan_max_abs_err"]
+    log(f"[sharded-scan] 26a K2 forms on shard 0 ({out['rows']} rows, cls={cls}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _serve_scan(name: str, run, nq: int, gt, warm=None) -> dict:
+    (ids, dd), qps, launches, wall = _scan_timed(run, nq, warm)
+    r = {"recall@10": recall_at_k(ids, gt[:nq], 10), "qps": qps, "wall_s": wall,
+         "launches": launches}
+    log(f"[sharded-scan] {name}: {json.dumps(r)}")
+    return r, ids, dd
+
+
+def sharded_flat(ds, gt, flat_auto: float, flat_qps: float, mesh) -> tuple:
+    """26a: ShardedFastFlatIndex on the 1M set through phase 7's four routes
+    (one K2 form each), every K2 form on a shard against its twin."""
+    t0 = time.perf_counter()
+    index = ShardedFastFlatIndex(ds.base, mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "rows_per_shard": index.rows,
+           "routes": {}}
+    for route, knobs in FLAT_ROUTES:
+        kb, cls, keep2, fused = index.resolve_knobs(10, knobs.get("kb", 0), 0,
+                                                    knobs.get("keep2"))
+        tq = knobs.get("tq", 512)  # the search rounds its batch up to tq
+        batches = -(-NQ // max(tq, -(-B // tq) * tq))
+        form = ("classmax2" if keep2 else "classmax") + ("_topk_scan" if fused
+                                                         else "_scan")
+        r, ids, _ = _serve_scan(
+            f"26a fastflat {route} ({form}, kb={kb}, cls={cls})",
+            lambda: index.search(ds.queries, 10, batch_size=B, **knobs), NQ, gt,
+            warm=lambda: index.search(ds.queries[:B], 10, batch_size=B, **knobs))
+        r.update(form=form, kb=kb, cls=cls)
+        _per_batch(r["launches"], form, batches, f"26a {route}")
+        floor = FLAT_MIN_RECALL if route in ("auto", "keep2_point") else \
+            FLAT_ROUTE_MIN_RECALL
+        if r["recall@10"] < floor:
+            raise AssertionError(f"26a {route}: recall@10 {r['recall@10']:.4f} < {floor}")
+        if not ((ids >= 0) & (ids < N)).all():
+            raise AssertionError(f"26a {route}: an id is not a real row")
+        out["routes"][route] = r
+    auto = out["routes"]["auto"]
+    auto["single_card"] = {"recall@10": flat_auto, "qps": flat_qps}
+    if auto["recall@10"] < flat_auto - SCAN_FLAT_GAP:
+        raise AssertionError(f"26a auto: recall@10 {auto['recall@10']:.4f} more than "
+                             f"{SCAN_FLAT_GAP} under the single card's {flat_auto:.4f}")
+    profile_run(lambda: index.search(ds.queries[:B], 10, batch_size=B),
+                "26a sharded fastflat auto S=4")
+    out["per_shard"] = _shard_k2_check(index, ds.queries, auto["cls"])
+    log(f"[sharded-scan] 26a auto: {auto['qps']:.1f} QPS against the single card's "
+        f"{flat_qps:.1f} (phase 7)")
+    return index, out
+
+
+def _shard_k3_check(index, q: np.ndarray, cls: int) -> dict:
+    """Both K3 functions, keep1 and keep2, on shard 0's split tables against
+    their twins; the fused forms equal to the unfused plus select; the
+    route's form timed with its bound."""
+    comp, aux = index.comp[0], index.aux[0]
+    qs = pack_split_query(torch.from_numpy(q[:B]).to(comp.device), comp.shape[1])
+    out = {"rows": int(comp.shape[0]), "cls": cls}
+    for keep2 in (False, True):
+        got = cm.classmax_scan_split(comp, aux, qs, cls=cls, keep2=keep2)
+        err = _k2_err(got, cm.classmax_scan_split_ref(comp, aux, qs, cls=cls,
+                                                      keep2=keep2), cls)
+        if err > K3_ATOL:
+            raise AssertionError(f"26b K3 keep2={keep2} on a shard: scores differ by "
+                                 f"{err}")
+        out[f"keep{2 if keep2 else 1}_max_abs_err"] = err
+        fused = cm.classmax_topk_scan_split(comp, aux, qs, kb=32, cls=cls, keep2=keep2)
+        vals, sel = cm.select_lanes(got[0], 32)
+        want = (vals,) + tuple(torch.gather(p, 1, sel) for p in got[1:])
+        if not all(torch.equal(g, w) for g, w in zip(fused, want)):
+            raise AssertionError(f"26b fused K3 keep2={keep2} on a shard: not the "
+                                 "unfused form plus select")
+    out["ms"] = cuda_ms(lambda: cm.classmax_scan_split(comp, aux, qs, cls=cls), reps=10)
+    out["plain_ms"] = cuda_ms(lambda: cm.classmax_scan_split_ref(comp, aux, qs, cls=cls),
+                              reps=3, warmup=1)
+    rows = comp.shape[0]
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        rows * (D * comp.element_size() + 8) + B * D * 2 + B * cls * 8,
+        2.0 * B * rows * D, PEAK_BF16)
+    out["max_abs_err"] = out["keep1_max_abs_err"]
+    return out
+
+
+def sharded_split(ds, gt, split_served: dict, mesh) -> dict:
+    """26b: ShardedSplitFlatIndex.from_host, int8 and bf16, at the auto knobs;
+    the perm map; every K3 form on a shard against its twin."""
+    out = {}
+    batches = -(-NQ // B)
+    for comp_dtype in SPLIT_DTYPES[::-1]:  # int8 first: the CLI's layout
+        t0 = time.perf_counter()
+        index = ShardedSplitFlatIndex.from_host(ds.base, mesh, comp_dtype=comp_dtype,
+                                                seed=SCAN_SEED)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kb, cls, keep2, fused = index.resolve_knobs(10, 32, 0, None)
+        fn = "classmax_topk_scan_split" if fused else "classmax_scan_split"
+        form = f"{fn}[{comp_dtype},keep{2 if keep2 else 1}]"
+        r, ids, _ = _serve_scan(
+            f"26b split {comp_dtype} auto ({form}, kb={kb}, cls={cls})",
+            lambda: index.search(ds.queries, 10, batch_size=B), NQ, gt,
+            warm=lambda: index.search(ds.queries[:B], 10, batch_size=B))
+        _per_batch(r["launches"], form, batches, f"26b {comp_dtype}")
+        if r["recall@10"] < SCAN_SPLIT_MIN[comp_dtype]:
+            raise AssertionError(f"26b {comp_dtype}: recall@10 {r['recall@10']:.4f} < "
+                                 f"{SCAN_SPLIT_MIN[comp_dtype]}")
+        real = (ids >= 0) & (ids < N)
+        if not real.all() or len(np.unique(index.perm)) != N:
+            raise AssertionError(f"26b {comp_dtype}: an id is not a real row")
+        r.update(build_s=build_s, form=form, kb=kb, cls=cls,
+                 rows_per_shard=index.rows,
+                 single_card=split_served.get((comp_dtype, "auto")))
+        r["per_shard"] = _shard_k3_check(index, ds.queries, cls)
+        log(f"[sharded-scan] 26b {comp_dtype}: K3 on shard 0 "
+            f"{json.dumps(r['per_shard'])}")
+        out[comp_dtype] = r
+        if comp_dtype == "int8":
+            out["_index"] = index
+        else:
+            del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_ivf(ds, gt, ivf_single: dict, mesh, dev) -> tuple:
+    """26c: ShardedIVFIndex on the 1M set: compact search at probes 16/32/64,
+    compact equal to dense id for id, the rounds, lanes and host reads a
+    batch; search_routed at the command line's knobs; full probes over the
+    first 65,536 rows."""
+    t0 = time.perf_counter()
+    index = ShardedIVFIndex(ds.base, mesh, seed=SCAN_SEED)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "C": index.C, "cap": index.cap,
+           "probes": {}}
+    fine_c = -(-N // 128)  # the fine layout's C, then rounded up to the mesh
+    if index.C != -(-fine_c // SCAN_S) * SCAN_S:
+        raise AssertionError(f"26c: C={index.C}")
+    batches = -(-NQ // B)
+    last = 0.0
+    for p in IVF_PROBES:
+        index.rpc_rounds = index.scanned_lanes = 0
+        reads0 = mesh.readbacks
+        r, _, _ = _serve_scan(
+            f"26c ivf compact probes={p}",
+            lambda: index.search(ds.queries, 10, probes=p, batch_size=B), NQ, gt,
+            warm=lambda: index.search(ds.queries[:B], 10, probes=p, batch_size=B))
+        reads = mesh.readbacks - reads0
+        # the warm-up batch's rounds count too; its reads are the first batch's
+        r.update(rpc_rounds=index.rpc_rounds, scanned_lanes=index.scanned_lanes,
+                 readbacks_per_batch=reads / (batches + 1),
+                 single_card=ivf_single["fine"].get(p))
+        if r["recall@10"] < last:
+            raise AssertionError(f"26c: recall fell at probes {p}")
+        if not r["launches"].get("gather_score") or set(r["launches"]) != {"gather_score"}:
+            raise AssertionError(f"26c probes {p}: launches {r['launches']}")
+        last = r["recall@10"]
+        out["probes"][p] = r
+    q = ds.queries[:B]
+    profile_run(lambda: index.search(q, 10, probes=IVF_E2E_PROBES, batch_size=B),
+                f"26c sharded ivf compact probes={IVF_E2E_PROBES} S=4")
+    ci, _ = index.search(q, 10, probes=IVF_E2E_PROBES, batch_size=B)
+    di, _ = index.search(q, 10, probes=IVF_E2E_PROBES, batch_size=B, probe_lanes="dense")
+    if not np.array_equal(ci, di):
+        raise AssertionError("26c: the compact lanes differ from the dense scan")
+    knobs = dict(IVF_ROUTES)["cli"]
+    r, _, _ = _serve_scan(f"26c ivf search_routed {knobs}",
+                          lambda: index.search_routed(ds.queries, 10, **knobs), NQ, gt,
+                          warm=lambda: index.search_routed(ds.queries[:B], 10, **knobs))
+    out["routed_cli"] = r
+    n_full = IVF_FULL_N
+    full = ShardedIVFIndex(ds.base[:n_full], mesh, num_clusters=IVF_FULL_C,
+                           seed=SCAN_SEED)
+    qf = ds.queries[:IVF_FULL_QUERIES]
+    sub_gt, _ = exact_knn(torch.from_numpy(ds.base[:n_full]).to(dev),
+                          torch.from_numpy(qf).to(dev), 10)
+    fi, _ = full.search(qf, 10, probes=IVF_FULL_C, batch_size=IVF_FULL_QUERIES,
+                        rerank=8)
+    out["full_probes_recall"] = recall_at_k(fi, sub_gt.cpu().numpy(), 10)
+    log(f"[sharded-scan] 26c: compact == dense on {B} queries; full probes over "
+        f"{n_full} rows: recall@10 {out['full_probes_recall']:.4f}")
+    if out["full_probes_recall"] < IVF_FULL_MIN_RECALL:
+        raise AssertionError(f"26c full probes: recall {out['full_probes_recall']}")
+    del full
+    return index, out
+
+
+def _c11_sharded(families: dict) -> dict:
+    """26g, ROADMAP C11 on the mesh: the first 64 queries alone and inside a
+    batch of 2,048: equal ids and distance bits."""
+    out = {}
+    for name, (run, q64, filler) in families.items():
+        res = []
+        for b in SCAN_C11_BATCHES:
+            ids, dd = run(np.ascontiguousarray(np.concatenate([q64, filler[:b - 64]])), b)
+            res.append((ids[:64], np.asarray(dd[:64], np.float32).view(np.uint32)))
+        same = bool(np.array_equal(res[0][0], res[1][0])
+                    and np.array_equal(res[0][1], res[1][1]))
+        out[name] = same
+        log(f"[sharded-scan] 26g C11 {name}: 64 queries alone and in a batch of "
+            f"{SCAN_C11_BATCHES[1]}: ids and distance bits equal {same}")
+        if not same:
+            raise AssertionError(f"26g C11: sharded {name} answers by its batch")
+    return out
+
+
+def _int_layouts(base: np.ndarray) -> tuple:
+    """The IVF layout and the routed index of integer rows, built once on
+    the CPU: their k-means sums in another order on the card would cluster
+    otherwise, and the check is of the searches."""
+    n, d = base.shape
+    ivf = build_ivf_layout(base, 256, seed=7, device="cpu")
+    routed = build_routed_split(n, d, base_dev=torch.from_numpy(base), cap_target=512,
+                                cls=128, seed=3, shards=SCAN_S)
+    return ivf, routed
+
+
+def _int_families(base: np.ndarray, mesh, layouts: tuple) -> dict:
+    """Every sharded scan family over integer rows on ``mesh``, the IVF and
+    routed ones from ``_int_layouts``."""
+    layout, single = layouts
+    fast = ShardedFastFlatIndex(base, mesh, seed=1)
+    split = ShardedSplitFlatIndex.from_host(base, mesh, comp_dtype="int8", seed=1)
+    ivf = ShardedIVFIndex.from_parts(mesh, layout.centroids, layout.blocks,
+                                     layout.block_sq, layout.block_ids, base)
+    routed = ShardedRoutedSplitIndex.from_single(single, mesh)
+    nq = SCAN_INT_QUERIES
+    return {
+        "fastflat": (lambda q: fast.search(q, 10, batch_size=nq), fast),
+        "split_int8": (lambda q: split.search(q, 10, batch_size=nq), split),
+        "ivf_compact": (lambda q: ivf.search(q, 10, probes=16, batch_size=nq), ivf),
+        "ivf_dense": (lambda q: ivf.search(q, 10, probes=16, batch_size=nq,
+                                           probe_lanes="dense"), ivf),
+        "ivf_routed": (lambda q: ivf.search_routed(q, 10, probes=8, shared=16, tile=32,
+                                                   batch_size=nq), ivf),
+        "routed": (lambda q: routed.search(q, 10, probes=8, shared=16, tile=32,
+                                           batch_size=nq), routed),
+    }
+
+
+def _scan_int_check(dev) -> dict:
+    """26g: integer rows (every sum exact) served by every sharded scan
+    family on a card mesh and a CPU mesh of 4 shards: ids, distance bits and
+    counters equal."""
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(-8, 9, size=SCAN_INT).astype(np.float32)
+    q = rng.integers(-8, 9, size=(SCAN_INT_QUERIES, SCAN_INT[1])).astype(np.float32)
+    got = {}
+    layouts = _int_layouts(base)
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        fams = _int_families(base, shard_mesh(SCAN_S, device=where), layouts)
+        got[str(where)] = {name: (*run(q), {c: getattr(idx, c) for c in SCAN_INT_COUNTERS
+                                            if hasattr(idx, c)})
+                           for name, (run, idx) in fams.items()}
+        got[str(where) + "_s"] = time.perf_counter() - t0
+    out = {"card_s": got[str(dev) + "_s"], "cpu_s": got["cpu_s"]}
+    for name, (gi, gd, gc) in got[str(dev)].items():
+        ci, cd, cc = got["cpu"][name]
+        if not (np.array_equal(gi, ci) and np.array_equal(gd.view(np.int32),
+                                                           cd.view(np.int32))):
+            raise AssertionError(f"26g integer rows, {name}: card and CPU meshes differ")
+        if gc != cc:
+            raise AssertionError(f"26g integer rows, {name}: counters {gc} against {cc}")
+        out[name] = gc
+    log(f"[sharded-scan] 26g integer rows {SCAN_INT[0]} x {SCAN_INT[1]}, S={SCAN_S}: "
+        f"card and CPU meshes equal for {sorted(got['cpu'])} (ids, bits, counters); "
+        f"card {out['card_s']:.2f} s, CPU {out['cpu_s']:.2f} s")
+    return out
+
+
+def _library_routed(ds, gt, mesh, dev) -> dict:
+    """The command line's routed --shards 4 run as library calls: the build at
+    its defaults with shards=4, dealt by from_single (base mode), the auto
+    knobs."""
+    base_t = torch.from_numpy(ds.base).to(dev)
+    single = build_routed_split(N, D, base_dev=base_t, seed=SCAN_SEED, shards=SCAN_S)
+    index = ShardedRoutedSplitIndex.from_single(single, mesh)
+    del single
+    r, _, _ = _serve_scan("26f library routed (the CLI's build, base mode)",
+                          lambda: index.search(ds.queries, 10, batch_size=B), NQ, gt)
+    del index, base_t
+    torch.cuda.empty_cache()
+    return r
+
+
+def sharded_cli(ds, gt, data_dir: str, want: dict, mesh, dev) -> dict:
+    """26f: the command line with --shards 4 on phase 22's saved set: each run
+    reads its library run's recall exactly and launches its kernels."""
+    want = dict(want, routed=_library_routed(ds, gt, mesh, dev))
+    data = ["--data-path", data_dir, *CLI_COMMON, "--shards", str(SCAN_S),
+            "--seed", str(SCAN_SEED)]
+    runs = (("fastflat", ["--index", "fastflat"], "classmax_scan"),
+            ("split", ["--index", "split"], "classmax_scan_split"),
+            ("routed", ["--index", "routed", "--probes", "0"], "routed_classmax_scan"),
+            ("ivf", ["--index", "ivf", "--probes", str(IVF_E2E_PROBES)], "gather_score"),
+            # the sharded tile-shared search launches no kernel: its products
+            # are a batched matmul and its re-rank is the host's, as in JAX
+            ("ivf_routed", ["--index", "ivf", "--ivf-routed"], None))
+    out = {}
+    for name, flags, kernel in runs:
+        doc, launches, _ = run_cli(data + flags, f"sharded {name}")
+        got, lib = doc["queries"]["recall"], want[name]
+        if got != lib["recall@10"]:
+            raise AssertionError(f"26f {name}: recall {got} against the library's "
+                                 f"{lib['recall@10']}")
+        if kernel and not launches.get(kernel):
+            raise AssertionError(f"26f {name}: {kernel} never launched")
+        if doc["meta"]["num_shards"] != SCAN_S:
+            raise AssertionError(f"26f {name}: meta {doc['meta']}")
+        out[name] = {"recall": got, "qps": doc["queries"]["queries_per_sec"],
+                     "library_qps": lib["qps"], "launches": launches,
+                     "index_bytes": doc["build"]["index_size_in_bytes"]}
+    return out
+
+
+def sharded_scan_phase(ds, gt, flat_served: dict, split_served: dict, ivf_single: dict,
+                       data_dir: str, dev) -> None:
+    """Phases 26a-c, f and g on the 1M set and phase 22's saved copy of it;
+    the numbers land in SHARDED_SCAN."""
+    t_phase = time.perf_counter()
+    mesh = shard_mesh(SCAN_S, device=dev)
+    flat, SHARDED_SCAN["26a"] = sharded_flat(ds, gt, *flat_served["auto"], mesh)
+    split = sharded_split(ds, gt, split_served, mesh)
+    split_int8 = split.pop("_index")
+    SHARDED_SCAN["26b"] = split
+    ivf, SHARDED_SCAN["26c"] = sharded_ivf(ds, gt, ivf_single, mesh, dev)
+    q64, filler = ds.queries[:64], ds.queries[64:]
+    SHARDED_SCAN["26g_c11"] = _c11_sharded({
+        "fastflat": (lambda q, b: flat.search(q, 10, batch_size=b), q64, filler),
+        "split_int8": (lambda q, b: split_int8.search(q, 10, batch_size=b), q64, filler),
+        "ivf": (lambda q, b: ivf.search(q, 10, probes=16, batch_size=b), q64, filler)})
+    want = {"fastflat": SHARDED_SCAN["26a"]["routes"]["auto"],
+            "split": SHARDED_SCAN["26b"]["int8"],
+            "ivf": SHARDED_SCAN["26c"]["probes"][IVF_E2E_PROBES],
+            "ivf_routed": SHARDED_SCAN["26c"]["routed_cli"]}
+    del flat, split_int8, ivf
+    torch.cuda.empty_cache()
+    SHARDED_SCAN["26f_cli"] = sharded_cli(ds, gt, data_dir, want, mesh, dev)
+    SHARDED_SCAN["26g_integer_rows"] = _scan_int_check(dev)
+    SHARDED_SCAN["26abcfg_s"] = time.perf_counter() - t_phase
+    log(f"[sharded-scan] phases 26a-c, f, g: {SHARDED_SCAN['26abcfg_s']:.1f} s")
+
+
+def _attach_sharded(kernels: list[dict]) -> None:
+    """Each kernel entry gains the launches of every phase-26 run that ran
+    it (``sharded_launches``, by run) and, for K2a, K3 keep1 and K4 at T=64,
+    its numbers at a shard's shape (``per_shard``)."""
+    by_name = {k["name"]: k for k in kernels}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if isinstance(node.get("launches"), dict):
+                for name, n in node["launches"].items():
+                    if name in by_name:
+                        by_name[name].setdefault("sharded_launches", {})[path] = n
+            for key, value in node.items():
+                if key != "launches":
+                    walk(value, f"{path} {key}".strip())
+    walk(SHARDED_SCAN, "")
+    per_shard = {"classmax_scan": SHARDED_SCAN["26a"]["per_shard"],
+                 "classmax_scan_split[int8,keep1]": SHARDED_SCAN["26b"]["int8"]["per_shard"],
+                 "classmax_scan_split[bf16,keep1]": SHARDED_SCAN["26b"]["bf16"]["per_shard"],
+                 "routed_classmax_scan[int8,T64]": SHARDED_SCAN["26d"]["per_shard"]}
+    for name, case in per_shard.items():
+        if name in by_name:
+            by_name[name]["per_shard"] = case
+
+
+def sharded_routed_phase(index: RoutedSplitIndex, ds, gt, served: dict, dev) -> dict:
+    """26d: phase 12's index dealt over 4 shards (base mode) at the auto knobs
+    and the starved grant with its spill; coverage equal to the single
+    card's; K4 at a shard's shape against its twin."""
+    t_phase = time.perf_counter()
+    if index.C % SCAN_S:
+        raise AssertionError(f"26d: C={index.C} is not a multiple of {SCAN_S}")
+    mesh = shard_mesh(SCAN_S, device=dev)
+    t0 = time.perf_counter()
+    sh = ShardedRoutedSplitIndex.from_single(index, mesh)
+    torch.cuda.synchronize()
+    out = {"from_single_s": time.perf_counter() - t0, "C_loc": sh.C_loc, "routes": {}}
+    for route, knobs in (("auto", {}), ("starved", dict(ROUTED_ROUTES)["starved"])):
+        r, _, _ = _serve_scan(
+            f"26d routed {route}", lambda: sh.search(ds.queries, 10, batch_size=B, **knobs),
+            NQ, gt, warm=lambda: sh.search(ds.queries[:B], 10, batch_size=B, **knobs))
+        probes, P, P_loc, T, kk = sh.resolve_knobs(10, 0, knobs.get("shared", 0), 0,
+                                                   knobs.get("tile", 0), 0)
+        r.update(coverage=sh.last_coverage, overflow=sh.last_overflow,
+                 lanes=sh.last_lanes, spilled=sh.last_fallback, probes=probes, P=P,
+                 P_loc=P_loc, T=T, kk=kk, single_card={
+                     k: served[route][k] for k in ("recall", "qps", "coverage",
+                                                   "fallback")})
+        log(f"[sharded-scan] 26d {route}: coverage {sh.last_coverage} (single card "
+            f"{served[route]['coverage']}), overflow {sh.last_overflow}, lanes "
+            f"{sh.last_lanes}, spilled {sh.last_fallback}")
+        if sh.last_coverage != served[route]["coverage"]:
+            raise AssertionError(f"26d {route}: coverage differs from the single card's")
+        if route == "auto" and r["recall@10"] < ROUTED_MIN_RECALL:
+            raise AssertionError(f"26d auto: recall@10 {r['recall@10']:.4f}")
+        if not r["launches"].get(f"routed_classmax_scan[int8,T{T}]"):
+            raise AssertionError(f"26d {route}: K4 never launched")
+        if not r["launches"].get("gather_score"):
+            raise AssertionError(f"26d {route}: the base re-rank never ran")
+        out["routes"][route] = r
+    # K4 at a shard's shape: shard 0's table and its columns of one batch
+    probes, P, P_loc, T, _ = sh.resolve_knobs(10, 0, 0, 0, 0, 0)
+    q = torch.from_numpy(ds.queries[:B]).to(dev)
+    q_s, _, _, pr_s, cols, _ = sh._plans(q, probes, P, T)[0]
+    lcol = sh.shard_columns(0, pr_s, cols, P_loc)[0]
+    out["per_shard"] = _k4_case(sh.comp[0], sh.aux_r[0], q_s, lcol, T, sh.cap, sh.cls,
+                                f"26d shard 0 ({sh.C_loc + 1} clusters, {P_loc} lanes)",
+                                timed=True)
+    del sh
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    SHARDED_SCAN["26d"] = out
+    log(f"[sharded-scan] phase 26d: {out['seconds']:.1f} s")
+    return out
+
+
+def sharded_capacity_flat(sds, eds, dev) -> dict:
+    """26e, flat: the row-keyed 1M datasets ingested over 4 shards equal
+    phase 24's single-card ones bit for bit, then served from the mesh."""
+    mesh = shard_mesh(SCAN_S, device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    ms = tds.device_rowkeyed_split_dataset(n=CAP_1M, dim=D, num_queries=CAP_NQ,
+                                           seed=CAP_SEED, gt_k=10, comp_dtype="int8",
+                                           mesh=mesh)
+    torch.cuda.synchronize()
+    ingest = {"seconds": time.perf_counter() - t0, "launches": _scan_launches()}
+    same = (torch.equal(torch.cat(ms.comp_dev), sds.comp_dev)
+            and torch.equal(torch.cat(ms.aux_dev, 1), sds.aux_dev)
+            and np.array_equal(ms.ground_truth, sds.ground_truth))
+    if not same:
+        raise AssertionError("26e: the mesh split dataset differs from the single card's")
+    idx = ShardedSplitFlatIndex.from_dataset(ms, mesh, dim=D)
+    r, _, _ = _serve_scan("26e split 1M from_dataset (kb=64)",
+                          lambda: idx.search(ms.queries, 10, kb=64, batch_size=CAP_NQ),
+                          CAP_NQ, ms.ground_truth)
+    r["ingest"] = ingest
+    if r["recall@10"] < CAP_MIN_RECALL or not r["launches"].get("regen_score") or not any(
+            k.startswith("classmax_scan_split[int8") or k.startswith(
+                "classmax_topk_scan_split[int8") for k in r["launches"]):
+        raise AssertionError(f"26e split: {r}")
+    out["split_1m"] = r
+    del idx, ms
+    t0 = time.perf_counter()
+    reset_launches()
+    me = tds.device_rowkeyed_ext_dataset(n=CAP_1M, dim=D, num_queries=CAP_NQ,
+                                         seed=CAP_SEED, gt_k=10, mesh=mesh)
+    torch.cuda.synchronize()
+    ingest = {"seconds": time.perf_counter() - t0, "launches": _scan_launches()}
+    if not (torch.equal(torch.cat(me.ext_dev).view(torch.int16),
+                        eds.ext_dev.view(torch.int16))
+            and np.array_equal(me.ground_truth, eds.ground_truth)):
+        raise AssertionError("26e: the mesh ext dataset differs from the single card's")
+    idx = ShardedFastFlatIndex.from_ext(me.ext_dev, me.n, mesh, dim=D,
+                                        row_source=me.row_source)
+    r, _, _ = _serve_scan("26e ext 1M from_ext (auto knobs)",
+                          lambda: idx.search(me.queries, 10, batch_size=CAP_NQ),
+                          CAP_NQ, me.ground_truth)
+    r["ingest"] = ingest
+    if r["recall@10"] < CAP_MIN_RECALL or not r["launches"].get("regen_score"):
+        raise AssertionError(f"26e ext: {r}")
+    out["ext_1m"] = r
+    del idx, me
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_capacity_routed(dev) -> dict:
+    """26e, routed: build_routed_split_sharded of 4,194,304 row-keyed rows
+    with its stage seconds and peak memory, served at 32:256:32; and at
+    262,144 rows the direct build equal to from_single of the single build."""
+    mesh = shard_mesh(SCAN_S, device=dev)
+    k1, centers, queries = tds._rowkeyed_recipe(SCAN_CAP_ROUTED_N, D, CAP_NQ, 64,
+                                                CAP_SEED, True, dev)
+    q_np = queries.cpu().numpy()
+    stages = []
+
+    def say(m):
+        stages.append(m)
+        log(f"[sharded-scan] 26e {m}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    index, gt = build_routed_split_sharded(SCAN_CAP_ROUTED_N, D, mesh,
+                                           row_source=(k1, centers), queries=q_np,
+                                           log=say, **CAP_BUILD)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "stages": stages, "C": index.C,
+           "cap": index.cap, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "before_gb": mem0 / 1e9, "build": {"launches": _scan_launches()}}
+    p, P, T = SCAN_CAP_ROUTE
+    r, _, _ = _serve_scan(f"26e routed {SCAN_CAP_ROUTED_N} direct build {p}:{P}:{T}",
+                          lambda: index.search(q_np, 10, probes=p, shared=P, tile=T,
+                                               batch_size=CAP_NQ), CAP_NQ, gt)
+    r.update(coverage=index.last_coverage, overflow=index.last_overflow,
+             spilled=index.last_fallback)
+    out["route"] = r
+    log(f"[sharded-scan] 26e routed build: {out['build_s']:.2f} s, C={index.C}, peak "
+        f"allocated {out['peak_gb']:.3f} GB")
+    if r["recall@10"] < CAP_MIN_RECALL or not r["launches"].get(
+            f"routed_classmax_scan[int8,T{T}]") or not r["launches"].get("regen_score"):
+        raise AssertionError(f"26e routed: {r}")
+    del index
+    torch.cuda.empty_cache()
+    kw = dict(row_source=(k1, centers), **CAP_BUILD)
+    single = build_routed_split(SCAN_CAP_SMALL_N, D, shards=SCAN_S, **kw)
+    dealt = ShardedRoutedSplitIndex.from_single(single, mesh)
+    direct = build_routed_split_sharded(SCAN_CAP_SMALL_N, D, mesh, **kw)
+    same = all(torch.equal(a, b) for name in ("comp", "aux_r", "gid")
+               for a, b in zip(getattr(dealt, name), getattr(direct, name)))
+    out["small_bit_identical"] = same
+    log(f"[sharded-scan] 26e at {SCAN_CAP_SMALL_N} rows: the direct build equals "
+        f"from_single of build_routed_split(shards={SCAN_S}) bit for bit: {same}")
+    if not same:
+        raise AssertionError("26e: the direct sharded build differs from from_single")
+    del single, dealt, direct
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 24: the row-keyed capacity path -------------------------------------
 
 # the JAX package's capacity recipe (scripts/scale_capacity_routed.py): rows
@@ -2508,7 +3210,7 @@ def capacity_flat(dev) -> dict:
     if recall < CAP_MIN_RECALL:
         raise AssertionError(f"24b: recall@10 {recall:.4f} < {CAP_MIN_RECALL}")
     _launched("24b", "classmax_scan_split[int8]", "regen_score")
-    del sidx, sds, pre
+    del sidx, pre
     torch.cuda.empty_cache()
 
     reset_launches()
@@ -2533,7 +3235,12 @@ def capacity_flat(dev) -> dict:
         raise AssertionError(f"24c: recall@10 {recall:.4f} < {CAP_MIN_RECALL}")
     if not launches["classmax2_scan"] or not launches["regen_score"]:
         raise AssertionError(f"24c: a kernel of the path never launched: {launches}")
-    del fidx, eds, pre
+    del fidx, pre
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    SHARDED_SCAN["26e_flat"] = sharded_capacity_flat(sds, eds, dev)
+    SHARDED_SCAN["26e_flat"]["seconds"] = time.perf_counter() - t0
+    del sds, eds
     torch.cuda.empty_cache()
     return out
 
@@ -2669,6 +3376,9 @@ def capacity_phase(dev) -> tuple[list[dict], dict]:
     cases = regen_vs_plain(dev)
     flat_out = capacity_flat(dev)
     routed_out = capacity_routed(dev)
+    t0 = time.perf_counter()
+    SHARDED_SCAN["26e_routed"] = sharded_capacity_routed(dev)
+    SHARDED_SCAN["26e_routed"]["seconds"] = time.perf_counter() - t0
     c11 = c11_check(dev)
     serve_launches = sum(r["launches"]["regen_score"] for r in flat_out.values()) + sum(
         r["launches"]["regen_score"] for r in routed_out["routes"].values())
@@ -2820,6 +3530,7 @@ def main() -> None:
         }, dev)
         sharded = sharded_phase(ds, gt, graph_path, data_dir,
                                 cli_runs["flat"]["queries"]["recall"], dev)
+        sharded_scan_phase(ds, gt, flat_served, split_served, ivf, data_dir, dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
     del ds, gt
@@ -2924,8 +3635,16 @@ def main() -> None:
         if k["name"] in K2_FORMS:
             k["build_launches"] = {b: builds[b]["launches"].get(k["name"], 0)
                                    for b in builds}
+    _attach_sharded(kernels)
+    SHARDED_SCAN["seconds"] = sum(v for k, v in SHARDED_SCAN.items() if k.endswith("_s")) \
+        + SHARDED_SCAN["26d"]["seconds"] + SHARDED_SCAN["26e_flat"]["seconds"] \
+        + SHARDED_SCAN["26e_routed"]["seconds"]
+    log(f"[sharded-scan] summary {json.dumps(SHARDED_SCAN, default=str)}")
+    log(f"[sharded-scan] phase 26: {SHARDED_SCAN['seconds']:.1f} s")
     log(f"[build] summary {json.dumps(builds)}")
     log(f"[devbuild] summary {json.dumps({'device_build': devbuild, 'online': online})}")
+    log(f"[e2e] {len(E2E_SECONDS)} end-to-end checks of {E2E_QUERIES} queries (CPU "
+        f"twins and card): {sum(E2E_SECONDS):.1f} s")
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,8 +28,12 @@ and routed indexes serve bases larger than the card holds as f32, re-ranking
 exactly from regenerated rows. ``parallel/`` serves the HNSW graph sharded
 over a one-process mesh of S shards (``ShardedIndex``: the owner-computed
 exchange, dense or compact, a hot-vertex replica, query routing; every
-distance through ``gather_score``) and the exact scan sharded by rows
-(``ShardedFlatIndex``); on the one card the shards stack. Entry points run
+distance through ``gather_score``), the exact scan sharded by rows
+(``ShardedFlatIndex``), and the scan families sharded: FastFlat and the
+split tables by rows (``ShardedFastFlatIndex``, ``ShardedSplitFlatIndex``),
+IVF and the routed family by clusters (``ShardedIVFIndex``,
+``ShardedRoutedSplitIndex``, ``build_routed_split_sharded``); on the one card
+the shards stack. Entry points run
 on the CUDA card unless the caller names another device; on the CPU each kernel's plain torch twin
 runs instead. This package imports neither JAX nor the JAX package.
 """
@@ -43,7 +47,11 @@ from shine_tpu_torch.convert import (
     replica_from_jax,
     routed_split_from_jax,
     row_source_from_jax,
+    sharded_fastflat_from_jax,
     sharded_graph_from_jax,
+    sharded_ivf_from_jax,
+    sharded_routed_from_jax,
+    sharded_splitflat_from_jax,
     splitflat_from_jax,
 )
 from shine_tpu_torch.models.build import (
@@ -57,7 +65,16 @@ from shine_tpu_torch.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
 from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import RoutedSplitIndex, build_routed_split
-from shine_tpu_torch.parallel import ShardedFlatIndex, ShardedIndex, shard_mesh
+from shine_tpu_torch.parallel import (
+    ShardedFastFlatIndex,
+    ShardedFlatIndex,
+    ShardedIndex,
+    ShardedIVFIndex,
+    ShardedRoutedSplitIndex,
+    ShardedSplitFlatIndex,
+    build_routed_split_sharded,
+    shard_mesh,
+)
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 
 __all__ = [
@@ -88,7 +105,16 @@ __all__ = [
     "row_source_from_jax",
     "ShardedIndex",
     "ShardedFlatIndex",
+    "ShardedFastFlatIndex",
+    "ShardedSplitFlatIndex",
+    "ShardedIVFIndex",
+    "ShardedRoutedSplitIndex",
+    "build_routed_split_sharded",
     "shard_mesh",
     "sharded_graph_from_jax",
     "replica_from_jax",
+    "sharded_fastflat_from_jax",
+    "sharded_splitflat_from_jax",
+    "sharded_ivf_from_jax",
+    "sharded_routed_from_jax",
 ]

@@ -12,18 +12,22 @@ same flags, defaults and branches, on one CUDA card:
 ``--device {cuda,cpu}`` (default cuda) is the one flag the port adds: every
 index and build runs there, and without a card the run fails unless it
 asks for the CPU, where each kernel's plain twin runs. ``--shards N``
-serves ``--index hnsw`` (``ShardedIndex``, with ``--cache``,
-``--cache-ratio``, ``--adaptive-cache``, ``--routing``,
-``--adaptive-routing``, ``--exchange`` and ``--adaptive-slack``) and
-``--index flat`` (``ShardedFlatIndex``) on a mesh of N shards
-(``parallel/mesh.py``: shard s on card s modulo the visible cards, stacked
-on a single card, or all on the CPU); with one shard those flags are
-ignored, as in the JAX command line. The paths the port does not have yet
-make ``main`` exit with status 2 before any data is read, naming the
-ROADMAP item they wait for: ``--megabatch`` (A2); ``--shards`` > 1 with
-fastflat, split, routed or ivf (A8b), with auto, ``--device-build`` or
-``--fast-build`` (A8c). ``--ivf-routed`` with another family than ivf is
-ignored, as in the JAX command line.
+serves on a mesh of N shards (``parallel/mesh.py``: shard s on card s
+modulo the visible cards, stacked on a single card, or all on the CPU):
+``--index hnsw`` (``ShardedIndex``, with ``--cache``, ``--cache-ratio``,
+``--adaptive-cache``, ``--routing``, ``--adaptive-routing``,
+``--exchange`` and ``--adaptive-slack``), ``flat`` (``ShardedFlatIndex``),
+``fastflat`` (``ShardedFastFlatIndex``), ``split``
+(``ShardedSplitFlatIndex.from_host``, int8), ``routed``
+(``build_routed_split(shards=N)`` dealt by ``ShardedRoutedSplitIndex.
+from_single``, the base resident for the re-rank) and ``ivf``
+(``ShardedIVFIndex``, with or without ``--ivf-routed``); with one shard
+those flags are ignored, as in the JAX command line, and the other
+families ignore ``--cache`` and the routing flags. The paths the port does
+not have yet make ``main`` exit with status 2 before any data is read,
+naming the ROADMAP item they wait for: ``--megabatch`` (A2); ``--shards`` >
+1 with auto, ``--device-build`` or ``--fast-build`` (A8c). ``--ivf-routed``
+with another family than ivf is ignored, as in the JAX command line.
 
 Output: the run's Statistics document (``utils/stats.py``, the JAX
 package's keys plus ``meta.device``, and ``meta.shard_devices`` on a
@@ -60,7 +64,15 @@ from shine_tpu_torch.models.hnsw import HNSWIndex
 from shine_tpu_torch.models.ivf import IVFIndex
 from shine_tpu_torch.models.routed_split import build_routed_split
 from shine_tpu_torch.ops import _build as kernels
-from shine_tpu_torch.parallel import ShardedFlatIndex, ShardedIndex, shard_mesh
+from shine_tpu_torch.parallel import (
+    ShardedFastFlatIndex,
+    ShardedFlatIndex,
+    ShardedIndex,
+    ShardedIVFIndex,
+    ShardedRoutedSplitIndex,
+    ShardedSplitFlatIndex,
+    shard_mesh,
+)
 from shine_tpu_torch.utils import SearchStats, Statistics, Timing
 from shine_tpu_torch.utils.timing import sync_clock
 
@@ -137,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "kernels' plain twins")
     run.add_argument("--shards", type=int, default=1,
                      help="shards of the mesh, over the visible cards or on the "
-                     "CPU (hnsw and flat; the other families: ROADMAP A8b)")
+                     "CPU (every family but auto and the hnsw builds: ROADMAP "
+                     "A8c)")
     run.add_argument("--cache", action="store_true",
                      help="sharded hnsw: hot-vertex replica")
     run.add_argument("--cache-ratio", type=float, default=CACHE_RATIO,
@@ -152,17 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-SHARDED_SCANS = ("fastflat", "split", "routed", "ivf")
-
-
 def unported_flags(args: argparse.Namespace) -> list[tuple[str, str]]:
     """(flag, ROADMAP item) of each flag given whose path is not ported."""
     mesh = args.shards > 1
     shards = f"--shards {args.shards}"
     checks = (
         (args.megabatch, "--megabatch", "A2"),
-        (mesh and args.index in SHARDED_SCANS, f"{shards} --index {args.index}",
-         "A8b"),
         (mesh and args.index == "auto", f"{shards} --index auto", "A8c"),
         (mesh and args.index == "hnsw" and args.device_build,
          f"{shards} --device-build", "A8c"),
@@ -332,8 +340,12 @@ def _build(args, ds, params, sp, dev, mesh, timing):
         )
     if args.index == "fastflat":
         # the class-max route (K2) on the card and on the CPU alike; the
-        # JAX command line's CPU runs take the block-max route instead
-        idx = FastFlatIndex(ds.base, metric=params.metric, device=dev)
+        # JAX command line's CPU runs take the block-max route instead, but
+        # its sharded runs the class-max route too
+        if mesh is not None:
+            idx = ShardedFastFlatIndex(ds.base, mesh, metric=params.metric)
+        else:
+            idx = FastFlatIndex(ds.base, metric=params.metric, device=dev)
         return (
             lambda q: idx.search(q, args.k, batch_size=args.batch,
                                  prerank=args.prerank)[0],
@@ -341,28 +353,41 @@ def _build(args, ds, params, sp, dev, mesh, timing):
             idx,
         )
     if args.index == "split":
-        # the int8 split capacity layout (136 B a row at d=128)
-        idx = SplitFlatIndex(
-            ds.base, metric=params.metric, comp_dtype="int8",
-            seed=args.seed, device=dev,
-        )
+        # the int8 split capacity layout (136 B a row at d=128); with
+        # --shards the tables row-shard over the mesh
+        if mesh is not None:
+            idx = ShardedSplitFlatIndex.from_host(
+                ds.base, mesh, metric=params.metric, comp_dtype="int8",
+                seed=args.seed,
+            )
+            nbytes = sum(c.nbytes + a.nbytes for c, a in zip(idx.comp, idx.aux))
+        else:
+            idx = SplitFlatIndex(
+                ds.base, metric=params.metric, comp_dtype="int8",
+                seed=args.seed, device=dev,
+            )
+            nbytes = idx.comp.nbytes + idx.aux.nbytes
         return (
             lambda q: idx.search(q, args.k, batch_size=args.batch,
                                  prerank=args.prerank)[0],
-            idx.comp.nbytes + idx.aux.nbytes,
+            nbytes,
             idx,
         )
     if args.index == "routed":
         # cluster-pruned serving over the split tables, the base resident
         # for the exact re-rank; --probes/--ivf-shared/--ivf-tile map to
-        # (probes, shared, tile), 0 taking the search's auto rules
+        # (probes, shared, tile), 0 taking the search's auto rules; with
+        # --shards the clusters deal round-robin over the mesh and the
+        # exact re-rank reads the resident base (base mode)
         base_dev = torch.from_numpy(
             np.ascontiguousarray(ds.base, dtype=np.float32)).to(dev)
         idx = build_routed_split(
             ds.n, ds.dim, base_dev=base_dev, metric=params.metric,
-            seed=args.seed,
+            seed=args.seed, shards=args.shards if mesh is not None else 1,
         )
         nbytes = idx.comp.nbytes + idx.aux_r.nbytes + idx.gid.nbytes
+        if mesh is not None:
+            idx = ShardedRoutedSplitIndex.from_single(idx, mesh)
         return (
             lambda q: idx.search(
                 q, args.k, probes=args.probes, shared=args.ivf_shared,
@@ -372,7 +397,12 @@ def _build(args, ds, params, sp, dev, mesh, timing):
             idx,
         )
     if args.index == "ivf":
-        idx = IVFIndex(ds.base, metric=params.metric, seed=args.seed, device=dev)
+        if mesh is not None:
+            idx = ShardedIVFIndex(ds.base, mesh, metric=params.metric,
+                                  seed=args.seed)
+        else:
+            idx = IVFIndex(ds.base, metric=params.metric, seed=args.seed,
+                           device=dev)
         if args.ivf_routed:
             return (
                 lambda q: idx.search_routed(

@@ -12,7 +12,10 @@ norms) are this system's state. ``device_graph_from_jax``,
 numpy arrays, so that both packages serve one index, and import nothing of
 JAX. ``row_source_from_jax`` carries a row-keyed base's (key, centers).
 ``sharded_graph_from_jax`` and ``replica_from_jax`` place the JAX
-``ShardedGraph`` and ``HotReplica`` on a mesh of the port.
+``ShardedGraph`` and ``HotReplica`` on a mesh of the port;
+``sharded_fastflat_from_jax``, ``sharded_splitflat_from_jax``,
+``sharded_ivf_from_jax`` and ``sharded_routed_from_jax`` place the JAX
+sharded scan families' tables (gathered to numpy) on one.
 """
 
 from __future__ import annotations
@@ -32,7 +35,14 @@ from shine_tpu_torch.models.routed_split import RoutedSplitIndex
 from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import ext_width
 from shine_tpu_torch.ops.scan_split import comp_width
+from shine_tpu_torch.parallel.fastflat_sharded import (
+    ShardedFastFlatIndex,
+    ShardedSplitFlatIndex,
+    shard_rows,
+)
 from shine_tpu_torch.parallel.hot_cache import HotReplica, replicate_replica
+from shine_tpu_torch.parallel.ivf_sharded import ShardedIVFIndex
+from shine_tpu_torch.parallel.routed_sharded import ShardedRoutedSplitIndex
 from shine_tpu_torch.parallel.mesh import ShardMesh
 from shine_tpu_torch.parallel.sharded import ShardedGraph
 
@@ -305,3 +315,92 @@ def replica_from_jax(arrays: Mapping[str, np.ndarray], *,
     rep = HotReplica(*(_to_torch(np.asarray(arrays[k])) for k in
                        ("hot_ids", "hot_vecs", "hot_sq", "hot_neighbors")))
     return replicate_replica(rep, mesh.devices)
+
+
+def sharded_fastflat_from_jax(arrays: Mapping[str, np.ndarray | None], *, n: int,
+                              dim: int, metric: str | int, mesh: ShardMesh,
+                              row_source=None) -> ShardedFastFlatIndex:
+    """The port's ShardedFastFlatIndex on ``mesh`` holding the JAX
+    ShardedFastFlatIndex's state as global numpy arrays: ``ext`` (ml_dtypes
+    bf16, cut to the port's width), ``vectors`` and ``sqnorms`` (None for
+    a table-only index, ``from_ext``) and ``perm``, each cut into the
+    mesh's row ranges. ``row_source`` (``row_source_from_jax``) gives a
+    table-only index the exact regen re-rank."""
+    ext = _cut_to_width(np.asarray(arrays["ext"]), ext_width(dim), "ext")
+    self = ShardedFastFlatIndex.from_ext(_to_torch(ext), n, mesh, metric, dim=dim,
+                                         row_source=row_source)
+    if arrays.get("vectors") is not None:
+        self.vectors = shard_rows(_to_torch(np.asarray(arrays["vectors"], np.float32)),
+                                   mesh)
+        self.sqnorms = shard_rows(_to_torch(np.asarray(arrays["sqnorms"], np.float32)),
+                                   mesh)
+    if arrays.get("perm") is not None:
+        self.perm = np.asarray(arrays["perm"]).astype(np.int32)
+    return self
+
+
+def sharded_splitflat_from_jax(arrays: Mapping[str, np.ndarray | None], *, n: int,
+                               dim: int, metric: str | int, mesh: ShardMesh,
+                               row_source=None) -> ShardedSplitFlatIndex:
+    """The port's ShardedSplitFlatIndex on ``mesh`` holding the JAX
+    ShardedSplitFlatIndex's global ``comp`` (cut to the port's width),
+    ``aux`` and ``perm`` (None unless ``from_host`` shuffled)."""
+    comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
+    self = ShardedSplitFlatIndex(_to_torch(comp),
+                                 _to_torch(np.asarray(arrays["aux"], np.float32)), n,
+                                 mesh, metric, dim=dim, row_source=row_source)
+    if arrays.get("perm") is not None:
+        self.perm = np.asarray(arrays["perm"]).astype(np.int32)
+    return self
+
+
+def sharded_ivf_from_jax(arrays: Mapping[str, np.ndarray], *, metric: str | int,
+                         mesh: ShardMesh) -> ShardedIVFIndex:
+    """The port's ShardedIVFIndex on ``mesh`` from the JAX ShardedIVFIndex's
+    ``centroids``, ``blocks`` (ml_dtypes bf16), ``block_sq``, ``block_ids``
+    (global arrays in the JAX package's dealt order: shard s's clusters s,
+    s + S, ... contiguous) and host ``base``."""
+    S = mesh.size
+    C = np.asarray(arrays["blocks"]).shape[0]
+    # the JAX package's physical order and its inverse: cluster order again
+    dealt = np.argsort((np.arange(C) % S) * (C // S) + np.arange(C) // S)
+    back = torch.from_numpy(np.argsort(dealt))
+
+    def cluster_order(name, dtype=None):
+        return _to_torch(np.asarray(arrays[name], dtype))[back]
+
+    return ShardedIVFIndex.from_parts(
+        mesh, _to_torch(np.asarray(arrays["centroids"], np.float32)),
+        cluster_order("blocks"), cluster_order("block_sq", np.float32),
+        cluster_order("block_ids", np.int32), np.asarray(arrays["base"], np.float32),
+        metric)
+
+
+def sharded_routed_from_jax(arrays: Mapping[str, np.ndarray | None], *, n: int,
+                            dim: int, metric: str | int, cls: int, cap: int,
+                            mesh: ShardMesh, row_source=None
+                            ) -> ShardedRoutedSplitIndex:
+    """The port's ShardedRoutedSplitIndex on ``mesh`` from the JAX
+    ShardedRoutedSplitIndex's global arrays: ``centroids``, ``comp`` (S
+    equal row ranges, each shard's C/S clusters, its pad cluster and any
+    ingest-pad rows; cut to the port's width), ``aux_r`` and ``gid``; and
+    ``row_source`` (``row_source_from_jax``), or the host-base mode's
+    ``base`` and ``sqnorms``."""
+    S = mesh.size
+    comp = _cut_to_width(np.asarray(arrays["comp"]), comp_width(dim), "comp")
+    aux_r = np.asarray(arrays["aux_r"], np.float32)
+    C = S * (aux_r.shape[0] // S - 1)
+
+    def cut(a):
+        return list(_to_torch(np.ascontiguousarray(a)).chunk(S))
+
+    base = None
+    if arrays.get("base") is not None:
+        base = (_to_torch(np.asarray(arrays["base"], np.float32)),
+                _to_torch(np.asarray(arrays["sqnorms"], np.float32)))
+    return ShardedRoutedSplitIndex(
+        [c.contiguous() for c in cut(comp)], [a.contiguous() for a in cut(aux_r)],
+        cut(np.asarray(arrays["gid"], np.int32)),
+        _to_torch(np.asarray(arrays["centroids"], np.float32)), n, dim,
+        metric_id(metric), mesh, C=C, cap=cap, cls=cls, row_source=row_source,
+        base=base)

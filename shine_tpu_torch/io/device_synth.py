@@ -18,6 +18,13 @@ re-rank exactly from regenerated rows (``ops/distance.py:
 regen_rerank_topk``) at the table's memory alone. The keys, the cluster
 draws and the queries' anchors are the JAX package's from the same seed
 (``ops/threefry.py``), so both packages build the same data.
+
+With ``mesh=`` (``parallel/mesh.py``) the row-keyed datasets ingest row-sharded:
+shard s streams rows [s * n / S, (s + 1) * n / S) on its own device and folds
+their ground truth; the shards' top-``gt_k`` lanes then meet in one
+``all_gather`` and a (dist, id) top-k. The tables come back as per-shard lists
+that equal the single-device tables cut in S, bit for bit, and so does the
+ground truth: a row depends on its global id alone.
 """
 
 from __future__ import annotations
@@ -36,9 +43,6 @@ from shine_tpu_torch.ops.distance import matmul_nt, squared_norms
 from shine_tpu_torch.ops.scan import QUANTUM, ext_width
 from shine_tpu_torch.ops.scan_split import SPLIT_QUANTUM, pack_split_device
 
-_MESH_MSG = "mesh= (row-sharded ingestion) is not ported yet: ROADMAP A8c"
-
-
 @dataclass
 class DeviceDataset:
     base_dev: torch.Tensor  # (n, d) f32 on the card
@@ -54,7 +58,7 @@ class DeviceDataset:
 
 @dataclass
 class DeviceExtDataset:
-    ext_dev: torch.Tensor  # (n, dp) bf16 packed score table
+    ext_dev: torch.Tensor | list  # (n, dp) bf16 packed score table; per shard with mesh=
     n: int
     queries: np.ndarray  # (q, d) f32
     ground_truth: np.ndarray | None  # (q, gt_k) int32
@@ -67,8 +71,8 @@ class DeviceExtDataset:
 
 @dataclass
 class DeviceSplitDataset:
-    comp_dev: torch.Tensor  # (n, dpc) bf16 or int8 component table
-    aux_dev: torch.Tensor  # (2, n) f32: nrm, scl
+    comp_dev: torch.Tensor | list  # (n, dpc) bf16 or int8; per shard with mesh=
+    aux_dev: torch.Tensor | list  # (2, n) f32: nrm, scl; per shard with mesh=
     n: int
     queries: np.ndarray
     ground_truth: np.ndarray | None
@@ -94,16 +98,15 @@ def _pack_ext_rows(x: torch.Tensor, sq: torch.Tensor, dp: int,
     return row.to(torch.bfloat16)
 
 
-def _tile_rows(n: int, rchunk: int, quantum: int, mesh) -> tuple[int, int]:
-    """n rounded up to the quantum, and the chunk halved until it divides
-    n, as the JAX package sizes them (one shard)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
-    n = -(-n // quantum) * quantum
-    while n % rchunk or rchunk > n:
+def _tile_rows(n: int, rchunk: int, quantum: int, shards: int = 1
+               ) -> tuple[int, int]:
+    """n rounded up to ``quantum * shards``, and the chunk halved until it
+    divides a shard's rows, as the JAX package sizes them."""
+    n = -(-n // (quantum * shards)) * quantum * shards
+    while n % (rchunk * shards) or rchunk > n // shards:
         rchunk //= 2
         if rchunk == 0:
-            raise ValueError(f"n={n} is not tileable")
+            raise ValueError(f"n={n} is not tileable over {shards} shards")
     return n, rchunk
 
 
@@ -158,16 +161,16 @@ def _rowkeyed(k1, centers, metric_l2: bool):
     return rows_at
 
 
-def _ingest(n: int, rchunk: int, rows_at, queries, metric_l2: bool,
-            gt_k: int, pack) -> np.ndarray:
-    """Stream rows [0, n) in chunks of ``rchunk`` (``rows_at(lo, m)``): fold
-    each into the exact f32 top-gt_k of the queries and hand it to
-    ``pack(lo, x, sq)``. Returns the ground truth (q, gt_k) int32."""
+def _ingest_span(lo0: int, n: int, rchunk: int, rows_at, queries, metric_l2: bool,
+                 gt_k: int, pack) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stream rows [lo0, lo0 + n) in chunks of ``rchunk`` (``rows_at(lo, m)``):
+    fold each into the exact f32 top-gt_k of the queries and hand it to
+    ``pack(lo, x, sq)``. Returns the fold's (dist, id) keys and ids."""
     dev = queries.device
     qn = squared_norms(queries)[:, None]
     gt_key = torch.empty((queries.shape[0], 0), dtype=torch.int64, device=dev)
     gt_i = torch.empty((queries.shape[0], 0), dtype=torch.int64, device=dev)
-    for lo in range(0, n, rchunk):
+    for lo in range(lo0, lo0 + n, rchunk):
         ids = torch.arange(lo, lo + rchunk, dtype=torch.int64, device=dev)
         x = rows_at(lo, rchunk)
         sq = squared_norms(x)
@@ -175,7 +178,38 @@ def _ingest(n: int, rchunk: int, rows_at, queries, metric_l2: bool,
         dd = qn - 2.0 * dots + sq[None, :] if metric_l2 else 1.0 - dots
         gt_key, gt_i = _fold_topk(gt_key, gt_i, dd, ids, gt_k)
         pack(lo, x, sq)
-    return gt_i.to(torch.int32).cpu().numpy()
+    return gt_key, gt_i
+
+
+def _ingest(n: int, rchunk: int, rows_at, queries, metric_l2: bool,
+            gt_k: int, pack) -> np.ndarray:
+    """``_ingest_span`` over rows [0, n): the ground truth (q, gt_k) int32."""
+    return _ingest_span(0, n, rchunk, rows_at, queries, metric_l2, gt_k,
+                        pack)[1].to(torch.int32).cpu().numpy()
+
+
+def _ingest_sharded(mesh, n: int, rchunk: int, k1, centers, queries,
+                    metric_l2: bool, gt_k: int, pack_shard) -> np.ndarray:
+    """Shard s streams its rows [s * n / S, (s + 1) * n / S) on its device,
+    handing each chunk to ``pack_shard(s, lo - s * n / S, x, sq)``; the
+    shards' folds meet in one all_gather and a (dist, id) top-gt_k, which
+    is the single stream's fold. Returns the ground truth (q, gt_k) int32."""
+    S = mesh.size
+    n_loc = n // S
+    cents, qs = mesh.replicate(centers), mesh.replicate(queries)
+    keys, ids = [], []
+    for s in range(S):
+        rows_at = _rowkeyed(k1, cents[s], metric_l2)
+        key_s, i_s = _ingest_span(
+            s * n_loc, n_loc, rchunk, rows_at, qs[s], metric_l2, gt_k,
+            lambda lo, x, sq, s=s: pack_shard(s, lo - s * n_loc, x, sq))
+        keys.append(key_s)
+        ids.append(i_s)
+    nq = queries.shape[0]
+    all_key = mesh.all_gather(keys)[0].reshape(S, nq, -1).transpose(0, 1).reshape(nq, -1)
+    all_i = mesh.all_gather(ids)[0].reshape(S, nq, -1).transpose(0, 1).reshape(nq, -1)
+    sel = torch.topk(all_key, min(gt_k, all_key.shape[1]), dim=1, largest=False)[1]
+    return torch.gather(all_i, 1, sel).to(torch.int32).cpu().numpy()
 
 
 def device_rowkeyed_split_dataset(
@@ -196,27 +230,41 @@ def device_rowkeyed_split_dataset(
     row in int8, 256 in bf16, at d=128), with the exact f32 ground truth
     folded during the stream, on ``device`` (the CUDA card unless another
     is given). n is rounded up to SPLIT_QUANTUM rows, all of them real.
-    The JAX package's ``device_rowkeyed_split_dataset``."""
-    dev = resolve_device(device)
-    n, rchunk = _tile_rows(n, rchunk, SPLIT_QUANTUM, mesh)
-    metric_l2 = metric_id(metric) == METRIC_L2
+    With ``mesh`` (a ``ShardMesh``; ``device`` is then its first shard's)
+    n is rounded up to SPLIT_QUANTUM * S rows, each shard ingests its row
+    range on its device, and ``comp_dev`` and ``aux_dev`` are per-shard
+    lists, (n / S, dpc) and (2, n / S). The JAX package's
+    ``device_rowkeyed_split_dataset``."""
+    S = mesh.size if mesh is not None else 1
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    n, rchunk = _tile_rows(n, rchunk, SPLIT_QUANTUM, S)
+    mid = metric_id(metric)
+    metric_l2 = mid == METRIC_L2
     k1, centers, queries = _rowkeyed_recipe(n, dim, num_queries, num_clusters,
                                             seed, metric_l2, dev)
-    tables = {}
+    n_loc = n // S
+    comps: list = [None] * S
+    auxs: list = [None] * S
 
-    def pack(lo, x, sq):
-        comp_c, aux_c = pack_split_device(x, metric_id(metric), comp_dtype=comp_dtype)
-        if not tables:
-            tables["comp"] = torch.empty((n, comp_c.shape[1]), dtype=comp_c.dtype,
-                                         device=dev)
-            tables["aux"] = torch.empty((2, n), dtype=torch.float32, device=dev)
-        tables["comp"][lo:lo + x.shape[0]] = comp_c
-        tables["aux"][:, lo:lo + x.shape[0]] = aux_c
+    def pack_shard(s, lo, x, sq):
+        comp_c, aux_c = pack_split_device(x, mid, comp_dtype=comp_dtype)
+        if comps[s] is None:
+            comps[s] = torch.empty((n_loc, comp_c.shape[1]), dtype=comp_c.dtype,
+                                   device=x.device)
+            auxs[s] = torch.empty((2, n_loc), dtype=torch.float32, device=x.device)
+        comps[s][lo:lo + x.shape[0]] = comp_c
+        auxs[s][:, lo:lo + x.shape[0]] = aux_c
 
-    gt = _ingest(n, rchunk, _rowkeyed(k1, centers, metric_l2), queries, metric_l2,
-                 gt_k, pack)
+    if mesh is None:
+        gt = _ingest(n, rchunk, _rowkeyed(k1, centers, metric_l2), queries,
+                     metric_l2, gt_k, lambda lo, x, sq: pack_shard(0, lo, x, sq))
+        comp_dev, aux_dev = comps[0], auxs[0]
+    else:
+        gt = _ingest_sharded(mesh, n, rchunk, k1, centers, queries, metric_l2, gt_k,
+                             pack_shard)
+        comp_dev, aux_dev = comps, auxs
     return DeviceSplitDataset(
-        comp_dev=tables["comp"], aux_dev=tables["aux"], n=n,
+        comp_dev=comp_dev, aux_dev=aux_dev, n=n,
         queries=queries.cpu().numpy(), ground_truth=gt, metric=metric,
         name=f"device-rowkeyed-split-{n}x{dim}-{comp_dtype}",
         row_source=(k1, centers))
@@ -240,22 +288,34 @@ def device_rowkeyed_ext_dataset(
     during the stream, on ``device`` (the CUDA card unless another is
     given). n is rounded up to the table's 4096-row quantum. The table is
     the port's width (``ops/scan.py:ext_width``); its first d+2 columns are
-    the JAX package's. The JAX package's ``device_rowkeyed_ext_dataset``."""
-    dev = resolve_device(device)
-    n, rchunk = _tile_rows(n, rchunk, QUANTUM, mesh)
+    the JAX package's. With ``mesh`` (a ``ShardMesh``; ``device`` is then
+    its first shard's) n is rounded up to 4096 * S rows, each shard ingests
+    its row range on its device, and ``ext_dev`` is a per-shard list of
+    (n / S, dp) tables. The JAX package's ``device_rowkeyed_ext_dataset``."""
+    S = mesh.size if mesh is not None else 1
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    n, rchunk = _tile_rows(n, rchunk, QUANTUM, S)
     metric_l2 = metric_id(metric) == METRIC_L2
     dp = ext_width(dim)
     k1, centers, queries = _rowkeyed_recipe(n, dim, num_queries, num_clusters,
                                             seed, metric_l2, dev)
-    ext = torch.empty((n, dp), dtype=torch.bfloat16, device=dev)
+    n_loc = n // S
+    exts = [torch.empty((n_loc, dp), dtype=torch.bfloat16, device=d)
+            for d in (mesh.devices if mesh is not None else [dev])]
 
-    def pack(lo, x, sq):
-        ext[lo:lo + x.shape[0]] = _pack_ext_rows(x, sq, dp, metric_l2)
+    def pack_shard(s, lo, x, sq):
+        exts[s][lo:lo + x.shape[0]] = _pack_ext_rows(x, sq, dp, metric_l2)
 
     rows_at = _rowkeyed(k1, centers, metric_l2)
-    gt = _ingest(n, rchunk, rows_at, queries, metric_l2, gt_k, pack)
+    if mesh is None:
+        gt = _ingest(n, rchunk, rows_at, queries, metric_l2, gt_k,
+                     lambda lo, x, sq: pack_shard(0, lo, x, sq))
+    else:
+        gt = _ingest_sharded(mesh, n, rchunk, k1, centers, queries, metric_l2, gt_k,
+                             pack_shard)
     return DeviceExtDataset(
-        ext_dev=ext, n=n, queries=queries.cpu().numpy(), ground_truth=gt,
+        ext_dev=exts[0] if mesh is None else exts, n=n,
+        queries=queries.cpu().numpy(), ground_truth=gt,
         metric=metric, name=f"device-rowkeyed-{n}x{dim}",
         regen=lambda c: rows_at(c * rchunk, rchunk), rchunk=rchunk,
         row_source=(k1, centers))
@@ -286,7 +346,7 @@ def device_synthetic_dataset(
     device (``FlatIndex``, f32 throughout). n is rounded up to a multiple of
     4096. The JAX package's ``device_synthetic_dataset``."""
     dev = resolve_device(device)
-    n, rchunk = _tile_rows(n, rchunk, QUANTUM, None)
+    n, rchunk = _tile_rows(n, rchunk, QUANTUM)
     normalize = metric_id(metric) != METRIC_L2
     centers, k1, k2, k3 = _recipe_keys(seed, num_clusters, dim, dev)
     keys = tf.split(k1, n // rchunk)
@@ -327,7 +387,7 @@ def device_synthetic_ext_dataset(
     packed, then dropped. The queries sit near rows of chunk 0. ``regen(c)``
     regenerates chunk c. The JAX package's ``device_synthetic_ext_dataset``."""
     dev = resolve_device(device)
-    n, rchunk = _tile_rows(n, rchunk, QUANTUM, None)
+    n, rchunk = _tile_rows(n, rchunk, QUANTUM)
     metric_l2 = metric_id(metric) == METRIC_L2
     dp = ext_width(dim)
     centers, k1, k2, k3 = _recipe_keys(seed, num_clusters, dim, dev)
@@ -363,7 +423,7 @@ def streaming_eps_recall(ds: DeviceExtDataset, found_ids: np.ndarray, k: int, *,
         raise ValueError("the dataset carries no chunk regenerator")
     found = np.asarray(found_ids)[:, :k]
     gt = np.asarray(ds.ground_truth)[:, :k]
-    dev = ds.ext_dev.device
+    dev = ds.row_source[1].device if ds.row_source is not None else ds.ext_dev.device
     qd = torch.from_numpy(np.ascontiguousarray(ds.queries, np.float32)).to(dev)
 
     def exact(ids: np.ndarray) -> np.ndarray:

@@ -239,17 +239,39 @@ def _candidates(out: tuple, kb_eff: int, fused: bool):
     return torch.cat([v1, v2], 1), torch.cat([cand1, cand2], 1)
 
 
-def _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
-                  row_source=None):
-    """Trim to ``prerank`` candidates by the scan's scores, then re-rank
-    exactly in f32: from the resident rows, else from rows regenerated by
-    id from ``row_source``."""
-    if prerank and max(prerank, k) < cand.shape[-1]:
-        cand = score_trim(vals, cand, max(prerank, k))
-    if vectors is not None:
-        return rerank_topk(vectors, sqnorms, q, cand, k, metric)
-    key, centers = row_source
-    return regen_rerank_topk(key, centers, q, cand, k, metric)
+def _global(ids: torch.Tensor, offset: int) -> torch.Tensor:
+    """A shard's local rows as global ids, -1 kept."""
+    return torch.where(ids >= 0, ids + offset, -1)
+
+
+def _rerank(table_rerank, vals, cand, kb_eff, vectors, sqnorms, q, k, metric,
+            prerank, row_source, offset):
+    """The re-rank of a batch's candidates: from the tables
+    (``table_rerank(cand, width)``, no trim) when there are neither f32 rows
+    nor a ``row_source``, else exactly in f32 from the resident rows or from
+    rows regenerated by id, after a trim by the scan's own scores. On one
+    card (``offset`` None) the trim keeps max(prerank, k) candidates and the
+    top k come back. On a shard of a row-sharded index (``offset``: the
+    shard's first global row) the JAX package's sharded rule holds: the trim
+    keeps ``prerank`` candidates when k <= prerank < the lanes, the shard
+    returns kb_eff lanes (prerank after a trim) for the merge, and its ids
+    are global: rows regenerate by global id."""
+    shard = offset is not None
+    width = kb_eff if shard else k
+    if vectors is None and row_source is None:
+        dd, ii = table_rerank(cand, width)
+    else:
+        if shard and prerank and k <= prerank < cand.shape[-1]:
+            cand, width = score_trim(vals, cand, prerank), prerank
+        elif not shard and prerank and max(prerank, k) < cand.shape[-1]:
+            cand = score_trim(vals, cand, max(prerank, k))
+        if vectors is None:
+            key, centers = row_source
+            if shard:
+                cand = _global(cand, offset)
+            return regen_rerank_topk(key, centers, q, cand, width, metric)
+        dd, ii = rerank_topk(vectors, sqnorms, q, cand, width, metric)
+    return (dd, _global(ii, offset)) if shard else (dd, ii)
 
 
 def _blockmax_candidates(ext, q_ext, kb: int):
@@ -268,7 +290,7 @@ def _blockmax_candidates(ext, q_ext, kb: int):
 def fast_flat_search(
     ext, vectors, sqnorms, q_ext, q, *, k, kb, tq, tn, cls, metric,
     keep2=False, n=0, approx_sel=False, prerank=0, fused_sel=False,
-    blockmax=False, row_source=None,
+    blockmax=False, row_source=None, offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batch: class-max scan, select of kb classes, optional score
     trim, exact re-rank. (dists (B, k), ids (B, k)). ``approx_sel`` takes
@@ -278,8 +300,10 @@ def fast_flat_search(
     ``cls``, ``keep2``, ``approx_sel`` and ``fused_sel`` play no part.
     Without f32 rows (``vectors`` None) the re-rank regenerates the rows
     from ``row_source``, or without one reads the bf16 table and
-    ``prerank`` is not applied, as in the JAX package."""
+    ``prerank`` is not applied, as in the JAX package. With ``offset`` the
+    batch is one shard's of a row-sharded index (``_rerank``)."""
     if blockmax:
+        kb_eff = kb
         vals, cand = _blockmax_candidates(ext, q_ext, kb)
     else:
         kb_eff = min(kb, cls)
@@ -293,15 +317,14 @@ def fast_flat_search(
         vals, cand = _candidates(out, kb_eff, fused)
     limit = n or vectors.shape[0]
     cand = torch.where(cand < limit, cand, -1)  # pad rows and empty classes
-    if vectors is None and row_source is None:
-        return rerank_topk_ext(ext, q, cand, k, metric)
-    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
-                         row_source)
+    return _rerank(lambda c, w: rerank_topk_ext(ext, q, c, w, metric), vals, cand,
+                   kb_eff, vectors, sqnorms, q, k, metric, prerank, row_source,
+                   offset)
 
 
 def split_flat_search(
     comp, aux, vectors, sqnorms, q, *, k, kb, cls, metric, keep2=False, n=0,
-    approx_sel=False, prerank=0, fused_sel=False, row_source=None,
+    approx_sel=False, prerank=0, fused_sel=False, row_source=None, offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batch on the split tables (the JAX package's
     ``split_flat_search_at`` and ``_split_flat_batch``): pad the f32
@@ -309,7 +332,8 @@ def split_flat_search(
     select of kb classes, optional score trim, exact re-rank; without f32
     rows the re-rank regenerates the rows from ``row_source``, or without
     one reads the split tables (``rerank_topk_split``) and ``prerank`` is
-    not applied. (dists (B, k), ids (B, k))."""
+    not applied. (dists (B, k), ids (B, k)). With ``offset`` the batch is
+    one shard's of a row-sharded index (``_rerank``)."""
     q_pad = pack_split_query(q, comp.shape[1])
     kb_eff = min(kb, cls)
     fused = fused_sel and not approx_sel
@@ -320,10 +344,9 @@ def split_flat_search(
         out = cm.classmax_scan_split(comp, aux, q_pad, cls=cls, keep2=keep2)
     vals, cand = _candidates(out, kb_eff, fused)
     cand = torch.where(cand < (n or comp.shape[0]), cand, -1)
-    if vectors is None and row_source is None:
-        return rerank_topk_split(comp, aux, q, cand, k, metric)
-    return _exact_rerank(vals, cand, vectors, sqnorms, q, k, metric, prerank,
-                         row_source)
+    return _rerank(lambda c, w: rerank_topk_split(comp, aux, q, c, w, metric), vals,
+                   cand, kb_eff, vectors, sqnorms, q, k, metric, prerank, row_source,
+                   offset)
 
 
 class _ClassMaxIndex:

@@ -592,16 +592,22 @@ def route_batch(cents: torch.Tensor, q: torch.Tensor, *, metric: int, p: int,
     and ``q_granted`` (in sorted order) are ``_route_cols``'."""
     B = q.shape[0]
     probes_ = top_k(-pairwise_distance(q, cents, metric), p)[1]
-    # two stable argsorts: the exact (nearest, second nearest) lexsort
-    if p > 1:
+    perm, inv = affinity_order(probes_)
+    cols, coverage, q_granted = _route_cols(
+        probes_[perm].reshape(B // T, T, p), C, P)
+    return perm, inv, cols, coverage, q_granted
+
+
+def affinity_order(probes_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The affinity sort of a batch by its queries' (nearest, second
+    nearest) probes (B, p), by two stable argsorts (the exact lexsort):
+    (perm, inv), ``inv`` undoing ``perm``."""
+    if probes_.shape[1] > 1:
         perm = torch.argsort(probes_[:, 1], stable=True)
         perm = perm[torch.argsort(probes_[perm, 0], stable=True)]
     else:
         perm = torch.argsort(probes_[:, 0], stable=True)
-    inv = torch.argsort(perm, stable=True)
-    cols, coverage, q_granted = _route_cols(
-        probes_[perm].reshape(B // T, T, p), C, P)
-    return perm, inv, cols, coverage, q_granted
+    return perm, torch.argsort(perm, stable=True)
 
 
 def ivf_routed_search(

@@ -321,15 +321,16 @@ def _cluster_major_order(assign: np.ndarray, C: int, cap: int) -> np.ndarray:
 
 
 def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
-                 kmeans_iters, seed, say, assign_r=8,
+                 kmeans_iters, seed, say, assign_r=8, shards: int = 1,
                  device: torch.device | str = "cpu"):
     """Stages A-C of the routed build: train the centroids, stream each
     row's ``assign_r`` nearest centroids, assign rows to clusters under the
-    capacity and lay them out cluster-major. Returns (centroids (C, d) f32
-    on ``device``, order ((C+1)*cap,) int32 numpy with -1 for an empty
-    slot, C, cap)."""
+    capacity and lay them out cluster-major. C is a multiple of ``shards``
+    (the sharded index deals clusters round-robin). Returns (centroids
+    (C, d) f32 on ``device``, order ((C+1)*cap,) int32 numpy with -1 for an
+    empty slot, C, cap)."""
     cap = _round_up(max(cap_target, 4 * cls), 4 * cls)
-    C = max(2, math.ceil(cap_slack * n / cap))
+    C = _round_up(max(2, shards, math.ceil(cap_slack * n / cap)), shards)
     t0 = time.perf_counter()
 
     # A: train on a sample of at least 96 rows a cluster (at most 2M rows)
@@ -456,6 +457,7 @@ def build_routed_split(
     cap_target: int = 4096,
     cls: int = 1024,
     cap_slack: float = 1.05,
+    shards: int = 1,
     comp_dtype: str = "int8",
     train_size: int = 131_072,
     kmeans_iters: int = 20,
@@ -471,10 +473,11 @@ def build_routed_split(
     on its device.
 
     cap is ``cap_target`` rounded up to a multiple of 4*cls, and C =
-    ceil(cap_slack*n/cap) clusters follow (at least 2; the JAX package's
-    ``shards`` rounding belongs to the sharded build, not ported), plus a
-    pad cluster C (nrm NEG,
-    gid -1) that takes ungranted columns. Stages: A. train balanced
+    ceil(cap_slack*n/cap) clusters follow (at least 2 and ``shards``,
+    rounded up to a multiple of ``shards`` so that
+    ``ShardedRoutedSplitIndex.from_single`` can deal them over a mesh of
+    that many shards), plus a pad cluster C (nrm NEG, gid -1) that takes
+    ungranted columns. Stages: A. train balanced
     k-means centroids on a sample and order them in space; B. stream each
     row's ``assign_r`` nearest centroids; C. assign under the capacity,
     nearest first, and lay out cluster-major; D. pack the rows in that
@@ -499,7 +502,7 @@ def build_routed_split(
         n, dim, rowfn=rowfn, cap_target=cap_target, cls=cls,
         cap_slack=cap_slack, train_size=train_size,
         kmeans_iters=kmeans_iters, seed=seed, say=say, assign_r=assign_r,
-        device=dev)
+        shards=shards, device=dev)
     gt_i = None
     if queries is not None:
         t0 = time.perf_counter()

@@ -19,6 +19,21 @@ from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.parallel.mesh import ShardMesh
 
 
+def merge_topk(mesh: ShardMesh, dd: list[torch.Tensor], ii: list[torch.Tensor],
+               k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The merge of every sharded scan: all-gather the shards' (B, w)
+    (dist, global id) lanes and keep the k best by (dist, id), -1 ids last
+    among equal dists: (dists (B, k), ids (B, k)) on the first shard's
+    device."""
+    S = mesh.size
+    B = dd[0].shape[0]
+    all_d = mesh.all_gather(dd)[0].reshape(S, B, -1).transpose(0, 1).reshape(B, -1)
+    all_i = mesh.all_gather(ii)[0].reshape(S, B, -1).transpose(0, 1).reshape(B, -1)
+    pos = torch.topk(dist_id_key(all_d, all_i), min(k, all_d.shape[1]), dim=1,
+                     largest=False, sorted=True)[1]
+    return torch.gather(all_d, 1, pos), torch.gather(all_i, 1, pos)
+
+
 class ShardedFlatIndex:
     """Exact k-NN over the shards of ``mesh``."""
 
@@ -57,15 +72,7 @@ class ShardedFlatIndex:
                                  metric=self.metric, use_bf16=use_bf16)
             dd.append(ld)
             ii.append(torch.where(li >= 0, li + s * self.rows, -1))
-        B = q.shape[0]
-        # the merge: every shard's (B, k) lanes, one (dist, id) top-k
-        all_d = self.mesh.all_gather(dd)[0].reshape(S, B, k).transpose(0, 1)
-        all_i = self.mesh.all_gather(ii)[0].reshape(S, B, k).transpose(0, 1)
-        all_d = all_d.reshape(B, S * k)
-        all_i = all_i.reshape(B, S * k)
-        pos = torch.topk(dist_id_key(all_d, all_i), k, dim=1, largest=False,
-                         sorted=True)[1]
-        return torch.gather(all_d, 1, pos), torch.gather(all_i, 1, pos)
+        return merge_topk(self.mesh, dd, ii, k)
 
     def search(self, queries: np.ndarray, k: int = 10, *,
                batch_size: int = 4096, chunk: int = 65536,

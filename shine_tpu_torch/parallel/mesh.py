@@ -48,14 +48,20 @@ class ShardMesh:
         """Each part on its shard's device."""
         return [p.to(d) for p, d in zip(parts, self.devices)]
 
+    def per_device(self, fn) -> list:
+        """``fn(s)`` once a distinct device, s the first shard on it: one
+        entry a shard, shared by the shards that sit on one device (a
+        replicated computation such as a routing plan)."""
+        done: dict = {}
+        for s, d in enumerate(self.devices):
+            if d not in done:
+                done[d] = fn(s)
+        return [done[d] for d in self.devices]
+
     def replicate(self, t: torch.Tensor) -> list[torch.Tensor]:
         """``t`` on every shard: one copy a distinct device, shared by the
         shards that sit on it."""
-        copies: dict[torch.device, torch.Tensor] = {}
-        for d in self.devices:
-            if d not in copies:
-                copies[d] = t.to(d)
-        return [copies[d] for d in self.devices]
+        return self.per_device(lambda s: t.to(self.devices[s]))
 
     def scatter(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Split ``t`` along dim 0 into S equal slices, slice s to shard s."""

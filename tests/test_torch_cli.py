@@ -301,12 +301,8 @@ def test_ivf_routed_flag_ignored_elsewhere(capsys):
 
 UNPORTED = {
     "megabatch": (["--index", "fastflat", "--megabatch"], "A2"),
-    "shards": (["--index", "fastflat", "--shards", "2"], "A8b"),
-    "cache": (["--index", "split", "--shards", "2", "--cache"], "A8b"),
     "exchange": (["--index", "auto", "--shards", "2", "--exchange", "compact"],
                  "A8c"),
-    "routed": (["--index", "routed", "--shards", "4"], "A8b"),
-    "ivf": (["--index", "ivf", "--shards", "4", "--ivf-routed"], "A8b"),
     "device_build": (["--index", "hnsw", "--shards", "4", "--device-build"],
                      "A8c"),
     "fast_build": (["--index", "hnsw", "--shards", "4", "--fast-build"], "A8c"),
@@ -367,6 +363,67 @@ def test_sharded_flat_against_jax_cli(capsys):
                 "ici_exchange_bytes"):
         assert tdoc["queries"][key] == jdoc["queries"][key], key
     assert tdoc["queries"]["recall"] == jdoc["queries"]["recall"] == pytest.approx(1.0)
+
+
+# the sharded scan families: both command lines on one argv over a mesh of 4
+# shards (the port's on the CPU); split with --cache, which both ignore off
+# hnsw. The builds take the JAX package's draws (the routed build's sample,
+# k-means init and the farthest-point init), so that both hold one layout
+SHARDED_SCANS = {
+    "fastflat": DENSE_CASES["fastflat"],
+    "split_cache": DENSE_CASES["split"] + ["--cache"],
+    "routed": DENSE_CASES["routed"],
+    "ivf": IVF_CASES["ivf"],
+    "ivf_routed": IVF_CASES["ivf_routed"],
+}
+
+
+@pytest.mark.parametrize("case", list(SHARDED_SCANS))
+def test_sharded_scan_family_against_jax_cli(case, capsys, monkeypatch):
+    import jax
+    import jax.numpy as jnp
+
+    from shine_tpu_torch.models import ivf as tivf
+    from shine_tpu_torch.models import routed_split as trs
+    from shine_tpu_torch.parallel import placement as tpl
+
+    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
+        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
+    monkeypatch.setattr(trs, "_draw_train_ids", lambda n, ts, seed: torch.from_numpy(
+        np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (ts,), 0, n,
+                                      dtype=jnp.int32)).astype(np.int64)))
+    monkeypatch.setattr(tivf, "_draw_init_ids", lambda n, k, seed: torch.from_numpy(
+        np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n, (k,),
+                                     replace=False)).astype(np.int64)))
+    argv = SHARDED_SCANS[case] + ["--shards", "4"]
+    jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
+    _same_shape(jdoc, tdoc)
+    assert tdoc["meta"]["num_shards"] == 4
+    assert tdoc["meta"]["shard_devices"] == ["cpu"] * 4
+    jq, tq = jdoc["queries"], tdoc["queries"]
+    for key in ("scanned_rows", "distance_computations", "expansions",
+                "ici_exchange_bytes"):
+        assert tq[key] == jq[key], key
+    assert tq["ici_exchange_bytes"] > 0
+    index = case.split("_")[0]
+    if index == "ivf":
+        assert tq["hbm_gather_bytes"] == jq["hbm_gather_bytes"]
+        assert tdoc["build"]["index_size_in_bytes"] == jdoc["build"]["index_size_in_bytes"]
+    else:
+        # the scanned share of the bytes at each package's row width; the
+        # routed count has no re-rank term
+        d = 16
+        rerank = 0 if index == "routed" else \
+            (tq["distance_computations"] - tq["scanned_rows"]) * d * 4
+        t_scan = tq["hbm_gather_bytes"] - rerank
+        j_scan = jq["hbm_gather_bytes"] - rerank
+        assert t_scan * _jax_row_bytes(index, d) == j_scan * _port_row_bytes(index, d)
+    if index == "routed":
+        # one plan but k-means sums in other orders: C5's dense rule
+        assert abs(tq["recall"] - jq["recall"]) <= DENSE_RECALL_GAP
+    else:
+        assert tq["recall"] == jq["recall"]
+    assert tq["recall"] > 0.95
 
 
 def test_cli_refuses_without_a_card(monkeypatch):

@@ -82,10 +82,13 @@ def _clean_env():
     "shine_tpu_torch.ops.distance",
     "shine_tpu_torch.ops.threefry",
     "shine_tpu_torch.parallel",
+    "shine_tpu_torch.parallel.fastflat_sharded",
     "shine_tpu_torch.parallel.flat_sharded",
     "shine_tpu_torch.parallel.hot_cache",
+    "shine_tpu_torch.parallel.ivf_sharded",
     "shine_tpu_torch.parallel.mesh",
     "shine_tpu_torch.parallel.placement",
+    "shine_tpu_torch.parallel.routed_sharded",
     "shine_tpu_torch.parallel.router",
     "shine_tpu_torch.parallel.sharded",
     "shine_tpu_torch.utils",

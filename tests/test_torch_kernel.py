@@ -7,7 +7,9 @@ has no kernel of its own, against the CPU; ROADMAP C11, one query's
 answer at any batch size, for every family; and the sharded HNSW search
 stacked on the card: one answer, bit for bit, across shard counts,
 exchanges, the replica and routing, and equal to a CPU mesh on integer
-rows.
+rows; the sharded scan families (FastFlat, split, IVF, routed) on a card
+mesh equal to a CPU mesh on integer rows, their kernels at per-shard shapes,
+and C11 for the sharded FastFlat, split and IVF.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -1603,3 +1605,134 @@ def test_sharded_card_mesh_equals_cpu_mesh_on_integer_rows(card):
         for c in ("last_hops", "cache_hits", "cache_misses", "rpc_rounds",
                   "ici_lanes", "ici_bytes"):
             assert getattr(gidx, c) == getattr(cidx, c), c
+
+
+# --- the sharded scan families, their shards stacked on the card -------------
+
+SCAN_S = 4
+
+
+def _sharded_scans(base, mesh, layouts=None):
+    """(name, run(q, B) -> (ids, dists), index) for each sharded scan family
+    on ``mesh``, built from the same host rows. The IVF layout and the
+    routed index come from ``layouts`` (built once on the CPU: k-means on
+    the card sums in another order and may cluster otherwise), else are
+    built on the mesh's first device."""
+    from shine_tpu_torch import build_routed_split
+    from shine_tpu_torch.models.ivf import build_ivf_layout
+    from shine_tpu_torch.parallel import (
+        ShardedFastFlatIndex,
+        ShardedIVFIndex,
+        ShardedRoutedSplitIndex,
+        ShardedSplitFlatIndex,
+    )
+
+    n, d = base.shape
+    if layouts is None:
+        dev = mesh.devices[0]
+        layouts = (build_ivf_layout(base, 256, seed=7, device=dev),
+                   build_routed_split(n, d, base_dev=torch.from_numpy(base).to(dev),
+                                      cap_target=512, cls=128, seed=3, shards=SCAN_S))
+    layout, single = layouts
+    fast = ShardedFastFlatIndex(base, mesh, seed=1)
+    split = ShardedSplitFlatIndex.from_host(base, mesh, comp_dtype="int8", seed=1)
+    ivf = ShardedIVFIndex.from_parts(mesh, layout.centroids, layout.blocks,
+                                     layout.block_sq, layout.block_ids, base)
+    routed = ShardedRoutedSplitIndex.from_single(single, mesh)
+    return {
+        "fastflat": (lambda q, B: fast.search(q, 10, batch_size=B), fast),
+        "fastflat_keep2": (lambda q, B: fast.search(q, 10, kb=32, keep2=True,
+                                                    batch_size=B), fast),
+        "split_int8": (lambda q, B: split.search(q, 10, batch_size=B), split),
+        "ivf_compact": (lambda q, B: ivf.search(q, 10, probes=16, batch_size=B), ivf),
+        "ivf_dense": (lambda q, B: ivf.search(q, 10, probes=16, batch_size=B,
+                                              probe_lanes="dense"), ivf),
+        "ivf_routed": (lambda q, B: ivf.search_routed(q, 10, probes=8, shared=16,
+                                                      tile=32, batch_size=B), ivf),
+        "routed": (lambda q, B: routed.search(q, 10, probes=8, shared=16, tile=32,
+                                              batch_size=B), routed),
+    }
+
+
+SCAN_COUNTERS = ("rpc_rounds", "scanned_lanes", "last_coverage", "last_overflow",
+                 "last_lanes", "last_fallback")
+
+
+@pytest.mark.parametrize("family", ["fastflat", "fastflat_keep2", "split_int8",
+                                    "ivf_compact", "ivf_dense", "ivf_routed", "routed"])
+def test_sharded_scans_card_mesh_equals_cpu_mesh(card, family):
+    """Integer rows (every sum exact): each sharded scan family on a mesh of
+    4 shards stacked on the card gives the CPU mesh's ids, distance bits and
+    counters (the IVF layout and the routed index built once, on the CPU)."""
+    from shine_tpu_torch.parallel import shard_mesh
+
+    rng = np.random.default_rng(33)
+    base = rng.integers(-8, 9, size=(65_536, 16)).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(256, 16)).astype(np.float32)
+    from shine_tpu_torch import build_routed_split
+    from shine_tpu_torch.models.ivf import build_ivf_layout
+
+    layouts = (build_ivf_layout(base, 256, seed=7, device="cpu"),
+               build_routed_split(65_536, 16, base_dev=torch.from_numpy(base),
+                                  cap_target=512, cls=128, seed=3, shards=SCAN_S))
+    got = {}
+    for where in (card, "cpu"):
+        run, idx = _sharded_scans(base, shard_mesh(SCAN_S, device=where),
+                                  layouts)[family]
+        got[str(where)] = (*run(queries, 128),
+                           {c: getattr(idx, c) for c in SCAN_COUNTERS if hasattr(idx, c)})
+    (gi, gd, gc), (ci, cd, cc) = got[str(card)], got["cpu"]
+    np.testing.assert_array_equal(gi, ci)
+    np.testing.assert_array_equal(gd.view(np.int32), cd.view(np.int32))
+    assert gc == cc
+
+
+def test_sharded_scan_kernels_at_per_shard_shapes(card):
+    """Every K2 and K3 form at the shapes a shard of the 1M sets gives them
+    (253,952 and 262,144 rows, d=128) and K4 at 270 clusters with 98 lanes
+    a group: the kernels equal their twins bit for bit on integer rows."""
+    from shine_tpu_torch.ops import classmax as cm
+    from shine_tpu_torch.ops.scan_routed import routed_classmax_scan, routed_classmax_scan_ref
+
+    rng = np.random.default_rng(5)
+    ext = torch.from_numpy(rng.integers(-4, 5, size=(253_952, 144)).astype(
+        np.float32)).to(card).to(torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-4, 5, size=(512, 144)).astype(
+        np.float32)).to(card).to(torch.bfloat16)
+    for fn, ref, kw in ((cm.classmax_scan, cm.classmax_scan_ref, {}),
+                        (cm.classmax2_scan, cm.classmax2_scan_ref, {}),
+                        (cm.classmax_topk_scan, cm.classmax_topk_scan_ref, {"kb": 16}),
+                        (cm.classmax2_topk_scan, cm.classmax2_topk_scan_ref, {"kb": 32})):
+        for g, w in zip(fn(ext, q, cls=2048, **kw), ref(ext, q, cls=2048, **kw)):
+            assert torch.equal(g, w), fn.__name__
+    del ext
+    for comp_dtype in ("int8", "bf16"):
+        comp, aux, qs = _k3_tables(rng, 262_144, 128, 512, comp_dtype, card)
+        for fn in _K3_FNS:
+            for keep2 in (False, True):
+                _, run = _k3_call(fn, keep2, cls=2048, kb=32)
+                _, twin = _k3_call(fn, keep2, ref=True, cls=2048, kb=32)
+                for g, w in zip(run(comp, aux, qs), twin(comp, aux, qs)):
+                    assert torch.equal(g, w), (comp_dtype, fn, keep2)
+    comp, aux_r, q, cols, cap, cls = _k4_tables(rng, 128, "int8", card, 64, G=4, P=98,
+                                                C=269, cap=1024, cls=256)
+    for g, w in zip(routed_classmax_scan(comp, aux_r, q, cols, T=64, cap=cap, cls=cls),
+                    routed_classmax_scan_ref(comp, aux_r, q, cols, T=64, cap=cap, cls=cls)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("family", ["fastflat", "split_int8", "ivf_compact"])
+def test_c11_sharded_one_query_one_answer_at_any_batch(card, c11_set, family):
+    """ROADMAP C11 on a mesh of 4 shards stacked on the card: 64 queries
+    inside batches of 64, 2,048 and 16,384 keep their ids and distance bits
+    (the IVF re-rank runs on the host in numpy)."""
+    from shine_tpu_torch.parallel import shard_mesh
+
+    ds = c11_set
+    run, _ = _sharded_scans(ds.base, shard_mesh(SCAN_S, device=card))[family]
+    q64, filler = ds.queries[:64], ds.queries[64:]
+    results = []
+    for B in C11_BATCHES:
+        ids, dd = run(_c11_batch(q64, filler, B), B)
+        results.append((ids[:64], dd[:64]))
+    _c11_same(results, f"sharded {family}")

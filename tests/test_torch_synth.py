@@ -54,6 +54,7 @@ from shine_tpu_torch.ops import distance as td
 from shine_tpu_torch.ops import regen
 from shine_tpu_torch.ops import threefry as tf
 from shine_tpu_torch.parallel import placement as tpl
+from shine_tpu_torch.parallel import shard_mesh
 
 # a row's values: c[a] + a normal, within 4 ulps of the row's norm (the
 # normal's 3, and the sum's rounding); unit rows (IP) add the norm's sum
@@ -304,10 +305,68 @@ def test_chunk_keyed_ext_dataset_matches_jax():
     assert tds.streaming_eps_recall(got, found, 10) == jds.streaming_eps_recall(want, found, 10)
 
 
-def test_mesh_refused_naming_a8():
-    for fn in (tds.device_rowkeyed_split_dataset, tds.device_rowkeyed_ext_dataset):
-        with pytest.raises(NotImplementedError, match="A8c"):
-            fn(n=16_384, dim=8, num_queries=4, mesh=object(), device="cpu")
+# --- mesh=: row-sharded ingestion ---------------------------------------------
+
+MESH_S = 4
+
+
+@pytest.mark.parametrize("case", [("int8", "l2"), ("bf16", "l2"), ("int8", "ip")])
+def test_mesh_split_dataset_equals_single_device(split_sets, case):
+    """Each shard ingests its row range: the shards' tables, cut from one
+    table, and the merged ground truth equal the single-device dataset's,
+    bit for bit."""
+    _, single = split_sets[case]
+    comp_dtype, metric = case
+    got = tds.device_rowkeyed_split_dataset(
+        n=N, dim=D, num_queries=NQ, metric=metric, seed=5, gt_k=11,
+        comp_dtype=comp_dtype, num_clusters=16, mesh=shard_mesh(MESH_S, device="cpu"))
+    assert got.n == single.n and len(got.comp_dev) == MESH_S
+    assert all(c.shape[0] == N // MESH_S for c in got.comp_dev)
+    assert torch.equal(torch.cat(got.comp_dev), single.comp_dev)
+    assert torch.equal(torch.cat(got.aux_dev, 1), single.aux_dev)
+    np.testing.assert_array_equal(got.ground_truth, single.ground_truth)
+    np.testing.assert_array_equal(got.queries, single.queries)
+
+
+def test_mesh_ext_dataset_equals_single_device(ext_sets):
+    _, single = ext_sets["l2"]
+    got = tds.device_rowkeyed_ext_dataset(
+        n=N, dim=D, num_queries=NQ, metric="l2", seed=9, gt_k=11, num_clusters=16,
+        mesh=shard_mesh(MESH_S, device="cpu"))
+    assert got.rchunk <= single.rchunk
+    assert torch.equal(torch.cat(got.ext_dev).view(torch.int16),
+                       single.ext_dev.view(torch.int16))
+    np.testing.assert_array_equal(got.ground_truth, single.ground_truth)
+    # the regenerator reads rows by global id, whatever the chunking: chunk
+    # 1 of the shards' chunking inside the single device's chunk
+    lo = got.rchunk % single.rchunk
+    assert torch.equal(got.regen(1), single.regen(got.rchunk // single.rchunk)[
+        lo:lo + got.rchunk])
+
+
+@pytest.mark.parametrize("kind", ["split", "ext"])
+def test_mesh_dataset_matches_jax_mesh_dataset(kind):
+    """The JAX package's mesh dataset against the port's, by the rules above:
+    queries within ulps, the ground truth's ids, codes a step apart at most."""
+    from shine_tpu.parallel import shard_mesh as jax_mesh
+
+    kw = dict(n=32_768, dim=D, num_queries=64, seed=7, gt_k=10, num_clusters=16,
+              rchunk=4096)
+    if kind == "split":
+        want = jds.device_rowkeyed_split_dataset(**kw, comp_dtype="int8",
+                                                 mesh=jax_mesh(MESH_S))
+        got = tds.device_rowkeyed_split_dataset(**kw, comp_dtype="int8",
+                                                mesh=shard_mesh(MESH_S, device="cpu"))
+        jt, tt = np.asarray(want.comp_dev), torch.cat(got.comp_dev).numpy()
+    else:
+        want = jds.device_rowkeyed_ext_dataset(**kw, mesh=jax_mesh(MESH_S))
+        got = tds.device_rowkeyed_ext_dataset(**kw, mesh=shard_mesh(MESH_S, device="cpu"))
+        jt = np.asarray(want.ext_dev).view(np.uint16)
+        tt = torch.cat(got.ext_dev).view(torch.int16).numpy().view(np.uint16)
+    assert got.n == want.n
+    _within_row_ulps(got.queries, want.queries)
+    _check_gt(want, got, "l2")
+    _codes_close(tt[:, :D], jt[:, :D])
 
 
 def test_streaming_eps_recall_matches_jax(ext_sets):
