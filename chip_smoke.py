@@ -9,6 +9,12 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
 
   1. device: the card's name and power limit; the fp32 precision lock;
   2. build: compile and load the kernel library and the native builder;
+     then phase 5's native graph builds in the background on all cores but
+     one, beside nvcc and phases 3-4, 7, 14-17, 20 and 21, which run before
+     phase 5 (their QPS and build seconds share the host with it); the
+     checks on the CPU twins (phases 8, 15's and 20's) and phase 18 wait
+     until after phase 6, when the host is free again, and phase 12's set
+     is made in the background from then on;
   3. K1's gather_score against its plain twin on the HNSW slice's shapes
      (B=4096 queries, K=256 candidate lanes, d=128, N=1M rows) for f32,
      bf16 and int8 rows under L2 and IP, ~10% masked lanes;
@@ -76,8 +82,9 @@ scan-speed graph build and the block-max scans:
  18. the build at 8192 x 16 on the CPU (twins) and on the card: equal levels
      and entry point, overlapping layer-0 lists, the same recall.
 
-Phases 20 and 21 (run after phase 18, on the same set) port the insert
-build and the online index:
+Phases 20 and 21 (run after phase 18 and before phase 5, beside the native
+build, on the same set; phase 20's recall is held to phase 5's once that
+is read) port the insert build and the online index:
 
  20. device_build_graph on the card at its defaults (batch 512, first
      batch 32, level cap 12) and M=16, ef_construction=200: the wall and
@@ -115,7 +122,8 @@ the same knobs:
      auto --zipf 1.0 --warmup 1000: resolves to fastflat, recall >= 0.98;
      --index flat --num-queries 1000: the recall of FlatIndex.search on the
      same queries; then --synthetic 65536:128 --num-queries 1000 --index hnsw
-     --device-build: recall >= 0.90, beam_step and gather_score launched;
+     --device-build (its graph stored for phase 27d): recall >= 0.90,
+     beam_step and gather_score launched;
      --index ivf --probes 32 --seed 1234 and --index ivf --ivf-routed --seed
      1234: the recall of phase 23's library call at the same seed and knobs
      exactly, gather_score (the probe rows and the re-rank) the only kernel
@@ -193,6 +201,33 @@ card (``shard_mesh(4)``), batch 4096; its parts run where their inputs are.
 One [sharded-scan] summary line follows the last phase; each kernel's entry
 in the JSON table gains the launches of every phase-26 run that ran it and,
 for K2a, K3 keep1 and K4 at T=64, its numbers at a shard's shape.
+
+Phase 27 ports the sharded builds, every mesh 4 shards stacked on the card;
+it runs after phase 26, on the 1M set and phase 22's saved copy:
+
+ 27a. device_build_graph(mesh=4) of the first 65,536 rows at phase 20's
+     settings: levels, lists and entry point bit for bit with phase 20's
+     single-card build of them; its rounds, the plan, gather and apply
+     seconds, the stage seconds and K1's launches;
+ 27b. DynamicHNSWIndex(128, capacity=131,072, mesh=4) fed those rows in two
+     chunks beside a single-card index: bit-identical snapshots after each
+     chunk, each side's seconds; its ShardedIndex searcher: recall@10 >=
+     0.90 against the prefix's exact top-10, >= 99.9% of ids the single
+     searcher's;
+ 27c. fast_build_graph(mesh=4) at 1M, the rows not resident: K2 once a
+     shard a kNN batch (layer 0 and level 1), K1 in the re-rank, the stage
+     seconds; served as in phase 5, recall@10 within 0.01 of phase 16's
+     pool-0 graph;
+ 27d. the command line with --shards 4: --device-build and --fast-build on
+     --synthetic 65536:128 (the stored graphs equal phase 22's single-card
+     device build and the library's mesh fast build, and served by the
+     library's ShardedIndex read the command line's recall), --index auto
+     on phase 22's files (26f's FastFlat recall exactly), and --megabatch
+     on one card (phase 22's FastFlat recall and K2a launches);
+ 27e. dryrun_mesh(8) stacked on the card.
+
+One [sharded-build] summary line; K1's and K2's entries in the JSON table
+gain phase 27's launches by run (``sharded_build_launches``).
 
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
@@ -431,8 +466,12 @@ ROUTED_MIN_RECALL = 0.90
 K4_ATOL = K3_ATOL
 
 
+T_START = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    """A line of the run, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f}", *a, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1392,12 +1431,14 @@ def routed_rebuild_is_identical(index: RoutedSplitIndex, r0: float, served, base
     torch.cuda.empty_cache()
 
 
-def routed_phases(dev) -> list[dict]:
-    """Phases 12-13 on the 4.19M set; K4's entries of the kernel table,
-    one a form (int8 table, T), each at the route that launched it."""
+def routed_phases(dev, routed_ds) -> list[dict]:
+    """Phases 12-13 on the 4.19M set (``routed_ds``, its future); K4's
+    entries of the kernel table, one a form (int8 table, T), each at the
+    route that launched it."""
     t0 = time.perf_counter()
-    ds = synthetic_dataset(n=RN, dim=D, num_queries=NQ, seed=SEED, compute_gt=False)
-    log(f"[data] {RN} x {D}, {NQ} queries: {time.perf_counter() - t0:.2f} s")
+    ds = routed_ds.result()
+    log(f"[data] {RN} x {D}, {NQ} queries: ready after waiting "
+        f"{time.perf_counter() - t0:.2f} s (made beside phases 6-27)")
     base_t = torch.from_numpy(ds.base).to(dev)
     t0 = time.perf_counter()
     gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
@@ -1566,8 +1607,7 @@ def blockmax_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> tuple[dict, 
 def serve_blockmax(flat: FastFlatIndex, ds, gt) -> dict:
     """Phase 15: all queries through FastFlat's block-max route (K5, the
     route the JAX package takes under interpret) at the auto kb; recall,
-    QPS after a warm-up batch, K5's launches (no class-max launch); then
-    256 queries on the CPU (twins) against the card."""
+    QPS after a warm-up batch, K5's launches (no class-max launch)."""
     flat.blockmax = True
     pre = flat.preload(ds.queries, batch_size=B)
     flat.search(ds.queries, 10, batch_size=B, preloaded=pre)  # warm-up
@@ -1588,17 +1628,23 @@ def serve_blockmax(flat: FastFlatIndex, ds, gt) -> dict:
     if launches == 0 or classmax:
         raise AssertionError(f"fastflat blockmax: {launches} K5 and {classmax} class-max "
                              "launches")
+    flat.blockmax = False
+    return {"launches": launches, "recall@10": recall, "qps": NQ / wall, "kb": kb}
+
+
+@_e2e_timed
+def blockmax_end_to_end(ds, flat: FastFlatIndex) -> None:
+    """Phase 15's end: 256 queries through the block-max route on the CPU
+    (twins) against the card."""
     q = ds.queries[:E2E_QUERIES]
-    t_e2e = time.perf_counter()
     cpu = FastFlatIndex(ds.base, blockmax=True, device="cpu")
     t0 = time.perf_counter()
     a_ids, a_d = cpu.search(q, 10, batch_size=E2E_QUERIES)
     log(f"[e2e] fastflat blockmax on the CPU (twins): {time.perf_counter() - t0:.2f} s")
+    flat.blockmax = True
     b_ids, b_d = flat.search(q, 10, batch_size=E2E_QUERIES)
-    _compare(a_ids, a_d, b_ids, b_d, "fastflat blockmax", FLAT_ATOL)
-    E2E_SECONDS.append(time.perf_counter() - t_e2e)
     flat.blockmax = False
-    return {"launches": launches, "recall@10": recall, "qps": NQ / wall, "kb": kb}
+    _compare(a_ids, a_d, b_ids, b_d, "fastflat blockmax", FLAT_ATOL)
 
 
 def _stage_line(timings: dict) -> str:
@@ -1695,6 +1741,7 @@ DEVBUILD_N = N
 # (tests/test_build.py:test_device_build_parity_with_native)
 DEVBUILD_GAP = 0.02
 DET_N = 65_536  # two builds of these rows must be bit-identical
+DET_GRAPH: dict = {}  # phase 20's build of DET_N rows, for phase 27a
 # the CPU-against-card build: integer entries, every distance exact, so the
 # twins and the kernels build the same graph
 INT_BUILD_SET = dict(n=4096, d=16, seed=13)
@@ -1719,11 +1766,11 @@ def _same_graph(a, b, what: str) -> None:
         raise AssertionError(f"{what}: the graphs differ in {diff or 'the entry point'}")
 
 
-def device_build_phase(ds, gt, dev, native_recall: float) -> dict:
+def device_build_phase(ds, gt, dev) -> dict:
     """Phase 20: device_build_graph on the card at full width, its stage
-    seconds and launches, its graph served as the native one is and held to
-    the native graph's recall; two builds of DET_N rows bit-identical; the
-    integer build equal on the CPU (twins) and the card."""
+    seconds and launches, its graph served as the native one is (held to
+    the native graph's recall by devbuild_parity, once that graph is
+    built); two builds of DET_N rows bit-identical."""
     n = DEVBUILD_N
     torch.cuda.synchronize()
     reset_launches()
@@ -1749,26 +1796,42 @@ def device_build_phase(ds, gt, dev, native_recall: float) -> dict:
         gt = gt.cpu().numpy()
         del base_t
     _, recall, qps = serve(graph, ds, gt, "f32", dev, what=f"device_build {n}")
+    del graph
+    torch.cuda.empty_cache()
+    twice, det_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        twice.append(device_build_graph(ds.base[:DET_N], BUILD, device=dev))
+        torch.cuda.synchronize()
+        det_s.append(time.perf_counter() - t0)
+    _same_graph(*twice, f"two device builds of {DET_N} rows")
+    DET_GRAPH["single"], DET_GRAPH["seconds"] = twice[0], det_s
+    log(f"[devbuild] two builds of the first {DET_N} rows ({det_s[0]:.2f} s and "
+        f"{det_s[1]:.2f} s): levels, lists and entry point bit-identical")
+    return {"n": n, "seconds": wall, "rounds": t["rounds"], "inserts_per_s": n / wall,
+            "stages": stages, "launches": launches, "recall@10": recall, "qps": qps}
+
+
+def int_build_cpu_vs_card(dev) -> None:
+    """Phase 20's end: the integer build on the CPU (twins) and the card."""
+    rows = np.random.default_rng(INT_BUILD_SET["seed"]).integers(
+        -4, 5, size=(INT_BUILD_SET["n"], INT_BUILD_SET["d"])).astype(np.float32)
+    t0 = time.perf_counter()
+    _same_graph(device_build_graph(rows, INT_BUILD, device="cpu"),
+                device_build_graph(rows, INT_BUILD, device=dev),
+                "integer build, CPU against card")
+    log(f"[devbuild] integer build {rows.shape[0]} x {rows.shape[1]} M={INT_BUILD.M}: "
+        f"equal on the CPU (twins) and on the card ({time.perf_counter() - t0:.2f} s)")
+
+
+def devbuild_parity(devbuild: dict, native_recall: float) -> None:
+    """Phase 20's graph against the native graph of the same rows."""
+    recall = devbuild["recall@10"]
     log(f"[devbuild] recall@10 {recall:.4f} against the native graph's "
         f"{native_recall:.4f} (stated gap {DEVBUILD_GAP})")
     if recall < native_recall - DEVBUILD_GAP:
         raise AssertionError(f"device build: recall@10 {recall:.4f} more than "
                              f"{DEVBUILD_GAP} below the native {native_recall:.4f}")
-    del graph
-    torch.cuda.empty_cache()
-    twice = [device_build_graph(ds.base[:DET_N], BUILD, device=dev) for _ in range(2)]
-    _same_graph(*twice, f"two device builds of {DET_N} rows")
-    log(f"[devbuild] two builds of the first {DET_N} rows: levels, lists and entry "
-        f"point bit-identical")
-    rows = np.random.default_rng(INT_BUILD_SET["seed"]).integers(
-        -4, 5, size=(INT_BUILD_SET["n"], INT_BUILD_SET["d"])).astype(np.float32)
-    _same_graph(device_build_graph(rows, INT_BUILD, device="cpu"),
-                device_build_graph(rows, INT_BUILD, device=dev),
-                "integer build, CPU against card")
-    log(f"[devbuild] integer build {rows.shape[0]} x {rows.shape[1]} M={INT_BUILD.M}: "
-        f"equal on the CPU (twins) and on the card")
-    return {"n": n, "seconds": wall, "rounds": t["rounds"], "inserts_per_s": n / wall,
-            "stages": stages, "launches": launches, "recall@10": recall, "qps": qps}
 
 
 def build_step_check(st, rows: np.ndarray, ef: int, B_up: int, dev) -> list[dict]:
@@ -2058,6 +2121,7 @@ CLI_HNSW = ["-m", str(BUILD.M), "--ef-construction", str(BUILD.ef_construction),
 CLI_MIN_RECALL = 0.90  # split, routed, the device build: broken, not mistuned
 CLI_FLAT_QUERIES = 1_000
 CLI_DEVBUILD = ["--synthetic", "65536:128", "--num-queries", "1000"]
+CLI_DEVBUILD_GRAPH = "devbuild_65536.npz"  # phase 22 stores it for phase 27d
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
@@ -2139,7 +2203,8 @@ def cli_phase(ds, gt, graph_path: str, data_dir: str, want: dict, dev) -> dict:
         ("flat", data + ["--index", "flat", "--num-queries", str(CLI_FLAT_QUERIES)],
          ()),
         ("hnsw_device_build", CLI_DEVBUILD + CLI_COMMON
-         + ["--index", "hnsw", "--device-build", *CLI_HNSW],
+         + ["--index", "hnsw", "--device-build", *CLI_HNSW, "--store-index",
+            os.path.join(os.path.dirname(graph_path), CLI_DEVBUILD_GRAPH)],
          ("beam_step", "gather_score")),
         ("ivf", data + ["--index", "ivf", "--probes", str(IVF_E2E_PROBES),
                         "--seed", str(IVF_SEED)], ("gather_score",)),
@@ -3415,6 +3480,233 @@ def capacity_phase(dev) -> tuple[list[dict], dict]:
     return kernels, summary
 
 
+# --- phase 27: the sharded builds, 4 shards stacked on the card -----------------
+
+BUILD_S = 4  # shards of every phase-27 mesh
+ONLINE_MESH_CAP = 131_072  # 27b: the online index's capacity
+ONLINE_MESH_CHUNKS = 2  # 27b: DET_N rows in this many chunks
+MESH_FASTBUILD_GAP = 0.01  # 27c's recall against phase 16's pool-0 graph
+PHASE27: dict = {}
+
+
+def _k2_launches() -> dict[str, int]:
+    return {n: f[0].launches for n, f in K2_FORMS.items() if f[0].launches}
+
+
+def _sharded_device_build(ds, mesh, dev) -> dict:
+    """27a: device_build_graph over the mesh on the first DET_N rows, bit for
+    bit with phase 20's single-card build of them."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t = {}
+    t0 = time.perf_counter()
+    graph = device_build_graph(ds.base[:DET_N], BUILD, mesh=mesh, timings=t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _same_graph(graph, DET_GRAPH["single"], f"27a: the mesh build of {DET_N} rows "
+                "against phase 20's single-card build")
+    halves = {k: t[k] for k in ("plan", "gather", "apply")}
+    stages = {k: t.get(k, 0.0) for k in tb.STAGES}
+    single = min(DET_GRAPH["seconds"])
+    log(f"[sharded-build] 27a device_build_graph(mesh={BUILD_S} stacked) {DET_N} x {D}: "
+        f"{wall:.2f} s ({wall / single:.2f}x phase 20's single-card {single:.2f} s), "
+        f"{t['rounds']} rounds, {DET_N / wall:.1f} inserts/s; plan "
+        f"{halves['plan']:.3f} s, gather {halves['gather']:.3f} s, apply "
+        f"{halves['apply']:.3f} s; stages " + " ".join(f"{k}={v:.3f}" for k, v in
+                                                       stages.items())
+        + f"; launches {launches}; levels, lists and entry point bit-identical with "
+        "phase 20's single-card build")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"27a: a kernel of the path never launched: {launches}")
+    return {"seconds": wall, "single_card_s": single, "rounds": t["rounds"],
+            "inserts_per_s": DET_N / wall,
+            **{f"{k}_s": v for k, v in halves.items()}, "stages": stages,
+            "launches": launches}
+
+
+def _sharded_online(ds, mesh, dev) -> dict:
+    """27b: DynamicHNSWIndex over the mesh fed the first DET_N rows in
+    ONLINE_MESH_CHUNKS chunks beside a single-card index: equal snapshots
+    after each chunk; the ShardedIndex searcher against the prefix's exact
+    top-10 and the single searcher's ids."""
+    sharded = DynamicHNSWIndex(D, capacity=ONLINE_MESH_CAP, params=BUILD, mesh=mesh)
+    single = DynamicHNSWIndex(D, capacity=ONLINE_MESH_CAP, params=BUILD, device=dev)
+    chunk = DET_N // ONLINE_MESH_CHUNKS
+    chunks = []
+    for i in range(ONLINE_MESH_CHUNKS):
+        rows = ds.base[i * chunk:(i + 1) * chunk]
+        secs = {}
+        for name, index in (("single", single), ("sharded", sharded)):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            index.add(rows)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            secs[f"{name}_launches"] = _launches()
+        _same_graph(sharded.snapshot(), single.snapshot(),
+                    f"27b: the mesh index after chunk {i + 1}")
+        log(f"[sharded-build] 27b chunk {i + 1}: {chunk} inserts, single card "
+            f"{secs['single']:.2f} s, mesh {secs['sharded']:.2f} s "
+            f"({chunk / secs['sharded']:.1f} inserts/s), launches "
+            f"{secs['sharded_launches']}; snapshots bit-identical")
+        chunks.append(secs)
+    base_t = torch.from_numpy(ds.base[:DET_N]).to(dev)
+    gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
+    gt = gt.cpu().numpy()
+    del base_t
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, _ = sharded.searcher().search(ds.queries, SEARCH, batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    search_launches = _launches()
+    want, _ = single.searcher().search(ds.queries, SEARCH, batch_size=B)
+    recall = recall_at_k(ids, gt, 10)
+    agree = float((ids == want).mean())
+    log(f"[sharded-build] 27b ShardedIndex searcher: recall@10 {recall:.4f} against "
+        f"the exact top-10 of the {DET_N}-row prefix (stated {ONLINE_MIN_RECALL}), "
+        f"{agree:.5f} of ids equal to the single searcher's (stated "
+        f"{SHARD_MIN_AGREE}), {NQ / wall:.1f} QPS, launches {search_launches}")
+    if recall < ONLINE_MIN_RECALL or agree < SHARD_MIN_AGREE:
+        raise AssertionError(f"27b: recall {recall:.4f}, id agreement {agree:.5f}")
+    if not search_launches.get("gather_score"):
+        raise AssertionError(f"27b: the sharded searcher launched {search_launches}")
+    return {"chunks": chunks, "recall@10": recall, "id_agreement": agree,
+            "qps": NQ / wall, "launches": search_launches}
+
+
+def _sharded_fast_build(ds, gt, mesh, pool0_recall: float, dev) -> tuple[dict, float]:
+    """27c: fast_build_graph over the mesh at 1M, the rows not resident: the
+    kNN stage of layer 0 (and level 1) through ShardedFastFlatIndex, K2 once a
+    shard a batch; recall@10 within MESH_FASTBUILD_GAP of phase 16's pool 0."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t = {}
+    t0 = time.perf_counter()
+    graph = fast_build_graph(ds.base, BUILD, mesh=mesh, timings=t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = _k2_launches()
+    k1 = gather_score.launches
+    sweep = -(-N // B)
+    log(f"[sharded-build] 27c fast_build_graph(mesh={BUILD_S} stacked) {N} x {D}, rows "
+        f"not resident: {wall:.2f} s (stages {t['total']:.2f} s), top_level="
+        f"{graph.top_level}; stage seconds: {_stage_line(t)}; components="
+        f"{t['components']:.2f}; upper levels={t['upper_levels']:.2f}; K2 launches "
+        f"{k2}, gather_score {k1}")
+    total = sum(k2.values())
+    if total < BUILD_S * sweep or total % BUILD_S or not k1:
+        raise AssertionError(f"27c: K2 launched {k2} (not {BUILD_S} a batch of "
+                             f"{sweep}), gather_score {k1}")
+    _, recall, qps = serve(graph, ds, gt, "f32", dev, what=f"fast_build mesh={BUILD_S}")
+    gap = abs(recall - pool0_recall)
+    log(f"[sharded-build] 27c recall@10 {recall:.5f} against phase 16's pool 0 "
+        f"{pool0_recall:.5f}: gap {gap:.5f} (stated {MESH_FASTBUILD_GAP})")
+    if gap > MESH_FASTBUILD_GAP:
+        raise AssertionError(f"27c: recall {recall:.5f} against {pool0_recall:.5f}")
+    return {"seconds": wall, "levels": t["levels"], "components": t["components"],
+            "upper_levels": t["upper_levels"], "launches": dict(k2, gather_score=k1),
+            "recall@10": recall, "qps": qps}, wall
+
+
+def _sharded_cli(data_dir: str, graph_dir: str, cli_runs: dict, mesh, dev) -> dict:
+    """27d: the command line's sharded builds on --synthetic 65536:128 (the
+    device build bit for bit with phase 22's single-card one; each graph
+    stored and served by the library's ShardedIndex to the CLI's recall),
+    and on phase 22's files --index auto --shards 4 (26f's FastFlat recall)
+    and --megabatch (phase 22's FastFlat recall and K2a launches)."""
+    small = synthetic_dataset(n=65_536, dim=D, num_queries=1000, seed=42)
+    out = {}
+    common = CLI_DEVBUILD + CLI_COMMON + ["--index", "hnsw", *CLI_HNSW, "--shards",
+                                          str(BUILD_S)]
+    for name, flag, kernels in (("device_build", "--device-build", ("beam_step",)),
+                                ("fast_build", "--fast-build", tuple(K2_FORMS))):
+        path = os.path.join(graph_dir, f"mesh_{name}.npz")
+        doc, launches, _ = run_cli(common + [flag, "--store-index", path],
+                                   f"27d --shards {BUILD_S} {flag}")
+        graph = load_graph(path)
+        if name == "device_build":
+            _same_graph(graph, load_graph(os.path.join(graph_dir, CLI_DEVBUILD_GRAPH)),
+                        "27d: the CLI's mesh device build against phase 22's")
+        else:
+            lib = fast_build_graph(small.base, HNSWParams(
+                M=BUILD.M, ef_construction=BUILD.ef_construction, seed=42), mesh=mesh)
+            _same_graph(graph, lib, "27d: the CLI's mesh fast build against the "
+                        "library's")
+        ids, _ = ShardedIndex(graph, mesh).search(small.queries, SEARCH, batch_size=B)
+        lib_recall = recall_at_k(ids, small.ground_truth, 10)
+        got = doc["queries"]["recall"]
+        if got != lib_recall or not any(launches.get(k) for k in kernels):
+            raise AssertionError(f"27d {name}: recall {got} against the library's "
+                                 f"{lib_recall}, launches {launches}")
+        out[name] = {"recall": got, "build_ms": doc["build"]["build_time_ms"],
+                     "launches": launches}
+    data = ["--data-path", data_dir, *CLI_COMMON]
+    doc, launches, err = run_cli(data + ["--index", "auto", "--shards", str(BUILD_S),
+                                         "--seed", str(SCAN_SEED)],
+                                 f"27d --index auto --shards {BUILD_S}")
+    want = SHARDED_SCAN["26f_cli"]["fastflat"]["recall"]
+    if "-> fastflat" not in err or doc["queries"]["recall"] != want:
+        raise AssertionError(f"27d auto: {err.strip()}, recall "
+                             f"{doc['queries']['recall']} against 26f's {want}")
+    out["auto"] = {"recall": doc["queries"]["recall"], "launches": launches}
+    doc, launches, _ = run_cli(data + ["--index", "fastflat", "--megabatch"],
+                               "27d --megabatch")
+    want = cli_runs["fastflat"]
+    if (doc["queries"]["recall"] != want["queries"]["recall"]
+            or launches.get("classmax_scan") != want["launches"].get("classmax_scan")):
+        raise AssertionError(f"27d megabatch: recall {doc['queries']['recall']}, "
+                             f"launches {launches}, against phase 22's {want}")
+    out["megabatch"] = {"recall": doc["queries"]["recall"], "launches": launches,
+                        "qps": doc["queries"]["queries_per_sec"]}
+    log(f"[sharded-build] 27d: every command line run read its reference's recall "
+        f"(device build and fast build bit for bit): {json.dumps(out)}")
+    return out
+
+
+def sharded_build_phase(ds, gt, pool0_recall: float, cli_runs: dict, data_dir: str,
+                        graph_dir: str, dev) -> None:
+    """Phase 27: the sharded builds on BUILD_S shards stacked on the card;
+    the numbers land in PHASE27."""
+    from shine_tpu_torch.parallel import dryrun_mesh
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh(BUILD_S, device=dev)
+    PHASE27["27a"] = _sharded_device_build(ds, mesh, dev)
+    PHASE27["27b"] = _sharded_online(ds, mesh, dev)
+    torch.cuda.empty_cache()
+    PHASE27["27c"], _ = _sharded_fast_build(ds, gt, mesh, pool0_recall, dev)
+    torch.cuda.empty_cache()
+    PHASE27["27d"] = _sharded_cli(data_dir, graph_dir, cli_runs, mesh, dev)
+    t0 = time.perf_counter()
+    steps = dryrun_mesh(8)
+    torch.cuda.synchronize()
+    PHASE27["27e"] = {"seconds": time.perf_counter() - t0, "steps": steps}
+    log(f"[sharded-build] 27e dryrun_mesh(8) stacked on the card: every step passed "
+        f"in {PHASE27['27e']['seconds']:.2f} s: {json.dumps(steps)}")
+    PHASE27["seconds"] = time.perf_counter() - t_phase
+    log(f"[sharded-build] phase 27: {PHASE27['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def _attach_sharded_builds(kernels: list[dict]) -> None:
+    """K1's entries and the K2 forms gain phase 27's launches by run."""
+    runs = {"27a_device_build": PHASE27["27a"]["launches"],
+            "27b_searcher": PHASE27["27b"]["launches"],
+            "27c_fast_build": PHASE27["27c"]["launches"]}
+    for i, c in enumerate(PHASE27["27b"]["chunks"]):
+        runs[f"27b_chunk{i + 1}"] = c["sharded_launches"]
+    for name, r in PHASE27["27d"].items():
+        runs[f"27d_{name}"] = r["launches"]
+    for k in kernels:
+        got = {run: n[k["name"]] for run, n in runs.items() if n.get(k["name"])}
+        if got:
+            k["sharded_build_launches"] = got
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3425,23 +3717,42 @@ def main() -> None:
     check_precision()
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        # g++ builds the graph builder while nvcc builds the kernels
-        gxx = pool.submit(native.load)
-        _build.load()
-        log(f"[build] kernel library {_build.lib_path()}: nvcc "
-            f"{_build.build_seconds:.2f} s" if _build.build_seconds is not None
-            else f"[build] kernel library {_build.lib_path()}: already built")
-        for line in _build.build_log.splitlines():  # registers and spills
-            if "entry function" in line or "Used" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
-        gxx.result()
+    # g++ builds the graph builder while nvcc builds the kernels (one
+    # process a source or part, at once); then the native graph builds on
+    # all cores but one, beside the rest of nvcc and phases 3-4, 7, 14-17,
+    # 20 and 21, which do not read it
+    threads = max(min((os.cpu_count() or 1) - 1, 32), 1)
+    pool = ThreadPoolExecutor(3)
+    gxx = pool.submit(native.load)
+    kernels_built = pool.submit(_build.load)
+    ds = synthetic_dataset(n=N, dim=D, num_queries=NQ, seed=SEED, compute_gt=False)
+    log(f"[data] {N} x {D}, {NQ} queries: {time.perf_counter() - t0:.2f} s (beside "
+        "the builds)")
+    gxx.result()
     log(f"[build] native builder {native.lib_path()}: ready after "
         f"{time.perf_counter() - t0:.2f} s")
 
+    def native_graph():
+        t = time.perf_counter()
+        return build_graph(ds.base, BUILD, threads=threads), time.perf_counter() - t
+
+    graph_built = pool.submit(native_graph)
+    kernels_built.result()
+    log(f"[build] kernel library {_build.lib_path()}: nvcc "
+        f"{_build.build_seconds:.2f} s" if _build.build_seconds is not None
+        else f"[build] kernel library {_build.lib_path()}: already built")
+    for line in _build.build_log.splitlines():  # registers and spills
+        if "entry function" in line or "Used" in line or "spill" in line:
+            log(f"[build]   {line.strip()}")
+
     t0 = time.perf_counter()
-    ds = synthetic_dataset(n=N, dim=D, num_queries=NQ, seed=SEED, compute_gt=False)
-    log(f"[data] {N} x {D}, {NQ} queries: {time.perf_counter() - t0:.2f} s")
+    base_t = torch.from_numpy(ds.base).to(dev)
+    gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
+    torch.cuda.synchronize()
+    gt = gt.cpu().numpy()
+    del base_t
+    log(f"[hnsw] exact fp32 ground truth on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     flat = FastFlatIndex(ds.base, device=dev)
     torch.cuda.synchronize()
@@ -3455,22 +3766,33 @@ def main() -> None:
 
     k1_cases = kernel_vs_twin(ds.base, ds.queries, dev)
     k2_cases, library_ms = k2_vs_twin(ds.base, ds.queries, dev, shapes)
+    k2_launches, flat_served = serve_flat(flat, ds, gt, plan)
+    profile_batch(flat, ds.queries, "fastflat auto")
+    k56_cases, k56_library_ms = blockmax_vs_twin(ds.base, ds.queries, dev)
+    blockmax_served = serve_blockmax(flat, ds, gt)
+    builds = build_phases(ds, gt, dev)
+    devbuild = device_build_phase(ds, gt, dev)
+    online, build_step = online_phase(ds, dev)
 
-    threads = min(os.cpu_count() or 1, 32)
     t0 = time.perf_counter()
-    graph = build_graph(ds.base, BUILD, threads=threads)
-    build_s = time.perf_counter() - t0
+    graph, build_s = graph_built.result()
+    pool.shutdown()
     log(f"[hnsw] native build M={BUILD.M} efc={BUILD.ef_construction} "
-        f"threads={threads}: {build_s:.2f} s, top_level={graph.top_level}, "
-        f"upper vertices={int((graph.levels > 0).sum())}")
-    t0 = time.perf_counter()
-    base_t = torch.from_numpy(ds.base).to(dev)
-    gt, _ = exact_knn(base_t, torch.from_numpy(ds.queries).to(dev), 10)
-    torch.cuda.synchronize()
-    gt = gt.cpu().numpy()
-    del base_t
-    log(f"[hnsw] exact fp32 ground truth on the card: "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"threads={threads}: {build_s:.2f} s (beside nvcc and phases 3-4, 7, 14-17, "
+        f"20 and 21; waited {time.perf_counter() - t0:.2f} s after them), top_level="
+        f"{graph.top_level}, upper vertices={int((graph.levels > 0).sum())}")
+    # the host is free again: phase 12's set is made beside the phases
+    # before it, and the checks that run the CPU twins run now
+    routed_set = ThreadPoolExecutor(1)
+    routed_ds = routed_set.submit(synthetic_dataset, n=RN, dim=D, num_queries=NQ,
+                                  seed=SEED, compute_gt=False)
+    routed_set.shutdown(wait=False)
+    flat_end_to_end(ds, flat)
+    blockmax_end_to_end(ds, flat)
+    del flat
+    torch.cuda.empty_cache()
+    small_build_cpu_vs_card(dev)
+    int_build_cpu_vs_card(dev)
     step_launches = 0
     native_served = {}
     for rows in ("f32", "bf16"):
@@ -3489,20 +3811,9 @@ def main() -> None:
     log(f"[cli] native graph saved: {time.perf_counter() - t0:.2f} s")
     del graph
     torch.cuda.empty_cache()
-
-    k2_launches, flat_served = serve_flat(flat, ds, gt, plan)
-    profile_batch(flat, ds.queries, "fastflat auto")
-    flat_end_to_end(ds, flat)
-    k56_cases, k56_library_ms = blockmax_vs_twin(ds.base, ds.queries, dev)
-    blockmax_served = serve_blockmax(flat, ds, gt)
-    del flat
-    torch.cuda.empty_cache()
-    builds = build_phases(ds, gt, dev)
     log(f"[build] native graph (phase 5), f32: recall@10={native_served['f32'][0]:.4f} "
         f"qps={native_served['f32'][1]:.1f} after {build_s:.2f} s of build")
-    small_build_cpu_vs_card(dev)
-    devbuild = device_build_phase(ds, gt, dev, native_served["f32"][0])
-    online, build_step = online_phase(ds, dev)
+    devbuild_parity(devbuild, native_served["f32"][0])
     k3_kernels, split_served = split_phases(ds, gt, dev)
     try:
         ivf = ivf_phase(ds, gt, dev)
@@ -3531,10 +3842,12 @@ def main() -> None:
         sharded = sharded_phase(ds, gt, graph_path, data_dir,
                                 cli_runs["flat"]["queries"]["recall"], dev)
         sharded_scan_phase(ds, gt, flat_served, split_served, ivf, data_dir, dev)
+        sharded_build_phase(ds, gt, builds["pool0"]["recall@10"], cli_runs, data_dir,
+                            cli_dir, dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
     del ds, gt
-    k4_kernels = routed_phases(dev)
+    k4_kernels = routed_phases(dev, routed_ds)
     regen_kernels, _ = capacity_phase(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
@@ -3636,6 +3949,7 @@ def main() -> None:
             k["build_launches"] = {b: builds[b]["launches"].get(k["name"], 0)
                                    for b in builds}
     _attach_sharded(kernels)
+    _attach_sharded_builds(kernels)
     SHARDED_SCAN["seconds"] = sum(v for k, v in SHARDED_SCAN.items() if k.endswith("_s")) \
         + SHARDED_SCAN["26d"]["seconds"] + SHARDED_SCAN["26e_flat"]["seconds"] \
         + SHARDED_SCAN["26e_routed"]["seconds"]
@@ -3643,6 +3957,7 @@ def main() -> None:
     log(f"[sharded-scan] phase 26: {SHARDED_SCAN['seconds']:.1f} s")
     log(f"[build] summary {json.dumps(builds)}")
     log(f"[devbuild] summary {json.dumps({'device_build': devbuild, 'online': online})}")
+    log(f"[sharded-build] summary {json.dumps(PHASE27)}")
     log(f"[e2e] {len(E2E_SECONDS)} end-to-end checks of {E2E_QUERIES} queries (CPU "
         f"twins and card): {sum(E2E_SECONDS):.1f} s")
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")

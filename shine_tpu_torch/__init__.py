@@ -32,8 +32,11 @@ distance through ``gather_score``), the exact scan sharded by rows
 (``ShardedFlatIndex``), and the scan families sharded: FastFlat and the
 split tables by rows (``ShardedFastFlatIndex``, ``ShardedSplitFlatIndex``),
 IVF and the routed family by clusters (``ShardedIVFIndex``,
-``ShardedRoutedSplitIndex``, ``build_routed_split_sharded``); on the one card
-the shards stack. Entry points run
+``ShardedRoutedSplitIndex``, ``build_routed_split_sharded``), and builds
+graphs over the mesh (``make_sharded_insert_round``, ``mesh=`` in
+``device_build_graph``, ``DynamicHNSWIndex`` and ``fast_build_graph``;
+``dryrun_mesh`` runs a step of each path); on the one card the shards
+stack. Entry points run
 on the CUDA card unless the caller names another device; on the CPU each kernel's plain torch twin
 runs instead. This package imports neither JAX nor the JAX package.
 """
@@ -58,6 +61,8 @@ from shine_tpu_torch.models.build import (
     device_build_graph,
     init_build_state,
     insert_round,
+    make_sharded_insert_round,
+    replicate_build_state,
 )
 from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
 from shine_tpu_torch.models.fastbuild import fast_build_graph
@@ -95,6 +100,8 @@ __all__ = [
     "device_build_graph",
     "init_build_state",
     "insert_round",
+    "make_sharded_insert_round",
+    "replicate_build_state",
     "DynamicHNSWIndex",
     "device_graph_from_jax",
     "build_state_from_jax",

@@ -7,7 +7,7 @@ same flags, defaults and branches, on one CUDA card:
   --index {hnsw,flat,fastflat,ivf,split,routed,auto} -m --ef-construction
   --ip-dist --seed --store-index --load-index --device-build --fast-build
   -k --ef-search --frontier --probes --ivf-routed --ivf-shared --ivf-tile
-  --batch --rows --prerank --no-recall --label
+  --batch --rows --prerank --megabatch --no-recall --label
 
 ``--device {cuda,cpu}`` (default cuda) is the one flag the port adds: every
 index and build runs there, and without a card the run fails unless it
@@ -16,17 +16,20 @@ serves on a mesh of N shards (``parallel/mesh.py``: shard s on card s
 modulo the visible cards, stacked on a single card, or all on the CPU):
 ``--index hnsw`` (``ShardedIndex``, with ``--cache``, ``--cache-ratio``,
 ``--adaptive-cache``, ``--routing``, ``--adaptive-routing``,
-``--exchange`` and ``--adaptive-slack``), ``flat`` (``ShardedFlatIndex``),
-``fastflat`` (``ShardedFastFlatIndex``), ``split``
-(``ShardedSplitFlatIndex.from_host``, int8), ``routed``
-(``build_routed_split(shards=N)`` dealt by ``ShardedRoutedSplitIndex.
-from_single``, the base resident for the re-rank) and ``ivf``
-(``ShardedIVFIndex``, with or without ``--ivf-routed``); with one shard
+``--exchange`` and ``--adaptive-slack``; its graph built natively, by
+the sharded insert rounds with ``--device-build``
+(``device_build_graph(mesh=)``) or at scan speed with ``--fast-build``
+(``fast_build_graph(mesh=)``, its kNN stage sharded, the rows not
+resident)), ``flat`` (``ShardedFlatIndex``), ``fastflat``
+(``ShardedFastFlatIndex``), ``split`` (``ShardedSplitFlatIndex.from_host``,
+int8), ``routed`` (``build_routed_split(shards=N)`` dealt by
+``ShardedRoutedSplitIndex.from_single``, the base resident for the
+re-rank), ``ivf`` (``ShardedIVFIndex``, with or without ``--ivf-routed``)
+and ``auto`` (``auto_index_family`` on the rows per shard); with one shard
 those flags are ignored, as in the JAX command line, and the other
-families ignore ``--cache`` and the routing flags. The paths the port does
-not have yet make ``main`` exit with status 2 before any data is read,
-naming the ROADMAP item they wait for: ``--megabatch`` (A2); ``--shards`` >
-1 with auto, ``--device-build`` or ``--fast-build`` (A8c). ``--ivf-routed``
+families ignore ``--cache`` and the routing flags. ``--megabatch`` passes
+to FastFlat's and split's ``search`` on one device, as in the JAX command
+line; with ``--shards`` > 1 it warns and is ignored. ``--ivf-routed``
 with another family than ivf is ignored, as in the JAX command line.
 
 Output: the run's Statistics document (``utils/stats.py``, the JAX
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -134,8 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fastflat/split: trim to this many candidates by the "
                         "scan's own scores before the exact re-rank (0 = off)")
     q.add_argument("--megabatch", action="store_true",
-                   help="one program over the whole query stream (not "
-                        "ported: ROADMAP A2)")
+                   help="fastflat/split on one device: the whole query stream "
+                        "as one call (the same answers); ignored with --shards")
     q.add_argument("--exchange", choices=("dense", "compact"),
                    default="dense", help="sharded-HNSW exchange pattern "
                    "(compact: bucketed all_to_all owner exchange)")
@@ -149,8 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "kernels' plain twins")
     run.add_argument("--shards", type=int, default=1,
                      help="shards of the mesh, over the visible cards or on the "
-                     "CPU (every family but auto and the hnsw builds: ROADMAP "
-                     "A8c)")
+                     "CPU")
     run.add_argument("--cache", action="store_true",
                      help="sharded hnsw: hot-vertex replica")
     run.add_argument("--cache-ratio", type=float, default=CACHE_RATIO,
@@ -163,21 +166,6 @@ def build_parser() -> argparse.ArgumentParser:
                      help="cross-batch quota feedback (update_limits analogue)")
     run.add_argument("--label", default="")
     return p
-
-
-def unported_flags(args: argparse.Namespace) -> list[tuple[str, str]]:
-    """(flag, ROADMAP item) of each flag given whose path is not ported."""
-    mesh = args.shards > 1
-    shards = f"--shards {args.shards}"
-    checks = (
-        (args.megabatch, "--megabatch", "A2"),
-        (mesh and args.index == "auto", f"{shards} --index auto", "A8c"),
-        (mesh and args.index == "hnsw" and args.device_build,
-         f"{shards} --device-build", "A8c"),
-        (mesh and args.index == "hnsw" and args.fast_build,
-         f"{shards} --fast-build", "A8c"),
-    )
-    return [(flag, item) for given, flag, item in checks if given]
 
 
 def _load_libraries(args, dev) -> None:
@@ -193,13 +181,6 @@ def _load_libraries(args, dev) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    unported = unported_flags(args)
-    if unported:
-        for flag, item in unported:
-            print(f"shine_tpu_torch: {flag} is not ported yet: ROADMAP {item}",
-                  file=sys.stderr)
-        return 2
-
     dev = resolve_device(args.device)
     metric = "ip" if args.ip_dist else "l2"
     timing = Timing(dev)
@@ -250,11 +231,18 @@ def main(argv: list[str] | None = None) -> int:
         # or every shard on the CPU
         mesh = shard_mesh(args.shards, device=None if dev.type == "cuda" else dev)
         stats.meta["shard_devices"] = mesh.describe()
+        if args.megabatch:
+            warnings.warn(
+                "--megabatch is single-chip only and is ignored with "
+                "--shards > 1 (the sharded searcher dispatches per batch)",
+                stacklevel=1,
+            )
 
     if args.index == "auto":
+        rows_per_card = ds.n / (args.shards if args.shards > 1 else 1)
         args.index = auto_index_family(ds.n, args.shards)
-        print(f"# --index auto: {ds.n / 1e6:.1f}M rows/card -> {args.index}",
-              file=sys.stderr)
+        print(f"# --index auto: {rows_per_card / 1e6:.1f}M rows/card -> "
+              f"{args.index}", file=sys.stderr)
 
     # ---- build / load ----
     _load_libraries(args, dev)
@@ -346,9 +334,10 @@ def _build(args, ds, params, sp, dev, mesh, timing):
             idx = ShardedFastFlatIndex(ds.base, mesh, metric=params.metric)
         else:
             idx = FastFlatIndex(ds.base, metric=params.metric, device=dev)
+        kw = {} if mesh is not None else {"megabatch": args.megabatch}
         return (
             lambda q: idx.search(q, args.k, batch_size=args.batch,
-                                 prerank=args.prerank)[0],
+                                 prerank=args.prerank, **kw)[0],
             ds.base.nbytes,
             idx,
         )
@@ -367,9 +356,10 @@ def _build(args, ds, params, sp, dev, mesh, timing):
                 seed=args.seed, device=dev,
             )
             nbytes = idx.comp.nbytes + idx.aux.nbytes
+        kw = {} if mesh is not None else {"megabatch": args.megabatch}
         return (
             lambda q: idx.search(q, args.k, batch_size=args.batch,
-                                 prerank=args.prerank)[0],
+                                 prerank=args.prerank, **kw)[0],
             nbytes,
             idx,
         )
@@ -423,18 +413,23 @@ def _build(args, ds, params, sp, dev, mesh, timing):
         with timing.measure("load_index_buffer"):
             graph = load_graph(args.load_index)
     elif args.device_build:
-        graph = device_build_graph(ds.base, params, device=dev)
+        graph = device_build_graph(ds.base, params, mesh=mesh, device=dev)
     elif args.fast_build:
         # layer 0 is stage-checkpointed next to a stored index, so that a
-        # build cut short resumes; the rows go resident, which runs layer 0
-        # as the device self-sweep (the class-max route)
+        # build cut short resumes. On one device the rows go resident, which
+        # runs layer 0 as the device self-sweep (the class-max route); on a
+        # mesh they stay on the host and the kNN stage shards, as in the
+        # JAX command line
         stage = (
             args.store_index + ".stage0.npz" if args.store_index else None
         )
-        base_dev = torch.from_numpy(
-            np.ascontiguousarray(ds.base, dtype=np.float32)).to(dev)
-        graph = fast_build_graph(ds.base, params, base_dev=base_dev,
-                                 stage_path=stage)
+        if mesh is not None:
+            graph = fast_build_graph(ds.base, params, mesh=mesh, stage_path=stage)
+        else:
+            base_dev = torch.from_numpy(
+                np.ascontiguousarray(ds.base, dtype=np.float32)).to(dev)
+            graph = fast_build_graph(ds.base, params, base_dev=base_dev,
+                                     stage_path=stage)
     else:
         graph = build_graph(ds.base, params)
     if args.store_index:

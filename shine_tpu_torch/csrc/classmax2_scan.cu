@@ -139,6 +139,14 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 
+// The file builds as three objects, one nvcc each, at once (ops/_build.py):
+// SHINE_CM_PART 1 holds the scans of the packed table (K2, K5, K6), 2 the
+// split scans (K3), 3 the routed scan (K4). Without it one object holds all.
+#ifndef SHINE_CM_PART
+#define SHINE_CM_PART 0
+#endif
+#define SHINE_CM_HAS(part) (SHINE_CM_PART == 0 || SHINE_CM_PART == (part))
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -1341,6 +1349,7 @@ int dispatch_keep(int keep, const Args& a, cudaStream_t stream) {
   return keep == 2 ? dispatch<KIND, kKeep2>(a, stream) : dispatch<KIND, kKeep1>(a, stream);
 }
 
+#if SHINE_CM_HAS(1) || SHINE_CM_HAS(2)
 // The class-max scans: kind 0 K2's packed bf16 ext, 1 K3's bf16 comp, 2 K3's
 // int8 comp (aux (2, n_pad) f32 [nrm; scl] for 1 and 2); keep 1 or 2.
 // best/rows (B, cls), and best2/rows2 with keep 2. Returns the cudaError_t of
@@ -1361,10 +1370,16 @@ int classmax_dispatch(int kind, int keep, const void* table, const void* aux, co
                cls,
                int(n_pad / cls)};
   auto s = static_cast<cudaStream_t>(stream);
+#if SHINE_CM_HAS(2)
   if (kind == kSplitI8) return dispatch_keep<kSplitI8>(keep, a, s);
   if (kind == kSplitBf16) return dispatch_keep<kSplitBf16>(keep, a, s);
-  return dispatch_keep<kExt>(keep, a, s);
+#endif
+#if SHINE_CM_HAS(1)
+  if (kind == kExt) return dispatch_keep<kExt>(keep, a, s);
+#endif
+  return int(cudaErrorInvalidValue);
 }
+#endif
 
 // K4: one CTA a (group, 128 classes); NQ queries a CTA, the least of 16, 32
 // and 64 that holds T.
@@ -1406,6 +1421,7 @@ int dispatch_routed(const Args& a, const int32_t* cols, int C, int G, int T, int
 
 }  // namespace
 
+#if SHINE_CM_HAS(1)
 // K2. best/rows (B, cls) f32/i32 outputs, best2/rows2 too when keep2 (else
 // null). Needs dp % 16 == 0, cls % 64 == 0, n_pad % cls == 0, 16-byte
 // aligned ext and q. Returns the cudaError_t of the launch; the caller
@@ -1416,7 +1432,9 @@ extern "C" int shine_classmax_scan(const void* ext, const void* q, int64_t n_pad
   return classmax_dispatch(kExt, keep2 ? 2 : 1, ext, nullptr, q, n_pad, B, dp, cls, best, rows,
                            best2, rows2, stream);
 }
+#endif
 
+#if SHINE_CM_HAS(2)
 // K3. comp (n_pad, dpc) bf16 (comp_int8 = 0) or int8 (1), aux (2, n_pad) f32
 // [nrm; scl], q (B, dpc) bf16; outputs and requirements as K2's, aux 16-byte
 // aligned too.
@@ -1427,7 +1445,9 @@ extern "C" int shine_classmax_scan_split(const void* comp, int comp_int8, const 
   return classmax_dispatch(comp_int8 ? kSplitI8 : kSplitBf16, keep2 ? 2 : 1, comp, aux, q, n_pad,
                            B, dpc, cls, best, rows, best2, rows2, stream);
 }
+#endif
 
+#if SHINE_CM_HAS(1)
 // K5. ext (n_pad, dp) bf16, q (B, dp) bf16; max1/arg1/max2/arg2 (B, n_pad/128)
 // f32/i32/f32/i32. Needs dp % 16 == 0, n_pad % 128 == 0 and 16-byte aligned
 // ext and q. The query tile is 128 while dp <= 256, else 64. Returns the
@@ -1473,7 +1493,9 @@ extern "C" int shine_blockmax_scan2(const void* ext, const void* q, int64_t n_pa
                int(n_pad / kCls)};
   return dispatch<kExt, kChunks>(a, static_cast<cudaStream_t>(stream));
 }
+#endif
 
+#if SHINE_CM_HAS(3)
 // K4. comp ((C+1)*cap or more rows, dpc) bf16 (comp_int8 = 0) or int8 (1),
 // cluster-major; aux_r (C+1, 2*cap/cls, cls) f32, nrm rows then scl rows,
 // cluster C a pad cluster (comp 0, nrm -3e38), which the walk skips; q
@@ -1502,3 +1524,4 @@ extern "C" int shine_classmax_scan_routed(const void* comp, int comp_int8, const
   if (comp_int8) return dispatch_routed<kSplitI8>(a, c, C, G, T, P, cap, s);
   return dispatch_routed<kSplitBf16>(a, c, C, G, T, P, cap, s);
 }
+#endif

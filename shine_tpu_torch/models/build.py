@@ -40,8 +40,17 @@ two products agree (always on integer-valued rows). The distances differ
 from the JAX package's by ulps on Gaussian rows (the port sums ``bias +
 (q_ext . v + |v|^2)``, the JAX package ``(|q|^2 - 2 q . v) + |v|^2``), and
 are equal on integer-valued rows, where a build equals the JAX build bit
-for bit. The sharded round (``make_sharded_insert_round``, ``mesh=``) is
-not ported (ROADMAP A8c).
+for bit.
+
+The sharded round (``make_sharded_insert_round``, ``device_build_graph``'s
+``mesh=``) runs on the one-process shard mesh (``parallel/mesh.py``): each
+shard plans its slice of the batch, the plans are gathered on the devices
+in shard order, and every distinct device applies the whole plan to its
+copy of the state. A row's plan reads only the round-start state and the
+row, and the apply sorts every request by (vertex, new id), so a sharded
+round writes what the single round writes wherever no shard demotes an
+upper node that the single round keeps (its slice drawing more than
+``B_up_loc`` of them, the JAX package's tail event too).
 """
 
 from __future__ import annotations
@@ -226,18 +235,19 @@ def init_build_state(
 
 
 @contextlib.contextmanager
-def _timed(timings: dict | None, stage: str, dev: torch.device):
-    """Add the stage's seconds to ``timings[stage]``, the card synchronised
-    on both ends; nothing without a dict."""
+def _timed(timings: dict | None, stage: str, *devices: torch.device):
+    """Add the stage's seconds to ``timings[stage]``, every distinct card of
+    ``devices`` synchronised on both ends; nothing without a dict."""
     if timings is None:
         yield
         return
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    cards = {d for d in devices if d.type == "cuda"}
+    for d in cards:
+        torch.cuda.synchronize(d)
     t0 = time.perf_counter()
     yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for d in cards:
+        torch.cuda.synchronize(d)
     timings[stage] = timings.get(stage, 0.0) + time.perf_counter() - t0
 
 
@@ -668,23 +678,38 @@ def device_build_graph(
     unless another is given) and return the native builder's GraphSoA
     layout. Rounds ramp from ``first_batch`` nodes, doubling up to
     ``batch_size``: early rounds stay small while the graph is sparse.
-    Every search runs at ``params.ef_construction``. Given a ``timings``
-    dict, the build adds each stage's seconds (``STAGES``) and the number
-    of "rounds"."""
+    Every search runs at ``params.ef_construction``. With a ``mesh`` (a
+    ``ShardMesh``; ``device`` must then be None or its first shard's) the
+    rounds run data-parallel over its shards (``make_sharded_insert_round``),
+    the first round at least S nodes; a round of a size S does not divide
+    raises. Given a ``timings`` dict, the build adds each stage's seconds
+    (``STAGES``) and the number of "rounds"; on a mesh also the seconds of
+    the shards' "plan", the plans' "gather" and the replicas' "apply"."""
+    S = 1
     if mesh is not None:
-        raise NotImplementedError("the sharded build (mesh=) is not ported "
-                                  "yet: ROADMAP A8c")
+        S, device = mesh.size, mesh_device(mesh, device)
     n = vectors.shape[0]
     st = init_build_state(vectors, params, level_cap=level_cap, device=device)
+    states = replicate_build_state(st, mesh) if mesh is not None else None
+    runs: dict = {}
     count = 1
-    B = min(max(first_batch, 1), batch_size)
+    B = min(max(first_batch, S), batch_size)
     while count < n:
         b = min(B, n - count)
         ids = np.full(B, -1, dtype=np.int32)
         ids[:b] = np.arange(count, count + b, dtype=np.int32)
-        insert_round(st, ids, ef=params.ef_construction, frontier=4, max_add=2 * params.M,
-                     metric=params.metric_id, B_up=upper_batch(B, params.M),
-                     timings=timings)
+        B_up = upper_batch(B, params.M)
+        if mesh is None:
+            insert_round(st, ids, ef=params.ef_construction, frontier=4,
+                         max_add=2 * params.M, metric=params.metric_id, B_up=B_up,
+                         timings=timings)
+        else:
+            key = (B, sharded_upper_batch(B, B_up, S))
+            if key not in runs:
+                runs[key] = make_sharded_insert_round(
+                    mesh, ef=params.ef_construction, frontier=4,
+                    max_add=2 * params.M, metric=params.metric_id, B_up_loc=key[1])
+            runs[key](states, ids, timings=timings)
         count += b
         if timings is not None:
             timings["rounds"] = timings.get("rounds", 0) + 1
@@ -716,7 +741,80 @@ def build_state_to_graph(st: BuildState, params: HNSWParams,
     )
 
 
-def make_sharded_insert_round(*args, **kwargs):
-    """The data-parallel round over a device mesh is not ported."""
-    raise NotImplementedError("the sharded insert round is not ported yet: "
-                              "ROADMAP A8c")
+def sharded_upper_batch(B: int, B_up: int, S: int) -> int:
+    """A shard's upper sub-batch for a round of B over S shards: at least
+    ceil(B_up / S), so that S of them hold the single round's B_up, and at
+    least 8, but no more than the shard's slice of B // S rows (the JAX
+    package's rule, ``shine_tpu/models/build.py:793``)."""
+    return min(max(1, B // S), max(8, -(-B_up // S)))
+
+
+def mesh_device(mesh, device: torch.device | str | None) -> torch.device:
+    """The device a build over ``mesh`` starts on: its first shard's, which
+    a ``device`` given beside the mesh must name (a bare ``cuda`` names any
+    card)."""
+    first = mesh.devices[0]
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != first.type or dev.index not in (None, first.index):
+            raise ValueError(f"device {device} is not the mesh's first shard's "
+                             f"{first}")
+    return first
+
+
+def replicate_build_state(st: BuildState, mesh) -> list[BuildState]:
+    """``st`` on every shard of ``mesh`` by the mesh's rule for replicated
+    state: one copy a distinct device (``st`` itself on its own device),
+    shared by the shards that sit on it."""
+
+    def on(s: int) -> BuildState:
+        dev = mesh.devices[s]
+        if dev == st.device:
+            return st
+        return dataclasses.replace(st, **{
+            f.name: getattr(st, f.name).to(dev)
+            for f in dataclasses.fields(st)
+            if isinstance(getattr(st, f.name), torch.Tensor)})
+
+    return mesh.per_device(on)
+
+
+def make_sharded_insert_round(
+    mesh, *, ef: int, frontier: int, max_add: int, metric: int, B_up_loc: int
+):
+    """The data-parallel insert round over a ``ShardMesh``: returns
+    ``run(states, batch_ids, timings=None)``, which inserts one batch in
+    place into ``states``, the per-shard list of ``replicate_build_state``.
+
+    The batch is scattered over the shards, each shard plans its slice
+    (descent and ef_construction searches, the expensive half) on its
+    device at ``B_up=B_up_loc``, every field of the plans is all-gathered in
+    shard order, and each distinct device applies the whole plan to its
+    copy: on a stacked mesh one state, applied once. The apply sorts every
+    request, so it writes the same whatever the plan's row order or pads,
+    and the copies stay equal: the SPMD replacement for the reference's
+    locked concurrent inserts (``src/hnsw/hnsw.hh:40-251``), as in the JAX
+    package. A batch that S does not divide raises. Given a ``timings``
+    dict, adds the seconds of the "plan", "gather" and "apply" halves and,
+    inside them, of each stage (``STAGES``)."""
+    S = mesh.size
+
+    def run(states: list[BuildState], batch_ids, timings: dict | None = None
+            ) -> None:
+        if len(states) != S:
+            raise ValueError(f"{len(states)} states for {S} shards")
+        ids = torch.as_tensor(batch_ids, dtype=torch.int32)
+        parts = mesh.scatter(ids)  # raises unless S divides the batch
+        with _timed(timings, "plan", *mesh.devices):
+            plans = [plan_round(states[s], parts[s], ef=ef, frontier=frontier,
+                                metric=metric, B_up=B_up_loc, timings=timings)
+                     for s in range(S)]
+        with _timed(timings, "gather", *mesh.devices):
+            fields = [mesh.all_gather([p[i] for p in plans])
+                      for i in range(len(RoundPlan._fields))]
+        with _timed(timings, "apply", *mesh.devices):
+            mesh.per_device(lambda s: apply_round(
+                states[s], RoundPlan(*(f[s] for f in fields)), metric=metric,
+                max_add=max_add, timings=timings))
+
+    return run

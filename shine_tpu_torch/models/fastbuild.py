@@ -29,7 +29,11 @@ SHINE_SWEEP_INT8), ``host_select`` (SHINE_FASTBUILD_HOSTSEL), and the
 stage times (SHINE_FASTBUILD_TIMING) go into a ``timings`` dict that the
 caller passes.
 ``blockmax`` is the route the JAX package takes under ``interpret=True``.
-A mesh (the sharded build) is not ported (ROADMAP A8c).
+
+With ``mesh=`` (a ``ShardMesh``) and no ``base_dev``, a level of more than
+``SHARD_KNN_MIN`` rows runs its kNN stage sharded over the mesh
+(``_knn_candidates``); the selects and the reverse merge are the single
+build's.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from shine_tpu_torch import native
 from shine_tpu_torch.config import METRIC_L2, HNSWParams
 from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.graph.soa import GraphSoA
-from shine_tpu_torch.models.build import draw_levels, select_heuristic
+from shine_tpu_torch.models.build import draw_levels, mesh_device, select_heuristic
 from shine_tpu_torch.models.flat import (
     FastFlatIndex,
     FlatIndex,
@@ -57,6 +61,9 @@ from shine_tpu_torch.ops.distance import squared_norms
 from shine_tpu_torch.ops.scan import pack_ext_query
 
 HOST_KNN_MAX = 32_768  # the host path's kNN runs FlatIndex up to this many rows
+# rows below this run their kNN stage on one device even under a mesh (the
+# JAX package's value); tests lower it to drive the sharded stage
+SHARD_KNN_MIN = 32_768
 SELECT_TILE_BYTES = 2_500_000_000  # a select batch's (C, C) tile and (C, d) gather
 FLUSH_BYTES = 512_000_000  # staged select outputs a device-to-host copy
 # the card's free memory less this much is the sweep's budget: the caching
@@ -160,22 +167,40 @@ def _drop_self_dev(ii: torch.Tensor, dd: torch.Tensor, lo: int, *, k: int
 
 
 def _knn_candidates(vectors: np.ndarray, ids: np.ndarray, k: int, metric: int,
-                    blockmax: bool, device: torch.device
+                    blockmax: bool, device: torch.device, mesh=None
                     ) -> tuple[np.ndarray, np.ndarray]:
-    """kNN of the subset ``ids`` against itself, self excluded, on one
-    device: (cand (n, k) global ids, dists (n, k)). Up to HOST_KNN_MAX rows,
-    or under the block-max route, FlatIndex (bf16 scan and f32 re-rank; exact
+    """kNN of the subset ``ids`` against itself, self excluded: (cand (n,
+    k) global ids, dists (n, k)). On one device: up to HOST_KNN_MAX rows, or
+    under the block-max route, FlatIndex (bf16 scan and f32 re-rank; exact
     f32 under the block-max route, as the JAX package's interpret build
-    does); else FastFlatIndex at kb = max(k + 17, 48) (128 from d = 512)."""
+    does); else FastFlatIndex at kb = max(k + 17, 48) (128 from d = 512).
+
+    With a ``mesh`` and more than SHARD_KNN_MIN rows the scan shards over
+    the mesh. A mesh on the CPU, or the block-max route (the JAX package's
+    interpret branch), takes the exact ``ShardedFlatIndex`` in f32, whose
+    answer is the exact single-device one (bit for bit on integer-valued
+    rows); a mesh of cards takes ``ShardedFastFlatIndex`` (K2 on every
+    shard, K1 in its re-rank) at the single device's kb, batch 4096."""
     sub = vectors[ids]
     n, d = sub.shape
-    if n <= HOST_KNN_MAX or blockmax:
+    kb = max(k + 17, 48 if d < 512 else 128)
+    if mesh is not None and n > SHARD_KNN_MIN:
+        # imported here, as the JAX package does, so that models and
+        # parallel do not import each other at module level
+        from shine_tpu_torch import parallel
+
+        if blockmax or all(dv.type == "cpu" for dv in mesh.devices):
+            idx = parallel.ShardedFlatIndex(sub, mesh, metric=metric)
+            ii, dd = idx.search(sub, k + 1, chunk=2048, use_bf16=False)
+        else:
+            idx = parallel.ShardedFastFlatIndex(sub, mesh, metric=metric)
+            ii, dd = idx.search(sub, k + 1, kb=kb, batch_size=4096)
+    elif n <= HOST_KNN_MAX or blockmax:
         idx = FlatIndex(sub, metric=metric, device=device)
         ii, dd = idx.search(sub, k + 1, batch_size=2048, use_bf16=not blockmax)
     else:
         idx = FastFlatIndex(sub, metric=metric, device=device)
         pre = idx.preload(sub, batch_size=4096)
-        kb = max(k + 17, 48 if d < 512 else 128)
         ii, dd = idx.search(sub, k + 1, kb=kb, batch_size=4096, preloaded=pre)
     ii, dd = _drop_self_sorted(ii, dd, k)  # rows arrive sorted by (dist, id)
     gi = np.where(ii >= 0, ids[np.maximum(ii, 0)], -1)
@@ -506,7 +531,11 @@ def fast_build_graph(
     ``device``, the CUDA card unless another is given; a ``base_dev`` tensor
     (the rows, resident) fixes the device and moves layer 0 to the fused
     device sweep (``host_select`` keeps the sweep but selects from its
-    host table instead).
+    host table instead). With a ``mesh`` the select runs on its first
+    shard's device (``device`` must be None or that one) and the kNN stage
+    of each level over SHARD_KNN_MIN rows that the sweep does not take runs
+    over the mesh (``_knn_candidates``); without ``base_dev`` that is layer
+    0 too, the JAX command line's route.
 
     ``pool``: the candidate width fed to the select (k, the exact
     neighbours a node gets), the ef_construction analogue; 0 keeps k =
@@ -520,9 +549,8 @@ def fast_build_graph(
     "knn_select" where the sweep and the select are fused), "plan", the
     level-0 sweep's memory plan and knobs, and the seconds of "components"
     (the promotion), "upper_levels" and the "total"."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded build (mesh=) is not ported "
-                                  "yet: ROADMAP A8c")
+    if mesh is not None and base_dev is None:
+        device = mesh_device(mesh, device)
     if base_dev is not None:
         dev = base_dev.device
         if device is not None and torch.device(device) != dev:
@@ -569,7 +597,8 @@ def fast_build_graph(
                                              hbm_bytes=hbm_bytes, layout=layout,
                                              plan_out=rec["plan"])
             else:
-                cand, cd = _knn_candidates(vectors, ids, k, metric, blockmax, dev)
+                cand, cd = _knn_candidates(vectors, ids, k, metric, blockmax, dev,
+                                           mesh)
             width = max(2 * m_out, pool)
             if cand.shape[1] < width:  # one candidate width at every level
                 pad = width - cand.shape[1]

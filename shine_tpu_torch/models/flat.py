@@ -389,9 +389,11 @@ class _ClassMaxIndex:
         0/None take the JAX package's measured auto rules
         (``_resolve_knobs``); ``prerank > 0`` trims to that many candidates
         by the scan's own scores before the re-rank. ``tq`` rounds the
-        batch up to a multiple of itself and picks no tiling; ``megabatch``
-        is accepted for the JAX signature and changes nothing: the batches
-        always run in one host loop."""
+        batch up to a multiple of itself and picks no tiling. ``megabatch``
+        (the JAX package's one program over the whole stream) runs the same
+        loop: every batch is launched without a wait and the answers come
+        back in one download, with the same ids and distances. Replaying a
+        batch as a CUDA graph would be speed work, not a port."""
         nq = queries.shape[0]
         batch_size = max(tq, -(-min(batch_size, max(nq, 1)) // tq) * tq)
         if preloaded is None:

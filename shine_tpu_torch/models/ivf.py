@@ -21,7 +21,10 @@ multiplied in full fp32), as XLA's ``preferred_element_type=float32`` does.
 Two builds: ``build_ivf_layout`` (the rows on the host; the layout uploaded
 once) and ``build_ivf_layout_device`` (the rows stay on the device; only each
 row's R nearest centroids visit the host). The capacity assignment is numpy,
-as in the JAX package, and gives the same result on the same inputs. The
+as in the JAX package, and gives the same result on the same inputs; the
+balanced k-means refinement and the routed split build run the same rule
+as torch sorts on the device of their rows (``_capacity_assign_torch``,
+bit for bit the numpy answer). The
 k-means runs in full fp32 on the device of its points; its sums and argmins
 may differ from XLA's by ulps, so it is held to the JAX package by
 tolerance, not bit for bit. The random draws of the device build (its
@@ -138,6 +141,61 @@ def _capacity_assign_host(
     return assign
 
 
+def _f32_sort_keys(d: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [0, 2**32) that order f32 values as numpy's sorts do
+    (-0.0 equal to 0.0, +inf last; the inputs hold no NaN)."""
+    b = (d.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def _capacity_assign_torch(choice: torch.Tensor, choice_d: torch.Tensor,
+                           num_clusters: int, cap, *,
+                           defer_residue: bool = False) -> torch.Tensor:
+    """``_capacity_assign_host`` on the device of ``choice`` (n, R) int32
+    and ``choice_d`` (n, R) f32, with its answer bit for bit: each round
+    orders the unplaced rows by one stable sort of a (cluster, distance)
+    key, which is ``np.lexsort``'s order, ties kept in id order. The
+    residue, unless deferred, takes the open slots round-robin (the host
+    rule without vectors). Returns (n,) int64, -1 for a deferred row."""
+    dev = choice.device
+    n, R = choice.shape
+    assign = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    room = torch.as_tensor(cap, dtype=torch.int64, device=dev).expand(num_clusters).clone()
+    for r in range(R):
+        un = torch.nonzero(assign < 0).flatten()
+        if un.numel() == 0:
+            break
+        key = (choice[un, r].to(torch.int64) << 32) | _f32_sort_keys(choice_d[un, r])
+        key, order = torch.sort(key, stable=True)
+        un, c_r = un[order], key >> 32
+        pos = torch.arange(len(un), device=dev)
+        first = torch.ones(len(un), dtype=torch.bool, device=dev)
+        first[1:] = c_r[1:] != c_r[:-1]
+        rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+        ok = rank < room[c_r]
+        assign[un[ok]] = c_r[ok]
+        room -= torch.bincount(c_r[ok], minlength=num_clusters)
+    if not defer_residue:
+        un = torch.nonzero(assign < 0).flatten()
+        if un.numel():
+            open_slots = torch.repeat_interleave(
+                torch.arange(num_clusters, device=dev), room.clamp_min(0))
+            assign[un] = open_slots[: len(un)]
+    return assign
+
+
+def _cluster_slots_torch(assign: torch.Tensor, num_clusters: int, cap: int) -> torch.Tensor:
+    """``_cluster_slots`` on the device of ``assign`` (n,) int64: (C, cap)
+    int32, cluster c's rows ascending by id, -1 in the rest."""
+    dev = assign.device
+    sa, order = torch.sort(assign, stable=True)
+    first = torch.searchsorted(sa, torch.arange(num_clusters, device=dev))
+    slot = torch.arange(len(sa), device=dev) - first[sa]
+    inv = torch.full((num_clusters, cap), -1, dtype=torch.int32, device=dev)
+    inv[sa, slot] = order.to(torch.int32)
+    return inv
+
+
 def _spatial_order_centroids(cents: np.ndarray, seed: int) -> np.ndarray:
     """Permutation that relabels clusters so that spatially near centroids
     get adjacent ids: a coarse k-means over the centroids (on the CPU)
@@ -200,10 +258,8 @@ def _lloyd_balance_refine(points: torch.Tensor, cents: torch.Tensor, *,
         csq = squared_norms(cents)
         parts = [_nearest_r_chunk(xs[lo:lo + chunk], cents, csq, R=Rr)
                  for lo in range(0, n, chunk)]
-        cho = torch.cat([p[0] for p in parts]).cpu().numpy()
-        cho_d = torch.cat([p[1] for p in parts]).cpu().numpy()
-        assign = torch.from_numpy(_capacity_assign_host(cho, cho_d, k, cap_t))
-        assign = assign.to(xs.device)
+        assign = _capacity_assign_torch(torch.cat([p[0] for p in parts]),
+                                        torch.cat([p[1] for p in parts]), k, cap_t)
         sums, counts = cluster_sums(xs, assign, k)
         cents = torch.where(counts[:, None] > 0.5,
                             sums / counts.clamp_min(1.0)[:, None], cents)

@@ -57,6 +57,7 @@ from shine_tpu_torch.ops.scan_split import (
     pack_split_device,
     pack_split_query,
 )
+from shine_tpu_torch.utils.timing import sync_clock
 
 
 def _round_up(x: int, q: int) -> int:
@@ -313,10 +314,12 @@ def _draw_train_ids(n: int, ts: int, seed: int) -> torch.Tensor:
     return torch.randint(0, n, (ts,), generator=gen)
 
 
-def _cluster_major_order(assign: np.ndarray, C: int, cap: int) -> np.ndarray:
+def _cluster_major_order(assign, C: int, cap: int) -> np.ndarray:
     """((C+1)*cap,) int32: cluster c's rows, ascending by id, in slots
-    c*cap .., -1 in the empty slots and in the pad cluster C."""
-    return np.concatenate([ivf._cluster_slots(assign, C, cap).reshape(-1),
+    c*cap .., -1 in the empty slots and in the pad cluster C. ``assign``
+    (n,) int64, numpy or a tensor (laid out on its device)."""
+    slots = ivf._cluster_slots_torch(torch.as_tensor(assign), C, cap)
+    return np.concatenate([slots.reshape(-1).cpu().numpy(),
                            np.full(cap, -1, np.int32)])
 
 
@@ -325,10 +328,12 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
                  device: torch.device | str = "cpu"):
     """Stages A-C of the routed build: train the centroids, stream each
     row's ``assign_r`` nearest centroids, assign rows to clusters under the
-    capacity and lay them out cluster-major. C is a multiple of ``shards``
-    (the sharded index deals clusters round-robin). Returns (centroids
-    (C, d) f32 on ``device``, order ((C+1)*cap,) int32 numpy with -1 for an
-    empty slot, C, cap)."""
+    capacity and lay them out cluster-major, every stage on ``device`` (the
+    assignment is the JAX package's numpy rule, bit for bit, as torch sorts:
+    ``ivf._capacity_assign_torch``). C is a multiple of ``shards`` (the
+    sharded index deals clusters round-robin). Returns (centroids (C, d) f32
+    on ``device``, order ((C+1)*cap,) int32 numpy with -1 for an empty slot,
+    C, cap)."""
     cap = _round_up(max(cap_target, 4 * cls), 4 * cls)
     C = _round_up(max(2, shards, math.ceil(cap_slack * n / cap)), shards)
     t0 = time.perf_counter()
@@ -349,64 +354,66 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
     say(f"# routed_split: trained C={C} cap={cap} on {ts} rows "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # B: stream each row's R nearest centroids to the host
+    # B: each row's R nearest centroids, kept on the device
     t0 = time.perf_counter()
     csq = squared_norms(cents_dev)
     R = max(2, min(assign_r, C))
-    choice = np.empty((n, R), np.int32)
-    choice_d = np.empty((n, R), np.float32)
+    choice = torch.empty((n, R), dtype=torch.int32, device=device)
+    choice_d = torch.empty((n, R), dtype=torch.float32, device=device)
     sub = 8192  # the (sub, C) distance tile of one step
     for lo in range(0, n, sub):
         ids = torch.arange(lo, min(lo + sub, n), device=device)
-        ii, dd = ivf._nearest_r_chunk(rowfn(ids), cents_dev, csq, R=R)
-        choice[lo:lo + sub] = ii.cpu().numpy()
-        choice_d[lo:lo + sub] = dd.cpu().numpy()
+        choice[lo:lo + sub], choice_d[lo:lo + sub] = ivf._nearest_r_chunk(
+            rowfn(ids), cents_dev, csq, R=R)
+    sync_clock(torch.device(device))
     say(f"# routed_split: assignment choices streamed ({n} rows, R={R}, "
         f"{time.perf_counter() - t0:.2f} s)")
 
     # C: capacity assignment; the residue (all R choices full) re-chooses
     # among the clusters that still have room, nearest first, in rounds
     t0 = time.perf_counter()
-    assign = ivf._capacity_assign_host(choice, choice_d, C, cap, defer_residue=True)
-    un = np.where(assign < 0)[0]
+    assign = ivf._capacity_assign_torch(choice, choice_d, C, cap, defer_residue=True)
+    del choice_d
+    un = torch.nonzero(assign < 0).flatten()
     widened = len(un)
     R2 = int(min(64, C))
     wchunk = 8_192
+
+    def room_left() -> torch.Tensor:
+        return cap - torch.bincount(assign[assign >= 0], minlength=C)[:C]
+
     for _ in range(4):
         if not len(un):
             break
-        room = cap - np.bincount(
-            np.maximum(assign, 0), weights=(assign >= 0), minlength=C
-        )[:C].astype(np.int64)
-        penalty = torch.from_numpy(
-            np.where(room > 0, 0.0, np.inf).astype(np.float32)).to(device)
-        cho2 = np.empty((len(un), R2), np.int32)
-        cho2_d = np.empty((len(un), R2), np.float32)
+        room = room_left()
+        penalty = torch.where(room > 0, 0.0, float("inf")).to(torch.float32)
+        cho2 = torch.empty((len(un), R2), dtype=torch.int32, device=device)
+        cho2_d = torch.empty((len(un), R2), dtype=torch.float32, device=device)
         for lo in range(0, len(un), wchunk):
-            xf = rowfn(torch.from_numpy(un[lo:lo + wchunk]).to(device))
+            xf = rowfn(un[lo:lo + wchunk])
             dd = ((xf * xf).sum(dim=-1, keepdim=True) - 2.0 * matmul_nt(xf, cents_dev)
                   + csq[None, :] + penalty[None, :])
             ii = smallest_positions(dd, R2)
-            cho2[lo:lo + wchunk] = ii.to(torch.int32).cpu().numpy()
-            cho2_d[lo:lo + wchunk] = torch.gather(dd, 1, ii).cpu().numpy()
-        assign2 = ivf._capacity_assign_host(cho2, cho2_d, C, room, defer_residue=True)
+            cho2[lo:lo + wchunk] = ii.to(torch.int32)
+            cho2_d[lo:lo + wchunk] = torch.gather(dd, 1, ii)
+        assign2 = ivf._capacity_assign_torch(cho2, cho2_d, C, room, defer_residue=True)
         assign[un] = assign2
         un = un[assign2 < 0]
-    if len(un):
+    rr = len(un)
+    if rr:
         # nothing open near them: round-robin the open slots
-        room = cap - np.bincount(
-            np.maximum(assign, 0), weights=(assign >= 0), minlength=C
-        )[:C].astype(np.int64)
-        open_slots = np.repeat(np.arange(C), np.maximum(room, 0))
-        assign[un] = open_slots[: len(un)]
-    assert (assign >= 0).all()
-    ranks = np.full(n, R, np.int16)
+        open_slots = torch.repeat_interleave(torch.arange(C, device=device),
+                                             room_left().clamp_min(0))
+        assign[un] = open_slots[:rr]
+    assert bool((assign >= 0).all())
+    ranks = torch.full((n,), R, dtype=torch.int64, device=device)
     for r in range(R - 1, -1, -1):
         ranks[assign == choice[:, r]] = r
-    hist = np.bincount(ranks, minlength=R + 1).astype(np.float64) / n
+    hist = torch.bincount(ranks, minlength=R + 1).cpu().numpy().astype(np.float64) / n
+    del choice, ranks
     say(f"# routed_split: assign ranks r0={hist[0]:.4f} r1={hist[1]:.4f} "
         f"r2+={hist[2:R].sum():.4f} widened={widened / n:.6f} "
-        f"rr={len(un) / n:.6f}")
+        f"rr={rr / n:.6f}")
     order = _cluster_major_order(assign, C, cap)
     say(f"# routed_split: capacity assign done (cap={cap}, "
         f"fill={n / (C * cap):.3f}, {time.perf_counter() - t0:.2f} s)")

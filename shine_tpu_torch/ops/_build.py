@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
-them at once, and the objects are linked into one shared library with a
-plain C interface, loaded with ctypes. No PyTorch header is included, so
-the build takes seconds, not the minutes that
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (the
+longest, ``classmax2_scan.cu``, by three, one for each part of its
+kernels), all of them at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ctypes. No PyTorch header is
+included, so the build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` needs. The library lands in
 ``build/shine_tpu_torch/`` under the repository root, keyed on a hash of
 the sources, and is built at first use: nothing happens at import.
@@ -32,6 +33,8 @@ NVCC_FLAGS = [
 # flags of one source only: regen_rows.cu rounds every f32 multiply and add
 # on its own, as torch's elementwise ops do, to equal its plain version
 FILE_FLAGS = {"regen_rows.cu": ["-fmad=false"]}
+# sources built in parts, one nvcc and one object each: the flags of each part
+FILE_PARTS = {"classmax2_scan.cu": [[f"-DSHINE_CM_PART={p}"] for p in (1, 2, 3)]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,6 +53,7 @@ def lib_path() -> str:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(FILE_FLAGS.items())).encode())
+    h.update(repr(sorted(FILE_PARTS.items())).encode())
     return os.path.join(_BUILD, f"libshine_kernels_{h.hexdigest()[:12]}.so")
 
 
@@ -85,12 +89,14 @@ def _build(path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     nvcc = _nvcc()
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    units = [(src, i, part) for src in _sources()
+             for i, part in enumerate(FILE_PARTS.get(os.path.basename(src), [[]]))]
+    objs = [f"{tmp}.{os.path.basename(src)}.{i}.o" for src, i, _ in units]
     t0 = time.perf_counter()
     try:
         log = _run_all([[nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(os.path.basename(src), []),
-                         "-c", "-o", obj, src]
-                        for src, obj in zip(_sources(), objs)])
+                         *part, "-c", "-o", obj, src]
+                        for (src, _, part), obj in zip(units, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     finally:
         for obj in objs:

@@ -5,8 +5,10 @@ and query routing (``sharded.py``, ``hot_cache.py``, ``placement.py``,
 sharded scan families: the row-sharded class-max scans
 (``fastflat_sharded.py``: ``ShardedFastFlatIndex``, ``ShardedSplitFlatIndex``),
 cluster-sharded IVF (``ivf_sharded.py``) and cluster-sharded routed split
-serving with its direct build (``routed_sharded.py``)."""
+serving with its direct build (``routed_sharded.py``); ``dryrun.py`` runs
+one step of each, and of the sharded builds, at tiny sizes."""
 
+from shine_tpu_torch.parallel.dryrun import dryrun_mesh
 from shine_tpu_torch.parallel.fastflat_sharded import (
     ShardedFastFlatIndex,
     ShardedSplitFlatIndex,
@@ -55,6 +57,7 @@ __all__ = [
     "build_routed_split_sharded",
     "build_upper_tables",
     "capacity_assign",
+    "dryrun_mesh",
     "kmeans",
     "make_sharded_search",
     "replica_lookup",

@@ -29,6 +29,7 @@ from shine_tpu_torch.graph.soa import GraphSoA
 from shine_tpu_torch.io import brute_force_knn, recall_at_k, synthetic_dataset
 from shine_tpu_torch.models import build as tbuild
 from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
+from shine_tpu_torch.parallel import shard_mesh
 
 # one shape for the carried state, both builds and the online index, so that
 # the JAX package compiles each round's shape once
@@ -389,7 +390,8 @@ def test_online_index_snapshots_bit_for_bit_on_integer_rows():
 def test_online_index_recall_between_chunks():
     """The JAX package's own online test, on the port: three chunks of
     Gaussian rows, the searcher served after each, recall@10 above its
-    bound; a chunk past the capacity, a mesh and a wrong width raise."""
+    bound; a chunk past the capacity and a wrong width raise, a mesh
+    runs."""
     ds = synthetic_dataset(n=1200, dim=24, num_queries=100, seed=5)
     dyn = DynamicHNSWIndex(24, capacity=1300, params=HNSWParams(M=12, ef_construction=80),
                            batch_size=128, device="cpu")
@@ -406,8 +408,9 @@ def test_online_index_recall_between_chunks():
         dyn.add(np.zeros((101, 24), np.float32))
     with pytest.raises(ValueError):
         dyn.add(np.zeros((1, 23), np.float32))
-    with pytest.raises(NotImplementedError, match="A8c"):
-        DynamicHNSWIndex(24, 100, mesh=object(), device="cpu")
+    meshed = DynamicHNSWIndex(24, 100, mesh=shard_mesh(2, device="cpu"))
+    meshed.add(ds.base[:100])
+    assert meshed.count == 100 and meshed.searcher().mesh.size == 2
     with pytest.raises(ValueError, match="empty"):
         DynamicHNSWIndex(24, 100, device="cpu").snapshot()
 
@@ -415,11 +418,13 @@ def test_online_index_recall_between_chunks():
 def test_entry_points_default_to_the_card_and_refuse_a_mesh():
     rows = _int_rows(9, 100)
     _, tp = _params("l2")
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tbuild.device_build_graph(rows, tp, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tbuild.make_sharded_insert_round(None, ef=EFC, frontier=4, max_add=16,
-                                         metric=0, B_up_loc=8)
+    mesh = shard_mesh(2, device="cpu")
+    meshed = tbuild.device_build_graph(rows, tp, mesh=mesh)
+    single = tbuild.device_build_graph(rows, tp, device="cpu")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(meshed, f), getattr(single, f))
+    assert callable(tbuild.make_sharded_insert_round(mesh, ef=EFC, frontier=4,
+                                                     max_add=16, metric=0, B_up_loc=8))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the refusal path is not taken")
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -299,24 +299,89 @@ def test_ivf_routed_flag_ignored_elsewhere(capsys):
     assert routed["queries"]["recall"] == base["queries"]["recall"] == pytest.approx(1.0)
 
 
-UNPORTED = {
-    "megabatch": (["--index", "fastflat", "--megabatch"], "A2"),
-    "exchange": (["--index", "auto", "--shards", "2", "--exchange", "compact"],
-                 "A8c"),
-    "device_build": (["--index", "hnsw", "--shards", "4", "--device-build"],
-                     "A8c"),
-    "fast_build": (["--index", "hnsw", "--shards", "4", "--fast-build"], "A8c"),
+# the flags the port once refused, each argv run through both command lines
+# (the JAX one on its virtual devices, the port's on a CPU mesh). The hnsw
+# builds read a small integer-valued set from files, where every distance
+# is exact in both packages and the sharded builds agree bit for bit; the
+# fast build's kNN stage shards with SHARD_KNN_MIN lowered in both
+INT_HNSW = ["--index", "hnsw", "-m", "8", "--ef-construction", "40",
+            "--ef-search", "64", "--batch", "64"]
+ONCE_REFUSED = {
+    "megabatch": DENSE_CASES["fastflat"] + ["--megabatch"],
+    "exchange": ["--synthetic", "4096:16", "--index", "auto", "--num-queries", "100",
+                 "--shards", "2", "--exchange", "compact"],
+    "device_build": INT_HNSW + ["--shards", "4", "--device-build"],
+    "fast_build": INT_HNSW + ["--shards", "4", "--fast-build"],
 }
+CLI_SHARD_KNN_MIN = 128
+ONCE_REFUSED_MIN_RECALL = 0.7
 
 
-@pytest.mark.parametrize("case", list(UNPORTED))
-def test_unported_flags_exit_naming_their_item(case, capsys):
-    """They exit before any data is read: the dataset path does not exist."""
-    flags, item = UNPORTED[case]
-    rc = port_main(["--data-path", "/nonexistent", "--device", "cpu", *flags])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err and "not ported" in err
+@pytest.fixture(scope="module")
+def int_set(tmp_path_factory):
+    """225 x 16 integer rows (the device build's rounds of 32, 64 and 128:
+    three shapes for JAX to compile), 100 queries, the exact top-10, saved
+    as a dataset directory. Entries from -64 to 64 keep every distance exact
+    in f32 and make ties between distances rare."""
+    from shine_tpu_torch.io import brute_force_knn
+
+    rng = np.random.default_rng(21)
+    base = rng.integers(-64, 65, size=(225, 16)).astype(np.float32)
+    queries = rng.integers(-64, 65, size=(100, 16)).astype(np.float32)
+    gt, _ = brute_force_knn(base, queries, 10)
+    root = str(tmp_path_factory.mktemp("ints") / "ints")
+    tds.save_dataset(tds.Dataset(base=base, queries=queries, ground_truth=gt,
+                                 name="ints"), root)
+    return root
+
+
+@pytest.mark.parametrize("case", list(ONCE_REFUSED))
+def test_once_refused_flags_against_jax_cli(case, int_set, capsys, monkeypatch):
+    """Each runs in both command lines to the same recall. --megabatch on one
+    device changes no answer in either package: each run equals the same
+    argv without it, and the two packages differ only as their CPU
+    FastFlat routes do (the dense rule above)."""
+    import shine_tpu.models.fastbuild as jfb
+    from shine_tpu_torch.models import fastbuild as tfb
+
+    monkeypatch.setattr(jfb, "SHARD_KNN_MIN", CLI_SHARD_KNN_MIN)
+    monkeypatch.setattr(tfb, "SHARD_KNN_MIN", CLI_SHARD_KNN_MIN)
+    argv = ONCE_REFUSED[case]
+    if case in ("device_build", "fast_build"):
+        argv = ["--data-path", int_set] + argv
+    jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
+    _same_shape(jdoc, tdoc)
+    jq, tq = jdoc["queries"], tdoc["queries"]
+    if case == "megabatch":
+        plain = [a for a in argv if a != "--megabatch"]
+        assert tq["recall"] == run_port(plain, capsys)["queries"]["recall"]
+        assert jq["recall"] == run_jax(plain, capsys)["queries"]["recall"]
+        assert abs(tq["recall"] - jq["recall"]) <= DENSE_RECALL_GAP
+        return
+    assert tdoc["meta"]["shard_devices"] == ["cpu"] * tdoc["meta"]["num_shards"]
+    assert tq["recall"] == jq["recall"]
+    # the 225-row device build's rounds (up to 128 nodes that cannot see
+    # each other) leave it near 0.8 in both packages: a floor for a broken
+    # graph only
+    assert tq["recall"] > ONCE_REFUSED_MIN_RECALL
+    assert tq["ici_exchange_bytes"] > 0
+    if case == "exchange":  # auto resolved to the sharded FastFlat
+        for key in ("scanned_rows", "distance_computations"):
+            assert tq[key] == jq[key], key
+    else:
+        assert tdoc["build"]["build_time_ms"] > 0
+
+
+def test_megabatch_with_shards_warns_and_is_ignored(capsys):
+    """As in the JAX command line: a warning, then the sharded run's recall,
+    the same as without --megabatch and as the JAX command line's."""
+    argv = DENSE_CASES["fastflat"] + ["--shards", "4"]
+    plain = run_port(argv, capsys)["queries"]["recall"]
+    with pytest.warns(UserWarning, match="--megabatch is single-chip only"):
+        got = run_port(argv + ["--megabatch"], capsys)["queries"]["recall"]
+    with pytest.warns(UserWarning, match="--megabatch is single-chip only"):
+        want = run_jax(argv + ["--megabatch"], capsys)["queries"]["recall"]
+    assert got == plain == want
 
 
 # the sharded runs, each on a graph the JAX command line stored: both

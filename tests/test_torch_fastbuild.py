@@ -23,6 +23,7 @@ from shine_tpu_torch.graph.soa import GraphSoA
 from shine_tpu_torch.io import recall_at_k, synthetic_dataset
 from shine_tpu_torch.models import build as tbuild
 from shine_tpu_torch.models import fastbuild as tfb
+from shine_tpu_torch.parallel import shard_mesh
 
 N, D, M = 8192, 16, 8
 FIELDS = ("levels", "neighbors0", "upper_row", "upper_neighbors")
@@ -272,12 +273,17 @@ def test_stage_files_load_in_both_packages(int_rows, tmp_path):
 
 
 def test_build_defaults_to_the_card_and_refuses_a_mesh(int_rows):
+    """A mesh runs the build on its first shard's device (below
+    SHARD_KNN_MIN rows the kNN stage stays there: the single build)."""
+    rows = int_rows[:2000]
+    meshed = tfb.fast_build_graph(rows, HNSWParams(M=M), mesh=shard_mesh(2, device="cpu"))
+    single = tfb.fast_build_graph(rows, HNSWParams(M=M), device="cpu")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(meshed, f), getattr(single, f))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the refusal path is not taken")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tfb.fast_build_graph(int_rows, HNSWParams(M=M))
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tfb.fast_build_graph(int_rows, HNSWParams(M=M), device="cpu", mesh=object())
     with pytest.raises(ValueError):
         tfb.fast_build_graph(int_rows, HNSWParams(M=M), device="cuda",
                              base_dev=torch.from_numpy(int_rows))

@@ -9,7 +9,10 @@ stacked on the card: one answer, bit for bit, across shard counts,
 exchanges, the replica and routing, and equal to a CPU mesh on integer
 rows; the sharded scan families (FastFlat, split, IVF, routed) on a card
 mesh equal to a CPU mesh on integer rows, their kernels at per-shard shapes,
-and C11 for the sharded FastFlat, split and IVF.
+and C11 for the sharded FastFlat, split and IVF; the sharded builds (the
+insert rounds, the online index and the scan-speed build) on a card mesh
+equal to a CPU mesh and to the single card on integer rows; the routed
+build's capacity assignment on the card equal to its numpy rule.
 
 Every test here needs a CUDA card and nvcc and skips without them. The
 file imports no JAX, so it also runs on a machine without it:
@@ -26,6 +29,7 @@ from shine_tpu_torch.config import HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph
 from shine_tpu_torch.io import synthetic_dataset
 from shine_tpu_torch.models import hnsw as th
+from shine_tpu_torch.models import ivf as tivf
 from shine_tpu_torch.models.hnsw import quantize_rows
 from shine_tpu_torch.ops import beam_step as bs
 from shine_tpu_torch.ops.beam import Beam
@@ -1736,3 +1740,105 @@ def test_c11_sharded_one_query_one_answer_at_any_batch(card, c11_set, family):
         ids, dd = run(_c11_batch(q64, filler, B), B)
         results.append((ids[:64], dd[:64]))
     _c11_same(results, f"sharded {family}")
+
+
+# --- the sharded builds, their shards stacked on the card ----------------------
+
+BUILD_S = 4
+
+
+def _same_graphs(got, want) -> None:
+    for f in ("levels", "neighbors0", "upper_row", "upper_neighbors"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    assert (got.entry_point, got.top_level) == (want.entry_point, want.top_level)
+
+
+def test_sharded_device_build_card_mesh_equals_cpu_mesh_and_single(card):
+    """4096 x 16 integer rows (every distance exact): device_build_graph on a
+    card mesh of 4 equals it on a CPU mesh and on the single card, and
+    launches both K1 kernels; the online index on the card mesh equals the
+    single card's after each chunk."""
+    from shine_tpu_torch.models.build import device_build_graph
+    from shine_tpu_torch.models.dynamic import DynamicHNSWIndex
+    from shine_tpu_torch.parallel import shard_mesh
+
+    rows = np.random.default_rng(14).integers(-8, 9, size=(4096, 16)).astype(np.float32)
+    p = HNSWParams(M=8, ef_construction=40)
+    card_mesh = shard_mesh(BUILD_S)
+    before = (bs.beam_step.launches, gather_score.launches)
+    timings = {}
+    meshed = device_build_graph(rows, p, mesh=card_mesh, timings=timings)
+    assert bs.beam_step.launches > before[0] and gather_score.launches > before[1]
+    assert timings["plan"] > 0 and timings["apply"] > 0
+    _same_graphs(meshed, device_build_graph(rows, p, mesh=shard_mesh(BUILD_S,
+                                                                     device="cpu")))
+    _same_graphs(meshed, device_build_graph(rows, p, device=card))
+    online = [DynamicHNSWIndex(16, 4096, p, mesh=card_mesh),
+              DynamicHNSWIndex(16, 4096, p, device=card)]
+    for lo, hi in ((0, 2048), (2048, 4096)):
+        for index in online:
+            index.add(rows[lo:hi])
+        _same_graphs(*(index.snapshot() for index in online))
+
+
+def test_sharded_fast_build_card_mesh(card, monkeypatch):
+    """4096 x 16 integer rows, SHARD_KNN_MIN lowered: under the block-max
+    switch (the JAX package's interpret branch, the exact sharded scan) the
+    card mesh's build equals the CPU mesh's and the single card's; by
+    default the card mesh's kNN stage runs K2 on every shard and equals the
+    same sharded FastFlat scan's plain twins on a CPU mesh."""
+    from shine_tpu_torch.models import fastbuild as tfb
+    from shine_tpu_torch.ops import classmax as cm
+    from shine_tpu_torch.parallel import ShardedFastFlatIndex, shard_mesh
+
+    monkeypatch.setattr(tfb, "SHARD_KNN_MIN", 1024)
+    rows = np.random.default_rng(15).integers(-8, 9, size=(4096, 16)).astype(np.float32)
+    p = HNSWParams(M=8, ef_construction=40)
+    card_mesh, cpu_mesh = shard_mesh(BUILD_S), shard_mesh(BUILD_S, device="cpu")
+    exact = tfb.fast_build_graph(rows, p, mesh=card_mesh, blockmax=True)
+    _same_graphs(exact, tfb.fast_build_graph(rows, p, mesh=cpu_mesh))
+    _same_graphs(exact, tfb.fast_build_graph(rows, p, device=card, blockmax=True))
+
+    k = 2 * p.M
+    ids = np.arange(4096, dtype=np.int32)
+    forms = (cm.classmax_scan, cm.classmax2_scan, cm.classmax_topk_scan,
+             cm.classmax2_topk_scan)
+    before = sum(f.launches for f in forms)
+    got = tfb._knn_candidates(rows, ids, k, 0, False, card, mesh=card_mesh)
+    assert sum(f.launches for f in forms) - before == BUILD_S
+    twin = ShardedFastFlatIndex(rows, cpu_mesh, metric=0)
+    ii, dd = twin.search(rows, k + 1, kb=max(k + 17, 48), batch_size=4096)
+    want = tfb._drop_self_sorted(ii, dd, k)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), want[1].view(np.int32))
+    tfb.fast_build_graph(rows, p, mesh=card_mesh).validate()
+
+
+@pytest.mark.parametrize("defer_residue", [False, True])
+def test_capacity_assign_on_card_equals_numpy(card, defer_residue):
+    """The routed build's capacity assignment and cluster-major slots, as
+    torch sorts on the card, equal the numpy rule row for row: 2M rows,
+    repeated distances, -0.0 beside 0.0, and +inf (a full cluster's
+    penalty), with a residue that no choice could place."""
+    rng = np.random.default_rng(3 + defer_residue)
+    n, R, C = 2_000_000, 8, 600
+    pop = rng.lognormal(0, 1.0, C)
+    choice = np.stack([rng.choice(C, n, p=pop / pop.sum()) for _ in range(R)], 1)
+    choice = choice.astype(np.int32)
+    choice_d = np.sort(rng.integers(-50, 200, size=(n, R)), axis=1).astype(np.float32)
+    zeros = choice_d == 0
+    choice_d[zeros] = np.where(rng.random(int(zeros.sum())) < 0.5, -0.0, 0.0)
+    choice_d[:, -1][rng.random(n) < 0.05] = np.inf
+    cap = -(-n // C) + 40
+    want = tivf._capacity_assign_host(choice, choice_d, C, cap,
+                                      defer_residue=defer_residue)
+    got = tivf._capacity_assign_torch(torch.from_numpy(choice).to(card),
+                                      torch.from_numpy(choice_d).to(card), C, cap,
+                                      defer_residue=defer_residue)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert (want < 0).any() == defer_residue
+    full = np.where(want < 0, 0, want)
+    most = int(np.bincount(full).max())
+    np.testing.assert_array_equal(
+        tivf._cluster_slots_torch(torch.from_numpy(full).to(card), C, most).cpu().numpy(),
+        tivf._cluster_slots(full, C, most))

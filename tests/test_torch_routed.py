@@ -285,6 +285,34 @@ def test_capacity_assign_matches_jax(defer_residue, room):
     assert (want < 0).any() == defer_residue  # the residue path was taken
 
 
+@pytest.mark.parametrize("defer_residue", [False, True])
+@pytest.mark.parametrize("room", ["scalar", "per_cluster"])
+def test_capacity_assign_torch_matches_jax_host_rule(defer_residue, room):
+    """The device rule (what the routed build and the balanced k-means run)
+    against the JAX package's numpy rule without vectors: the same rows in
+    the same clusters, on distances with ties, -0.0 beside 0.0, negatives
+    and +inf (a full cluster's penalty)."""
+    rng = np.random.default_rng(11 + defer_residue)
+    n, R, C = 6000, 5, 48
+    choice = np.stack([rng.choice(C, R, replace=False) for _ in range(n)]).astype(np.int32)
+    choice_d = np.sort(rng.integers(-20, 30, size=(n, R)), axis=1).astype(np.float32)
+    choice_d[choice_d == 0] = np.where(rng.random((choice_d == 0).sum()) < 0.5, -0.0, 0.0)
+    choice_d[:, -1][rng.random(n) < 0.1] = np.inf
+    cap = 130 if room == "scalar" else rng.integers(80, 160, size=C)
+    if room == "per_cluster":
+        cap[0] += max(0, n - int(cap.sum()))
+    want = jivf._capacity_assign_host(choice, choice_d, C, cap,
+                                      defer_residue=defer_residue)
+    got = tivf._capacity_assign_torch(torch.from_numpy(choice), torch.from_numpy(choice_d),
+                                      C, torch.as_tensor(cap), defer_residue=defer_residue)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < 0).any() == defer_residue  # the residue path was taken
+    full = np.where(want < 0, 0, want)
+    np.testing.assert_array_equal(
+        tivf._cluster_slots_torch(torch.from_numpy(full), C, n).numpy(),
+        tivf._cluster_slots(full, C, n))
+
+
 def test_cluster_major_order_matches_jax_gid(jax_idx):
     """Given the JAX build's assignment, the port lays the rows out exactly
     as the JAX build did (gid bit for bit)."""
