@@ -29,6 +29,14 @@ set (1M x 128, 10,000 queries, L2, seed 7), generated once:
      k=10, ef=96, frontier=8 at batch 4096 on f32 rows, then bf16 rows,
      after a warm-up pass, every layer-0 step one launch of K1's fused
      beam_step; recall@10 against an exact fp32 brute force on the card;
+     5b. the native host search (graph/soa.py:host_search, the reference's
+     knn) on the first 2,000 queries at ef=96 and ef=128 against the
+     served path at the same ef (frontier=8): the overlap of their top-10s
+     (>= 0.95 at ef=128) and each side's recall@10;
+     5c. the builds' seeded draws (ops/threefry.py, JAX's) on the card and
+     on the CPU, bit for bit: permutation at 1,000,000 and 2,700,000 (three
+     sort rounds), choice of 100,000 of 1,000,000, randint of the routed
+     build's 2,097,152 training ids at 100,663,296 rows;
   6. HNSW end to end: 256 queries on the CPU (twins) and the card;
   7. FastFlatIndex: all queries at batch 4096 through each of the four
      scan routes (the auto knobs, bench's keep2 point, keep2 at kb=64,
@@ -337,7 +345,7 @@ from shine_tpu_torch import (
     native,
 )
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
-from shine_tpu_torch.graph.soa import build_graph
+from shine_tpu_torch.graph.soa import build_graph, host_search
 from shine_tpu_torch.io import (
     load_graph,
     load_graph_sharded,
@@ -362,6 +370,7 @@ from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops import scan_routed as k4
 from shine_tpu_torch.ops import beam_step as bs
 from shine_tpu_torch.ops import regen as rg
+from shine_tpu_torch.ops import threefry as tf
 from shine_tpu_torch.ops.beam import Beam
 from shine_tpu_torch.ops.distance import check_precision, exact_knn, squared_norms
 from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
@@ -391,6 +400,15 @@ RTOL, ATOL = 1e-5, 1e-3  # distances are O(1e3); the two sum in other orders
 # in other orders
 FLAT_ATOL = 4e-3
 MIN_RECALL = 0.90
+# phase 5b: the native host search against the served path, 2,000 queries;
+# the JAX package's own test asks > 0.97 at ef=128 on a 5,000-row graph
+ORACLE_NQ, ORACLE_EFS, ORACLE_MIN_OVERLAP = 2000, (96, 128), 0.95
+# phase 5c: the builds' seeded draws on the card against the CPU, bit for bit
+# (n = 2,700,000 sorts three rounds; 2,097,152 training ids of the routed
+# build at 100,663,296 rows)
+DRAW_PERMS = (1_000_000, 2_700_000)
+DRAW_CHOICE = (1_000_000, 100_000)
+DRAW_RANDINT = (2_097_152, 100_663_296)
 # the CPU twins' end-to-end checks; each check's seconds (both sides)
 E2E_QUERIES, MIN_OVERLAP = 256, 0.99
 E2E_SECONDS: list[float] = []
@@ -720,6 +738,74 @@ def serve(graph, ds, gt, rows: str, dev, what: str = "native") -> tuple[int, flo
         raise AssertionError(
             f"{rows}: {launches} beam_step launches for {index.last_steps} beam steps")
     return launches, recall, NQ / wall
+
+
+def host_oracle(graph, ds, gt, dev) -> dict:
+    """5b: ``host_search`` (the native k-NN of the reference, on the host)
+    against the served path (the dense entry, then one ``beam_step`` a
+    layer-0 step) on the first ORACLE_NQ queries at each ef of ORACLE_EFS,
+    ``SearchParams(k=10, frontier=8)``: the overlap of their top-10s and
+    each side's recall@10; fails below ORACLE_MIN_OVERLAP at the last ef."""
+    q, g = ds.queries[:ORACLE_NQ], gt[:ORACLE_NQ]
+    index = HNSWIndex(graph, rows="f32", device=dev)
+    out = {}
+    for ef in ORACLE_EFS:
+        t0 = time.perf_counter()
+        h_ids, h_d = host_search(graph, q, 10, ef)
+        host_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        c_ids, _ = index.search(q, SearchParams(k=10, ef=ef, frontier=8), batch_size=B)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        if not np.all(np.diff(h_d, axis=1) >= 0) or (h_ids < 0).any():
+            raise AssertionError(f"5b ef={ef}: host_search returned a short or unsorted list")
+        if bs.beam_step.launches < index.last_steps or not index.last_steps:
+            raise AssertionError(f"5b ef={ef}: beam_step launched {bs.beam_step.launches} "
+                                 f"times for {index.last_steps} steps")
+        out[ef] = {"overlap": recall_at_k(c_ids, h_ids, 10),
+                   "host_recall@10": recall_at_k(h_ids, g, 10),
+                   "card_recall@10": recall_at_k(c_ids, g, 10),
+                   "host_s": host_s, "card_s": card_s,
+                   "beam_step_launches": bs.beam_step.launches}
+        log(f"[oracle] 5b ef={ef}, {ORACLE_NQ} queries: {json.dumps(out[ef])}")
+    del index
+    torch.cuda.empty_cache()
+    last = out[ORACLE_EFS[-1]]["overlap"]
+    if last < ORACLE_MIN_OVERLAP:
+        raise AssertionError(f"5b: the served path's top-10 overlaps host_search's by "
+                             f"{last:.4f} at ef={ORACLE_EFS[-1]} < {ORACLE_MIN_OVERLAP}")
+    return out
+
+
+def draws_on_card(dev) -> dict:
+    """5c: the seeded draws of the builds (``ops/threefry.py``), drawn on the
+    card and on the CPU from one key: ``permutation`` at each of DRAW_PERMS,
+    ``choice`` at DRAW_CHOICE and ``randint`` at DRAW_RANDINT, bit for bit."""
+    out = {}
+
+    def same(name: str, draw) -> None:
+        t0 = time.perf_counter()
+        got = draw(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want = draw(torch.device("cpu"))
+        if not torch.equal(got.cpu(), want):
+            bad = int((got.cpu() != want).sum())
+            raise AssertionError(f"5c {name}: the card's draw differs from the CPU's "
+                                 f"at {bad} of {want.numel()} places")
+        out[name] = {"card_s": card_s, "numel": want.numel()}
+
+    for n in DRAW_PERMS:
+        same(f"permutation({n})", lambda d, n=n: tf.permutation(
+            tf.prng_key(SEED), n, device=d))
+    n, k = DRAW_CHOICE
+    same(f"choice({n}, {k})", lambda d: tf.choice(tf.prng_key(1234), n, k, device=d))
+    ts, n = DRAW_RANDINT
+    same(f"randint({ts}, 0, {n})", lambda d: tf.randint(
+        tf.prng_key(CAP_SEED).to(d), (ts,), 0, n))
+    log(f"[draws] 5c bit for bit on the card and the CPU: {json.dumps(out)}")
+    return out
 
 
 def _e2e_timed(fn):
@@ -3800,6 +3886,8 @@ def main() -> None:
         step_launches += launches
         native_served[rows] = (recall, qps)
         torch.cuda.empty_cache()
+    host_oracle(graph, ds, gt, dev)
+    draws_on_card(dev)
     step_cases, descent = beam_step_phase(graph, ds, gt, dev)
     hnsw_end_to_end(graph, ds, dev)
     # phase 22 serves this graph and the set from files

@@ -1,3 +1,3 @@
-from shine_tpu_torch.graph.soa import GraphSoA, build_graph
+from shine_tpu_torch.graph.soa import GraphSoA, build_graph, host_search
 
-__all__ = ["GraphSoA", "build_graph"]
+__all__ = ["GraphSoA", "build_graph", "host_search"]

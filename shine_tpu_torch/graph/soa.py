@@ -9,12 +9,15 @@
 
 Vertex ids are row indices. The layout and the builder are those of
 ``shine_tpu/graph/soa.py``, so that a graph built or saved by either
-package serves in the other.
+package serves in the other. ``host_search`` is the native k-NN over a graph
+on the host, the semantic oracle that the batched search on the card is held
+to; ``estimate_index_bytes`` the expected size of an index.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -134,3 +137,49 @@ def build_graph(
         entry_point=entry_point,
         top_level=top_level,
     )
+
+
+def host_search(
+    graph: GraphSoA,
+    queries: np.ndarray,
+    k: int,
+    ef: int,
+    *,
+    threads: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Native k-NN over the graph on the host (the reference's knn,
+    hnsw.hh:253-307): a greedy descent of the upper levels, then a search of
+    layer 0 bounded by ``ef``, ties broken by the smaller id. Each query runs
+    on one thread, so the answer does not depend on ``threads`` (0 = up to
+    32 cores). Returns (ids (nq, k) int32, -1 padded; distances (nq, k) f32,
+    +inf padded)."""
+    lib = native.load()
+    queries = np.ascontiguousarray(queries, dtype=np.float32)
+    nq = queries.shape[0]
+    if threads <= 0:
+        threads = min(os.cpu_count() or 1, 32)
+    results = np.empty((nq, k), dtype=np.int32)
+    dists = np.empty((nq, k), dtype=np.float32)
+    lib.shine_hnsw_search(
+        np.ascontiguousarray(graph.vectors, np.float32), graph.n, graph.dim,
+        graph.params.M, graph.params.metric_id,
+        np.ascontiguousarray(graph.levels, np.int32),
+        np.ascontiguousarray(graph.neighbors0, np.int32),
+        np.ascontiguousarray(graph.upper_row, np.int32),
+        np.ascontiguousarray(graph.upper_neighbors, np.int32).reshape(-1),
+        graph.level_cap, graph.entry_point, graph.top_level,
+        queries, nq, k, ef, threads, results.reshape(-1), dists.reshape(-1),
+    )
+    return results, dists
+
+
+def estimate_index_bytes(n: int, d: int, params: HNSWParams) -> int:
+    """Expected index size under the geometric level distribution (the
+    reference's estimate_index_size, hnsw.hh:309-321): each vertex's row,
+    level, upper row and layer-0 list, plus the upper lists of the 1/(M-1)
+    share of vertices above level 0, times e."""
+    M = params.M
+    per_node = d * 4 + 4 + 4 + 2 * M * 4  # vector + level + upper_row + L0
+    upper_frac = 1.0 / (M - 1)  # sum of P(level >= l) for l >= 1
+    per_upper = params.M_max * 4
+    return int(n * (per_node + upper_frac * per_upper * math.e))

@@ -36,6 +36,7 @@ import torch
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
 from shine_tpu_torch.ops import blockmax as bm
+from shine_tpu_torch.ops import threefry
 from shine_tpu_torch.ops import classmax as cm
 from shine_tpu_torch.ops.beam import smallest_positions
 from shine_tpu_torch.ops.distance import (
@@ -522,9 +523,9 @@ class FastFlatIndex(_ClassMaxIndex):
         """From rows already on a device. The table is padded to a multiple
         of 4096 rows with pad rows (the JAX package asks n to be one). The
         shuffle (on unless ``shuffle=False``: the transient row copy
-        fits beside any table that fits the card) is a ``torch.Generator``
-        permutation from ``seed``, which is not the JAX package's
-        ``jax.random`` one: the two hold the same rows in other orders."""
+        fits beside any table that fits the card) is the JAX package's
+        ``jax.random.permutation(PRNGKey(seed), n)``, bit for bit
+        (``ops/threefry.py``), drawn on the rows' device."""
         self = cls.__new__(cls)
         self.metric = metric_id(metric)
         self.blockmax = blockmax
@@ -532,10 +533,10 @@ class FastFlatIndex(_ClassMaxIndex):
         v = v_dev.to(torch.float32)
         self.perm = self._perm_dev = None
         if shuffle or shuffle is None:
-            gen = torch.Generator().manual_seed(seed)
-            perm = torch.randperm(n, generator=gen).to(torch.int32)
-            v = v[perm.to(v.device).long()]
-            self.perm = perm.numpy()
+            perm = threefry.permutation(threefry.prng_key(seed), n,
+                                        device=v.device)
+            v = v[perm]
+            self.perm = perm.to(torch.int32).cpu().numpy()
         self.ext = pack_ext_device(v, self.metric)
         self.vectors = v
         self.sqnorms = (squared_norms(v) if self.metric == METRIC_L2

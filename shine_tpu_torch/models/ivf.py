@@ -30,9 +30,10 @@ may differ from XLA's by ulps, so it is held to the JAX package by
 tolerance, not bit for bit. The random draws of the device build (its
 training sample, ``_draw_train_ids``; the initial centres,
 ``_draw_init_ids``) and of the farthest-point init (``parallel/placement.py``)
-come from ``torch.Generator``s seeded with ``seed`` on the CPU: the same on
-the CPU and on the card, not the JAX package's ``jax.random`` draws. The host
-build's training sample is numpy's, the JAX package's own draw.
+are the JAX package's ``jax.random`` draws from ``PRNGKey(seed)``, bit for
+bit, through the port's threefry (``ops/threefry.py``), on the device of the
+rows. The host build's training sample is numpy's, the JAX package's own
+draw.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import torch
 
 from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.device import resolve_device
+from shine_tpu_torch.ops import threefry
 from shine_tpu_torch.ops.beam import smallest_positions
 from shine_tpu_torch.ops.classmax import top_k
 from shine_tpu_torch.ops.distance import (
@@ -214,10 +216,10 @@ def _spatial_order_centroids(cents: np.ndarray, seed: int) -> np.ndarray:
     return np.lexsort((d2[np.arange(C), g], g))
 
 
-def _draw_init_ids(n: int, k: int, seed: int) -> torch.Tensor:
-    """k distinct seeded row ids in [0, n): the initial centres."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randperm(n, generator=gen)[:k]
+def _draw_init_ids(n: int, k: int, seed: int, device=None) -> torch.Tensor:
+    """The initial centres: k distinct row ids in [0, n),
+    ``jax.random.choice(PRNGKey(seed), n, (k,), replace=False)``."""
+    return threefry.choice(threefry.prng_key(seed), n, k, device=device)
 
 
 def _lloyd_chunked(points: torch.Tensor, *, k: int, iters: int, seed: int,
@@ -229,7 +231,7 @@ def _lloyd_chunked(points: torch.Tensor, *, k: int, iters: int, seed: int,
     centroids."""
     n, d = points.shape
     xs = points.to(torch.float32)
-    cents = xs[_draw_init_ids(n, k, seed).to(xs.device)]
+    cents = xs[_draw_init_ids(n, k, seed, xs.device)]
     for _ in range(iters):
         csq = squared_norms(cents)
         assign = torch.cat([
@@ -404,11 +406,11 @@ def build_ivf_layout(
     return data
 
 
-def _draw_train_ids(n: int, ts: int, seed: int) -> torch.Tensor:
-    """The device build's training sample: ts distinct seeded row ids in
-    [0, n)."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randperm(n, generator=gen)[:ts]
+def _draw_train_ids(n: int, ts: int, seed: int, device=None) -> torch.Tensor:
+    """The device build's training sample: ts distinct row ids in [0, n),
+    ``jax.random.choice(PRNGKey(seed), n, (ts,), replace=False)``, the key
+    that ``_lloyd_chunked`` then draws the initial centres from."""
+    return threefry.choice(threefry.prng_key(seed), n, ts, device=device)
 
 
 def _fill_blocks_device(v: torch.Tensor, inv: torch.Tensor, sq_v: torch.Tensor,
@@ -471,7 +473,7 @@ def build_ivf_layout_device(
             "probe recall; raise train_size or lower num_clusters",
             file=sys.stderr,
         )
-    train = v_dev[_draw_train_ids(n, ts, seed).to(dev)]
+    train = v_dev[_draw_train_ids(n, ts, seed, dev)]
     cents = _lloyd_chunked(train, k=num_clusters, iters=iters, seed=seed, chunk=lchunk)
     del train
     order = _spatial_order_centroids(cents.cpu().numpy(), seed)
@@ -746,7 +748,6 @@ def _auto_clusters(n: int, target_cap: int, layout: str) -> int:
     return max(8, -(-n // target_cap))
 
 
-_SPILL_BATCH = 2048  # the routed fallback's largest batch: search()'s default
 
 
 class IVFIndex:
@@ -869,13 +870,11 @@ class IVFIndex:
 
         With ``fallback > 0`` (default 0.5), queries whose granted share of
         their own wishes is below it are served again by the per-query
-        search, in batches of at most ``_SPILL_BATCH`` (``search``'s default
-        batch) each padded to a power of two of at least 64: on a coarse
-        layout coverage is about 1 and nothing spills; on a fine one the
-        spill keeps the per-query recall. 0.0 turns it off. (The JAX package
-        spills in one batch; on a card a query's sums may round otherwise in
-        a batch of another size, and a spill as large as the query set would
-        hold its whole probe gather at once.)
+        search in one batch padded to a power of two of at least 64, as the
+        JAX package spills: on a coarse layout coverage is about 1 and
+        nothing spills; on a fine one the spill keeps the per-query recall.
+        0.0 turns it off. A query's answer does not depend on the spill
+        batch's size (ROADMAP C11: K1 scores its probed rows and re-rank).
         ``preloaded``: ``preload``'s (queries on the device, count).
         ``with_stats`` adds a dict (probe_coverage, tiles, shared,
         fallback_queries) to the returned (ids, dists)."""
@@ -920,17 +919,16 @@ class IVFIndex:
             g = torch.cat([x[3] for x in parts])[:nq].cpu().numpy()
             need = np.where(g < fallback)[0]
             n_fb = len(need)
-            for lo in range(0, n_fb, _SPILL_BATCH):
-                part = need[lo:lo + _SPILL_BATCH]
-                bucket = 1 << max(int(np.ceil(np.log2(len(part)))), 6)
+            if n_fb:
+                bucket = 1 << max(int(np.ceil(np.log2(n_fb))), 6)
                 qs = np.zeros((bucket, d), np.float32)
-                qs[:len(part)] = queries[part]
+                qs[:n_fb] = queries[need]
                 fi, fd = ivf_search(
                     self.data, torch.from_numpy(qs).to(self.device), k=k, p=p,
                     metric=self.metric, rerank=rerank,
                 )
-                out_i[part] = fi[:len(part)].cpu().numpy()
-                out_d[part] = fd[:len(part)].cpu().numpy()
+                out_i[need] = fi[:n_fb].cpu().numpy()
+                out_d[need] = fd[:n_fb].cpu().numpy()
         if with_stats:
             return out_i, out_d, {
                 "probe_coverage": float(cov),

@@ -24,9 +24,10 @@ packs the rows in cluster order. With a ``row_source`` every stage reads
 its rows through ``regen_rows`` (a kernel on the card) and the f32 base
 never exists as one array: the index is its tables alone, ~136 bytes a row
 in int8 at d=128. Its random draws (the training sample, the k-means init,
-the spatial order's first centre) come from ``torch.Generator``s seeded
-with ``seed`` on the CPU, so the CPU and the card plan alike; the JAX
-package draws with ``jax.random``, so a seed gives another plan there.
+the spatial order's first centre) are the JAX package's ``jax.random``
+draws from ``PRNGKey(seed)``, bit for bit (``ops/threefry.py``), on the
+device of the build: a seed plans the same clusters on the CPU, on the card
+and in the JAX package, up to the k-means' float drift.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from shine_tpu_torch.config import METRIC_L2, metric_id
 from shine_tpu_torch.models import ivf
 from shine_tpu_torch.models.ivf import route_batch
 from shine_tpu_torch.ops.beam import dist_id_key, smallest_positions
+from shine_tpu_torch.ops import threefry
 from shine_tpu_torch.ops.classmax import top_k
 from shine_tpu_torch.ops.distance import (
     matmul_nt,
@@ -307,11 +309,10 @@ def fold_gt_stream(rowfn, n: int, queries: np.ndarray, metric: int, *,
     return best_i.to(torch.int32).cpu().numpy()
 
 
-def _draw_train_ids(n: int, ts: int, seed: int) -> torch.Tensor:
-    """The seeded training sample: ts row ids drawn in [0, n) with
-    replacement."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, n, (ts,), generator=gen)
+def _draw_train_ids(n: int, ts: int, seed: int, device=None) -> torch.Tensor:
+    """The training sample: ts row ids in [0, n) with replacement,
+    ``jax.random.randint(PRNGKey(seed), (ts,), 0, n, int32)``."""
+    return threefry.randint(threefry.prng_key(seed).to(device), (ts,), 0, n)
 
 
 def _cluster_major_order(assign, C: int, cap: int) -> np.ndarray:
@@ -325,7 +326,7 @@ def _cluster_major_order(assign, C: int, cap: int) -> np.ndarray:
 
 def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
                  kmeans_iters, seed, say, assign_r=8, shards: int = 1,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", timings: dict | None = None):
     """Stages A-C of the routed build: train the centroids, stream each
     row's ``assign_r`` nearest centroids, assign rows to clusters under the
     capacity and lay them out cluster-major, every stage on ``device`` (the
@@ -333,7 +334,9 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
     ``ivf._capacity_assign_torch``). C is a multiple of ``shards`` (the
     sharded index deals clusters round-robin). Returns (centroids (C, d) f32
     on ``device``, order ((C+1)*cap,) int32 numpy with -1 for an empty slot,
-    C, cap)."""
+    C, cap). Stage seconds land in ``timings``: "train", "choices",
+    "assign"."""
+    rec = timings if timings is not None else {}
     cap = _round_up(max(cap_target, 4 * cls), 4 * cls)
     C = _round_up(max(2, shards, math.ceil(cap_slack * n / cap)), shards)
     t0 = time.perf_counter()
@@ -342,7 +345,7 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
     ts = min(max(train_size, min(96 * C, 2_097_152)), n)
     lchunk = min(8192, ts)
     ts -= ts % lchunk
-    x_train = rowfn(_draw_train_ids(n, ts, seed).to(device))
+    x_train = rowfn(_draw_train_ids(n, ts, seed, device))
     cents = ivf._lloyd_chunked(x_train, k=C, iters=kmeans_iters, seed=seed,
                                chunk=lchunk)
     cents = ivf._lloyd_balance_refine(x_train, cents, k=C, rounds=3, R=assign_r,
@@ -351,8 +354,9 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
     cents = cents[ivf._spatial_order_centroids(cents, seed)]
     cents_dev = torch.from_numpy(np.ascontiguousarray(cents)).to(device)
     del x_train
+    rec["train"] = time.perf_counter() - t0
     say(f"# routed_split: trained C={C} cap={cap} on {ts} rows "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"({rec['train']:.2f} s)")
 
     # B: each row's R nearest centroids, kept on the device
     t0 = time.perf_counter()
@@ -365,9 +369,9 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
         ids = torch.arange(lo, min(lo + sub, n), device=device)
         choice[lo:lo + sub], choice_d[lo:lo + sub] = ivf._nearest_r_chunk(
             rowfn(ids), cents_dev, csq, R=R)
-    sync_clock(torch.device(device))
+    rec["choices"] = sync_clock(torch.device(device)) - t0
     say(f"# routed_split: assignment choices streamed ({n} rows, R={R}, "
-        f"{time.perf_counter() - t0:.2f} s)")
+        f"{rec['choices']:.2f} s)")
 
     # C: capacity assignment; the residue (all R choices full) re-chooses
     # among the clusters that still have room, nearest first, in rounds
@@ -415,8 +419,9 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, train_size,
         f"r2+={hist[2:R].sum():.4f} widened={widened / n:.6f} "
         f"rr={rr / n:.6f}")
     order = _cluster_major_order(assign, C, cap)
+    rec["assign"] = time.perf_counter() - t0
     say(f"# routed_split: capacity assign done (cap={cap}, "
-        f"fill={n / (C * cap):.3f}, {time.perf_counter() - t0:.2f} s)")
+        f"fill={n / (C * cap):.3f}, {rec['assign']:.2f} s)")
     return cents_dev, order, C, cap
 
 
@@ -473,6 +478,7 @@ def build_routed_split(
     queries: np.ndarray | None = None,
     gt_k: int = 10,
     log=None,
+    timings: dict | None = None,
 ):
     """Build the clustered split tables of a row-keyed base, ``row_source``
     = (key, centers) (rows regenerated by id on the centres' device; no
@@ -489,7 +495,10 @@ def build_routed_split(
     row's ``assign_r`` nearest centroids; C. assign under the capacity,
     nearest first, and lay out cluster-major; D. pack the rows in that
     order. With ``queries``, the exact ground truth is folded first.
-    Returns the index, or (index, gt) when ``queries`` is given."""
+    Stage seconds land in ``timings`` ("train", "choices", "assign",
+    "gt_fold", "pack"). Returns the index, or (index, gt) when ``queries``
+    is given."""
+    rec = timings if timings is not None else {}
     metric = metric_id(metric)
     say = log if log is not None else (lambda *_: None)
     if row_source is not None:
@@ -509,19 +518,19 @@ def build_routed_split(
         n, dim, rowfn=rowfn, cap_target=cap_target, cls=cls,
         cap_slack=cap_slack, train_size=train_size,
         kmeans_iters=kmeans_iters, seed=seed, say=say, assign_r=assign_r,
-        shards=shards, device=dev)
+        shards=shards, device=dev, timings=rec)
     gt_i = None
     if queries is not None:
         t0 = time.perf_counter()
         gt_i = fold_gt_stream(rowfn, n, queries, metric, gt_k=gt_k, device=dev)
-        say(f"# routed_split: exact ground truth folded "
-            f"({time.perf_counter() - t0:.2f} s)")
+        rec["gt_fold"] = time.perf_counter() - t0
+        say(f"# routed_split: exact ground truth folded ({rec['gt_fold']:.2f} s)")
     t0 = time.perf_counter()
     gid = torch.from_numpy(order).to(dev)
     comp, aux_r = pack_clustered(rowfn, gid, metric, cap=cap, cls=cls,
                                  comp_dtype=comp_dtype)
-    say(f"# routed_split: clustered tables packed "
-        f"({time.perf_counter() - t0:.2f} s)")
+    rec["pack"] = sync_clock(dev) - t0
+    say(f"# routed_split: clustered tables packed ({rec['pack']:.2f} s)")
     sq = None
     if base_dev is not None:
         sq = (squared_norms(base_dev) if metric == METRIC_L2

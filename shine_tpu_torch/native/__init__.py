@@ -5,9 +5,10 @@
 kernel library), keyed on a hash of the source and the flags, so an edit
 triggers a rebuild and nothing is written beside the source. The builder
 (``shine_hnsw_build``), its level-0 repair on a given graph
-(``shine_hnsw_repair_level0``, through ``repair_level0``) and the
-reverse-edge merge of the scan-speed build (``shine_reverse_merge``, through
-``reverse_merge``) are bound.
+(``shine_hnsw_repair_level0``, through ``repair_level0``), the host k-NN
+search over a built graph (``shine_hnsw_search``, through
+``graph/soa.py:host_search``) and the reverse-edge merge of the scan-speed
+build (``shine_reverse_merge``, through ``reverse_merge``) are bound.
 """
 
 from __future__ import annotations
@@ -92,6 +93,28 @@ def load() -> ctypes.CDLL:
             ctypes.c_int32,  # entry_point
             i32p,  # levels (n,), in place
             i32p,  # neighbors0 (n, 2M), in place
+        ]
+        lib.shine_hnsw_search.restype = None
+        lib.shine_hnsw_search.argtypes = [
+            f32p,  # vecs
+            ctypes.c_int64,  # n
+            ctypes.c_int,  # d
+            ctypes.c_int,  # M
+            ctypes.c_int,  # metric
+            i32p,  # levels
+            i32p,  # neighbors0
+            i32p,  # upper_row
+            i32p,  # upper_neighbors
+            ctypes.c_int,  # level_cap
+            ctypes.c_int32,  # entry_point
+            ctypes.c_int,  # top_level
+            f32p,  # queries
+            ctypes.c_int64,  # nq
+            ctypes.c_int,  # k
+            ctypes.c_int,  # ef
+            ctypes.c_int,  # threads
+            i32p,  # results
+            f32p,  # dists
         ]
         lib.shine_reverse_merge.restype = ctypes.c_int
         lib.shine_reverse_merge.argtypes = [

@@ -21,9 +21,9 @@
 // the nearest one's farthest neighbour that the entry point still reaches
 // without that edge), in rounds until level 0 reaches every vertex. A build
 // on one thread is left as it is, the JAX package's graph.
-// The builder and the reverse-edge merge of the scan-speed build
-// (models/fastbuild.py) are copied; that file's host search, which nothing in
-// the port calls, is left out.
+// The builder, its host k-NN search (graph/soa.py:host_search, the oracle
+// the card's search is held to) and the reverse-edge merge of the scan-speed
+// build (models/fastbuild.py) are copied.
 //
 // Clean-room C++20 implementation of the HNSW construction semantics of the
 // reference engine (src/hnsw/hnsw.hh:40-251): geometric level draw with
@@ -567,6 +567,96 @@ int64_t shine_hnsw_repair_level0(const float* vecs, int64_t n, int d, int M, int
             &upper_neighbors, 0, 0);
   b.adopt(lv.data(), nb.data(), entry_point);
   return b.repair_level0();
+}
+
+// Host-side reference k-NN search over the built graph (no locks), used as
+// the semantic oracle for the batched search on the card (reference knn,
+// hnsw.hh:253-307). results must hold nq*k int32; dists nq*k float.
+void shine_hnsw_search(const float* vecs, int64_t n, int d, int M, int metric,
+                       const int32_t* levels, const int32_t* neighbors0,
+                       const int32_t* upper_row, const int32_t* upper_neighbors,
+                       int level_cap, int32_t entry_point, int top_level,
+                       const float* queries, int64_t nq, int k, int ef,
+                       int threads, int32_t* results, float* dists) {
+  auto vec = [&](int32_t id) { return vecs + (int64_t)id * d; };
+  auto dist = [&](const float* a, const float* b) {
+    return metric == kMetricIP ? ipdist(a, b, d) : l2sq(a, b, d);
+  };
+  const int Mmax0_cols = 2 * M;  // level-0 row stride
+  auto list0 = [&](int32_t id) { return neighbors0 + (int64_t)id * Mmax0_cols; };
+  auto list_u = [&](int32_t id, int l) {
+    return upper_neighbors + (((int64_t)upper_row[id] * level_cap) + (l - 1)) * M;
+  };
+  std::atomic<int64_t> next{0};
+  auto worker = [&]() {
+    std::vector<uint64_t> visited(n, 0);
+    uint64_t stamp = 0;
+    for (;;) {
+      int64_t qi = next.fetch_add(1, std::memory_order_relaxed);
+      if (qi >= nq) return;
+      const float* q = queries + qi * d;
+      PairDI ep{dist(q, vec(entry_point)), entry_point};
+      for (int l = top_level; l >= 1; --l) {
+        bool improved = true;
+        while (improved) {
+          improved = false;
+          const int32_t* ls = list_u(ep.id, l);
+          for (int j = 0; j < M; ++j) {
+            int32_t nb = ls[j];
+            if (nb < 0) break;
+            float dd = dist(q, vec(nb));
+            if (dd < ep.dist || (dd == ep.dist && nb < ep.id)) {
+              ep = {dd, nb};
+              improved = true;
+            }
+          }
+        }
+      }
+      ++stamp;
+      MinQ cand;
+      MaxQ top;
+      cand.push(ep);
+      top.push(ep);
+      visited[ep.id] = stamp;
+      while (!cand.empty()) {
+        PairDI c = cand.top();
+        if (c.dist > top.top().dist && (int)top.size() >= ef) break;
+        cand.pop();
+        const int32_t* ls = list0(c.id);
+        for (int j = 0; j < Mmax0_cols; ++j) {
+          int32_t nb = ls[j];
+          if (nb < 0) break;
+          if (visited[nb] == stamp) continue;
+          visited[nb] = stamp;
+          float dd = dist(q, vec(nb));
+          if ((int)top.size() < ef || dd < top.top().dist ||
+              (dd == top.top().dist && nb < top.top().id)) {
+            cand.push({dd, nb});
+            top.push({dd, nb});
+            if ((int)top.size() > ef) top.pop();
+          }
+        }
+      }
+      std::vector<PairDI> out(top.size());
+      for (int i = (int)top.size() - 1; i >= 0; --i) {
+        out[i] = top.top();
+        top.pop();
+      }
+      for (int i = 0; i < k; ++i) {
+        if (i < (int)out.size()) {
+          results[qi * k + i] = out[i].id;
+          dists[qi * k + i] = out[i].dist;
+        } else {
+          results[qi * k + i] = -1;
+          dists[qi * k + i] = INFINITY;
+        }
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(worker);
+  worker();
+  for (auto& th : pool) th.join();
 }
 
 // Host reverse-edge merge for the fastbuild pipeline — the C++ twin of

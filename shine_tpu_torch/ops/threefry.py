@@ -21,9 +21,16 @@ there, so the result is the fused one except on rare double-rounding ties.
 uint32 words are held in int64 tensors and masked to 32 bits after every
 add and shift. A key is an int64 tensor whose last axis holds its two
 words, ``(..., 2)``; functions broadcast over the leading axes.
+
+``permutation`` and ``choice`` (without replacement) are JAX's too, bit for
+bit: the seeded builds (IVF, the routed split, the farthest-point init,
+``FastFlatIndex.from_device``'s shuffle) draw through them, so a seed plans
+the same clusters and row orders in both packages.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -190,3 +197,32 @@ def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     erf_inv(u), u uniform in (nextafter(-1, 0), 1)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _f32(SQRT2_F32).to(u.device) * erf_inv(u)
+
+def _shuffle_rounds(n: int) -> int:
+    """The sort rounds of ``random.py:_shuffle``: ceil(3 ln(max(1, n)) /
+    ln(2^32 - 1)), 0 at n = 1, 1 up to 1,625, 2 up to ~2.64M, then 3."""
+    return math.ceil(3 * math.log(max(1, n)) / math.log(MASK))
+
+
+def permutation(key: torch.Tensor, n: int, *, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``random.py:_shuffle``): arange(n)
+    reordered by one stable sort a round on fresh 32-bit keys, compared as
+    unsigned (they are held in int64, so they are). int64 (n,) on
+    ``device`` (the key's by default)."""
+    key = torch.as_tensor(key, dtype=torch.int64)
+    if device is not None:
+        key = key.to(device)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(_shuffle_rounds(n)):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits32(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, k: int, *, device=None) -> torch.Tensor:
+    """``jax.random.choice(key, n, (k,), replace=False)``: the first k of
+    ``permutation(key, n)``."""
+    if k > n:
+        raise ValueError(f"cannot draw {k} of {n} without replacement")
+    return permutation(key, n, device=device)[:k]

@@ -2,18 +2,15 @@
 ``shine_tpu/parallel/placement.py`` (the reference's placement.hh and
 kmeans.hh:93-197).
 
-``_lloyd`` is plain Lloyd k-means from a farthest-point initialisation.
-The routed build orders its clusters in space with it, and draws the first
-centre from a ``torch.Generator`` seeded with ``seed`` on the CPU
-(``_draw_first``): a seed gives the same centre on the CPU and on the card,
-but not the JAX package's centre.
-
-``kmeans`` adds the balanced refinement (``capacity_assign``, three rounds)
-and draws its first centre as the JAX package does,
+``_lloyd`` is plain Lloyd k-means from a farthest-point initialisation;
+the IVF and routed builds order their clusters in space with it. ``kmeans``
+adds the balanced refinement (``capacity_assign``, three rounds).
+Both draw the first centre as the JAX package does,
 ``jax.random.randint(PRNGKey(seed), (), 0, n)``, through the port's
-threefry (``ops/threefry.py``, bit for bit). ``Placement`` runs it over the
-graph's highest levels, so that one graph plans the same shards in both
-packages. It plans on the host, as the router that reads it does.
+threefry (``ops/threefry.py``, bit for bit; ``_draw_first``).
+``Placement`` runs ``kmeans`` over the graph's highest levels, so that one
+graph plans the same shards in both packages. It plans on the host, as the
+router that reads it does.
 """
 
 from __future__ import annotations
@@ -29,9 +26,9 @@ KMEANS_SEED = 1234  # the reference's fixed seed (kmeans.hh:169)
 
 
 def _draw_first(n: int, seed: int) -> int:
-    """The seeded index of the first centre, in [0, n)."""
-    gen = torch.Generator().manual_seed(seed)
-    return int(torch.randint(0, n, (), generator=gen))
+    """The index of the first centre, in [0, n):
+    ``jax.random.randint(PRNGKey(seed), (), 0, n)``."""
+    return int(threefry.randint(threefry.prng_key(seed), (), 0, n))
 
 
 def _init_centroids(points: torch.Tensor, k: int, seed: int,
@@ -52,14 +49,14 @@ def _init_centroids(points: torch.Tensor, k: int, seed: int,
     return cents
 
 
-def _lloyd(points: torch.Tensor, *, k: int, iters: int, seed: int,
-           first: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def _lloyd(points: torch.Tensor, *, k: int, iters: int,
+           seed: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``iters`` Lloyd iterations from the farthest-point init, one (n, k)
     distance tile each; an empty cluster keeps its centre; the sums are
     ``cluster_sums``', the same on every run. Returns
     (centroids (k, d) f32, assignment (n,) int32)."""
     points = points.to(torch.float32)
-    cents = _init_centroids(points, k, seed, first)
+    cents = _init_centroids(points, k, seed)
     for _ in range(iters):
         assign = torch.argmin(pairwise_distance(points, cents, METRIC_L2), dim=1)
         sums, counts = cluster_sums(points, assign, k)
@@ -114,8 +111,7 @@ def kmeans(points: np.ndarray | torch.Tensor, *, k: int, iters: int = 100,
     centroids under that cap for three rounds."""
     pts_t = torch.as_tensor(points, dtype=torch.float32).cpu()
     n = pts_t.shape[0]
-    first = int(threefry.randint(threefry.prng_key(seed), (), 0, n))
-    cents, assign = _lloyd(pts_t, k=k, iters=iters, seed=seed, first=first)
+    cents, assign = _lloyd(pts_t, k=k, iters=iters, seed=seed)
     cents, assign = cents.numpy().copy(), assign.numpy()
     if not balanced:
         return cents, assign

@@ -272,16 +272,10 @@ IVF_CASES = {
 
 
 @pytest.mark.parametrize("case", list(IVF_CASES))
-def test_ivf_against_jax_cli(case, capsys, monkeypatch):
-    """The same layout in both packages (the farthest-point init's first
-    centre drawn as JAX draws it; the training sample is numpy's in both):
-    equal recall and cost counters."""
-    import jax
-
-    from shine_tpu_torch.parallel import placement as tpl
-
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
+def test_ivf_against_jax_cli(case, capsys):
+    """The same layout in both packages from the same seed (the
+    farthest-point init's first centre is JAX's draw; the training sample is
+    numpy's in both): equal recall and cost counters."""
     argv = IVF_CASES[case]
     jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
     _same_shape(jdoc, tdoc)
@@ -444,22 +438,9 @@ SHARDED_SCANS = {
 
 
 @pytest.mark.parametrize("case", list(SHARDED_SCANS))
-def test_sharded_scan_family_against_jax_cli(case, capsys, monkeypatch):
-    import jax
-    import jax.numpy as jnp
-
-    from shine_tpu_torch.models import ivf as tivf
-    from shine_tpu_torch.models import routed_split as trs
-    from shine_tpu_torch.parallel import placement as tpl
-
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
-    monkeypatch.setattr(trs, "_draw_train_ids", lambda n, ts, seed: torch.from_numpy(
-        np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (ts,), 0, n,
-                                      dtype=jnp.int32)).astype(np.int64)))
-    monkeypatch.setattr(tivf, "_draw_init_ids", lambda n, k, seed: torch.from_numpy(
-        np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n, (k,),
-                                     replace=False)).astype(np.int64)))
+def test_sharded_scan_family_against_jax_cli(case, capsys):
+    """Both CLIs on the same argv and seed (every seeded draw of the builds
+    is JAX's in the port): equal cost counters."""
     argv = SHARDED_SCANS[case] + ["--shards", "4"]
     jdoc, tdoc = run_jax(argv, capsys), run_port(argv, capsys)
     _same_shape(jdoc, tdoc)

@@ -8,9 +8,9 @@ and the distances within ``rtol=1e-5`` and 8 ulps of the largest
 |q|^2 + |v|^2 where they agree (the two sum f32 products in other orders,
 ROADMAP C5); on small-integer rows and
 queries every product and sum is exact, and ids and distances are equal bit
-for bit, ties included. The builds are held with the JAX package's draws
-injected: bit for bit on integer rows with the centroids given, by
-tolerance from scratch. The rest are the JAX package's own invariants, on
+for bit, ties included. The builds draw JAX's ids from the same seed (the
+draws are held bit for bit): bit for bit on integer rows with the
+centroids given, by tolerance from scratch. The rest are the JAX package's own invariants, on
 the port alone. JAX runs its XLA functions on the CPU; IVF reaches no
 Pallas kernel in either package."""
 
@@ -273,21 +273,25 @@ def _same_plan(g, w) -> None:
     assert same.mean() >= MIN_SAME_CLUSTER, same.mean()
 
 
-def test_host_build_matches_jax_with_its_draw(ds, jax_layouts, monkeypatch):
-    """From scratch, the farthest-point init's first centre drawn as JAX
-    draws it (the training sample is numpy's in both)."""
-    monkeypatch.setattr(tpl, "_draw_first", _jax_first)
+def test_host_build_matches_jax_with_its_draw(ds, jax_layouts):
+    """From scratch with the same seed: the farthest-point init's first
+    centre is JAX's draw (the training sample is numpy's in both)."""
+    for n in (64, len(ds.base)):
+        assert tpl._draw_first(n, 7) == _jax_first(n, 7)
     g = IVFIndex(ds.base, num_clusters=64, seed=7, device="cpu")
     _same_plan(g.data, jax_layouts["l2"][0].data)
     _check_layout(g.data, len(ds.base))
 
 
-def test_device_build_matches_jax_with_its_draws(ds, monkeypatch):
-    """The device build with JAX's training sample, initial centres and
-    first centre of the spatial order injected."""
-    monkeypatch.setattr(tivf, "_draw_train_ids", _jax_choice)
-    monkeypatch.setattr(tivf, "_draw_init_ids", _jax_choice)
-    monkeypatch.setattr(tpl, "_draw_first", _jax_first)
+def test_device_build_matches_jax_with_its_draws(ds):
+    """The device build with the same seed: its training sample, initial
+    centres and the spatial order's first centre are JAX's draws, bit for
+    bit."""
+    n = ts = len(ds.base)  # under 8192 rows the sample is every row, shuffled
+    np.testing.assert_array_equal(tivf._draw_train_ids(n, ts, 7).numpy(),
+                                  _jax_choice(n, ts, 7).numpy())
+    np.testing.assert_array_equal(tivf._draw_init_ids(ts, 64, 7).numpy(),
+                                  _jax_choice(ts, 64, 7).numpy())
     w = jivf.build_ivf_layout_device(jnp.asarray(ds.base), 64, seed=7)
     g = IVFIndex.from_device(torch.from_numpy(ds.base), num_clusters=64, seed=7,
                              device="cpu").data

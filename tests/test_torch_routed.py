@@ -7,8 +7,8 @@ of ``scan_select`` on integer tables; the routing, the capacity assignment,
 the cluster-major order, the knob rules, the cost counters and the
 checkpoints. By a stated tolerance where float sums differ between XLA and
 torch: the twin on Gaussian tables, the k-means, the planned clusters and
-the search. The port's random draws are ``torch.Generator`` ones, so the
-build is held to the JAX build with JAX's draws injected, or by recall.
+the search. The port's random draws are JAX's for the same seed, so the
+build is held to the JAX build from the same seed, or by recall.
 On the CPU the port's wrapper runs its plain twin; the CUDA kernel is held
 against the twin in tests/test_torch_kernel.py, on a card. Every build here
 runs on one thread of the native code and nothing depends on timing."""
@@ -401,13 +401,14 @@ def _inertia(points, cents):
     return d.min(axis=1).sum()
 
 
-def test_lloyd_step_matches_jax(small_base, monkeypatch):
-    """One Lloyd step from identical centroids: >= 99.9% of the
-    assignments equal, centroids within 1e-4 (means of ~240 rows whose f32
-    sums differ by ulps)."""
+def test_lloyd_step_matches_jax(small_base):
+    """One Lloyd step from identical centroids (the same seed draws the
+    same initial rows): >= 99.9% of the assignments equal, centroids within
+    1e-4 (means of ~240 rows whose f32 sums differ by ulps)."""
     x = _train_sample(small_base[0])
     k, seed = 34, 3
-    monkeypatch.setattr(tivf, "_draw_init_ids", _jax_init_ids)
+    np.testing.assert_array_equal(tivf._draw_init_ids(len(x), k, seed).numpy(),
+                                  _jax_init_ids(len(x), k, seed).numpy())
     got = tivf._lloyd_chunked(torch.from_numpy(x), k=k, iters=1, seed=seed).numpy()
     want = np.asarray(jivf._lloyd_chunked(jnp.asarray(x), k=k, iters=1, seed=seed))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
@@ -419,32 +420,28 @@ def test_lloyd_step_matches_jax(small_base, monkeypatch):
     assert (a == w).mean() >= 0.999
 
 
-def test_kmeans_matches_jax_with_its_draws(small_base, monkeypatch):
-    """Whole k-means runs from the JAX draws: inertia within 0.5%."""
+def test_kmeans_matches_jax_with_its_draws(small_base):
+    """Whole k-means runs from the same seed, so from JAX's draws: inertia
+    within 0.5%."""
     x = _train_sample(small_base[0])
-    monkeypatch.setattr(tivf, "_draw_init_ids", _jax_init_ids)
     got = tivf._lloyd_chunked(torch.from_numpy(x), k=34, iters=20, seed=3).numpy()
     want = np.asarray(jivf._lloyd_chunked(jnp.asarray(x), k=34, iters=20, seed=3))
     assert abs(_inertia(x, got) / _inertia(x, want) - 1) < 5e-3
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
     pts = np.array(want)  # the placement k-means runs over centroids in the build
     got, _ = tpl._lloyd(torch.from_numpy(pts), k=4, iters=15, seed=3)
     want2, _ = jpl._lloyd(jnp.asarray(pts), k=4, iters=15, seed=3)
     assert abs(_inertia(pts, got.numpy()) / _inertia(pts, np.asarray(want2)) - 1) < 5e-3
 
 
-def test_plan_routed_matches_jax_with_its_draws(small_base, monkeypatch):
-    """The port's plan with the JAX draws injected puts >= 99% of the rows
-    in the same cluster as the JAX plan (clusters matched by centroid, so
-    a relabelling alone would not fail it)."""
+def test_plan_routed_matches_jax_with_its_draws(small_base):
+    """With the same seed the port's plan draws JAX's training ids and puts
+    >= 99% of the rows in the same cluster as the JAX plan (clusters
+    matched by centroid, so a relabelling alone would not fail it)."""
     base = small_base[0]
-    monkeypatch.setattr(trs, "_draw_train_ids", lambda n, ts, seed: torch.from_numpy(
-        np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (ts,), 0, n,
-                                      dtype=jnp.int32)).astype(np.int64)))
-    monkeypatch.setattr(tivf, "_draw_init_ids", _jax_init_ids)
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
+    np.testing.assert_array_equal(
+        trs._draw_train_ids(N, 8192, 3).numpy(),
+        np.asarray(jax.random.randint(jax.random.PRNGKey(3), (8192,), 0, N,
+                                      dtype=jnp.int32)))
     kw = dict(cap_target=512, cls=128, cap_slack=1.05, train_size=8192,
               kmeans_iters=20, seed=3, say=lambda *_: None)
     base_j = jnp.asarray(base)

@@ -9,7 +9,7 @@ through the compact and dense probe lanes and the routed search, and the
 counters equal (``rpc_rounds``, ``scanned_lanes``, the analytic costs).
 Gaussian rows: ids on >= 99.9% of slots, distances within C5's tolerance.
 The port's own build holds the JAX layout dealt as the JAX package deals
-it, with the JAX package's draws injected."""
+it, from the same seed (the port draws JAX's ids)."""
 
 import jax
 import numpy as np
@@ -22,7 +22,6 @@ from shine_tpu.parallel.ivf_sharded import ShardedIVFIndex as JIVF
 from shine_tpu_torch.convert import sharded_ivf_from_jax
 from shine_tpu_torch.io import recall_at_k
 from shine_tpu_torch.parallel import ShardedIVFIndex, shard_mesh
-from shine_tpu_torch.parallel import placement as tpl
 
 S, D = 4, 16
 MIN_AGREE = 0.999
@@ -114,13 +113,11 @@ def test_gaussian_within_c5():
     assert recall_at_k(ti, ds.ground_truth, 10) > 0.9
 
 
-def test_port_build_deals_the_jax_layout(ints, monkeypatch):
-    """With the JAX package's farthest-point draw injected, the port's own
-    build lands on the JAX layout (C rounded to the mesh, clusters dealt
-    s, s + S, ...) and serves the same ids."""
+def test_port_build_deals_the_jax_layout(ints):
+    """From the same seed (the farthest-point draw is JAX's), the port's
+    own build lands on the JAX layout (C rounded to the mesh, clusters
+    dealt s, s + S, ...) and serves the same ids."""
     base, q, j, _ = ints
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
     own = ShardedIVFIndex(base, shard_mesh(S, device="cpu"), seed=5)
     assert own.C % S == 0 and own.C == j.C
     ji, _ = j.search(q, 10, probes=8, batch_size=64)

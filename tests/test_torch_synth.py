@@ -48,12 +48,9 @@ from shine_tpu_torch.io import (
     save_routed_split,
 )
 from shine_tpu_torch.io import device_synth as tds
-from shine_tpu_torch.models import ivf as tivf
-from shine_tpu_torch.models import routed_split as trs
 from shine_tpu_torch.ops import distance as td
 from shine_tpu_torch.ops import regen
 from shine_tpu_torch.ops import threefry as tf
-from shine_tpu_torch.parallel import placement as tpl
 from shine_tpu_torch.parallel import shard_mesh
 
 # a row's values: c[a] + a normal, within 4 ulps of the row's norm (the
@@ -558,19 +555,11 @@ def test_routed_row_source_serves_the_jax_index(routed_case):
     assert recall_at_k(got_i, gt, 10) > 0.9
 
 
-def test_routed_rowkeyed_build_matches_jax_with_its_draws(routed_case, monkeypatch):
-    """The port's row-keyed build with JAX's draws injected (the training
-    sample, the k-means init, the spatial order's first centre): recall
-    within 0.01 of the JAX build's, and no base held."""
+def test_routed_rowkeyed_build_matches_jax_with_its_draws(routed_case):
+    """The port's row-keyed build from the same seed, so with JAX's draws
+    (the training sample, the k-means init, the spatial order's first
+    centre): recall within 0.01 of the JAX build's, and no base held."""
     k1, centers, queries, gt, jidx = routed_case
-    monkeypatch.setattr(trs, "_draw_train_ids", lambda n, ts, seed: torch.from_numpy(
-        np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (ts,), 0, n,
-                                      dtype=jnp.int32)).astype(np.int64)))
-    monkeypatch.setattr(tivf, "_draw_init_ids", lambda n, k, seed: torch.from_numpy(
-        np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n, (k,),
-                                     replace=False)).astype(np.int64)))
-    monkeypatch.setattr(tpl, "_draw_first", lambda n, seed: int(
-        jax.random.randint(jax.random.PRNGKey(seed), (), 0, n)))
     idx, got_gt = build_routed_split(RN, RD, row_source=_rs_port(k1, centers), queries=queries,
                                      **ROUTED)
     assert idx.base_dev is None and (idx.C, idx.cap) == (jidx.C, jidx.cap)
