@@ -237,6 +237,27 @@ it runs after phase 26, on the 1M set and phase 22's saved copy:
 One [sharded-build] summary line; K1's and K2's entries in the JSON table
 gain phase 27's launches by run (``sharded_build_launches``).
 
+Phase 28 runs last, after phase 24, and ports the JAX package's HNSW scale
+recipe (``scripts/torch_scale_hnsw.py``) and checks rows past element 2^31:
+
+ 28a. the script's own run() at 262,144 x 128, M=32, pool 0 (seed 29, 2,048
+     queries, exact top-11 on the card, the margin mask, the numpy
+     crosscheck, fast_build_graph through the fused device sweep with its
+     stage file, the checkpoint), f32, bf16 and int8 rows served at ef=96:
+     recall@10 >= 0.90 on each and beam_step launched; then the build again
+     from the stage file (layer 0 loaded, not built): levels, lists and entry
+     point bit for bit with the first;
+ 28b. 16,781,312 x 128 Gaussian rows (2^24 + 4096: the last 4,096 start past
+     element 2^31 of the f32, bf16 and int8 rows) and 64 queries equal to rows
+     of that tail: K2 (FastFlat at the auto knobs), K3 (split bf16 at the
+     auto knobs), gather_score on candidate lists of tail rows (against its
+     plain version) and the layer-0 beam_step loop over lists that join only
+     the tail, seeded one row before each query's own (f32, bf16 and int8
+     rows), each return each query's own row first.
+
+One [scale] summary line; every kernel's entry in the JSON table gains its
+phase-28 launches by run (``scale_launches``).
+
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
 on the card it scores the probed rows and re-ranks through K1's
@@ -317,6 +338,7 @@ table as JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -377,6 +399,7 @@ from shine_tpu_torch.ops.gather_score import gather_score, gather_score_ref
 from shine_tpu_torch.ops.scan import QUANTUM, pack_ext_query, pack_ext_table
 from shine_tpu_torch.ops.scan_split import (
     SPLIT_QUANTUM,
+    pack_split_device,
     pack_split_query,
     pack_split_tables,
 )
@@ -388,6 +411,13 @@ from shine_tpu_torch.parallel import (
     ShardedSplitFlatIndex,
     build_routed_split_sharded,
     shard_mesh,
+)
+from shine_tpu_torch.utils.meter import (
+    PEAK_BF16,
+    PEAK_F32,
+    bound_ms,
+    reset_launches,
+    scan_bound,
 )
 
 N, D, NQ, SEED = 1_000_000, 128, 10_000, 7
@@ -419,8 +449,6 @@ K2_ATOL = 0.25
 K2_SHAPES = ((2048, 64), (1024, 32))  # (cls, kb), checked beside the routes'
 FLAT_MIN_RECALL = 0.98  # the JAX package read 0.9914-1.0000 on this shape
 FLAT_ROUTE_MIN_RECALL = 0.90  # the two extra routes: broken, not mistuned
-# H100 SXM data sheet: HBM bytes/s, dense bf16 and fp32 (CUDA core) FLOP/s
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # the FastFlatIndex routes (name, search knobs): between them they launch
 # every K2 form, each form on one route (flat_route_plan checks it)
 FLAT_ROUTES = (
@@ -515,29 +543,6 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the peak rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def reset_launches() -> None:
-    gather_score.launches = 0
-    bs.beam_step.launches = 0
-    bm.blockmax_scan.launches = 0
-    bm.blockmax_scan2.launches = 0
-    for fn, _, _ in K2_FORMS.values():
-        fn.launches = 0
-    for fn, _, _ in K3_FUNCS.values():
-        fn.launches = 0
-        fn.form_launches.clear()
-    k4.routed_classmax_scan.launches = 0
-    k4.routed_classmax_scan.form_launches.clear()
-    rg.regen_rows.launches = 0
-    rg.regen_score.launches = 0
-
-
 def kernel_vs_twin(base: np.ndarray, queries: np.ndarray, dev) -> list[dict]:
     rng = np.random.default_rng(SEED)
     ids = rng.integers(0, base.shape[0], size=(B, K)).astype(np.int32)
@@ -602,9 +607,7 @@ def _k2_bound(name: str, cls: int, kb: int | None) -> tuple[float, str]:
     port's zero columns and pad rows add none), B queries, the outputs."""
     width = D + 2
     planes = 4 if name.startswith("classmax2") else 2
-    nbytes = (N * width * 2 + B * width * 2
-              + B * (cls if kb is None else kb) * 4 * planes)
-    return bound_ms(nbytes, 2.0 * B * N * width, PEAK_BF16)
+    return scan_bound(N, B, width, width * 2, B * (cls if kb is None else kb) * planes)
 
 
 def _k2_err(got, want, cls: int) -> float:
@@ -1064,9 +1067,7 @@ def _k3_bound(keep2: bool, cls: int, kb: int | None, elt: int) -> tuple[float, s
     """The work the function needs: the N real rows at width D (the zero
     columns and pad rows add none), their aux, B queries, the outputs."""
     planes = 4 if keep2 else 2
-    nbytes = (N * (D * elt + 8) + B * D * 2
-              + B * (cls if kb is None else kb) * 4 * planes)
-    return bound_ms(nbytes, 2.0 * B * N * D, PEAK_BF16)
+    return scan_bound(N, B, D, D * elt + 8, B * (cls if kb is None else kb) * planes)
 
 
 def _k3_rescored(comp, aux, q, planes, what: str) -> None:
@@ -1612,8 +1613,7 @@ def _k56_bound(name: str, n_pad: int) -> tuple[float, str]:
     and every output (K5: four (B, n_pad/128) planes; K6: two (B, n_pad/32))."""
     width = D + 2
     planes, per_col = (4, bm.BLK) if name == "blockmax_scan" else (2, bm.BLK2)
-    nbytes = N * width * 2 + B * width * 2 + B * (n_pad // per_col) * 4 * planes
-    return bound_ms(nbytes, 2.0 * B * N * width, PEAK_BF16)
+    return scan_bound(N, B, width, width * 2, B * (n_pad // per_col) * planes)
 
 
 def _rows_near(ext, q, got_rows, want_rows, want_best, what: str) -> int:
@@ -2638,8 +2638,7 @@ def _per_batch(launches: dict, name: str, batches: int, what: str) -> None:
 def _shard_k2_bound(rows: int, width: int, cls: int) -> tuple[float, str]:
     """K2a's work on one shard: its rows at the packed width read once, the
     queries, the (B, cls) outputs."""
-    return bound_ms(rows * width * 2 + B * width * 2 + B * cls * 8,
-                    2.0 * B * rows * width, PEAK_BF16)
+    return scan_bound(rows, B, width, width * 2, B * cls * 2)
 
 
 def _shard_k2_check(index, q: np.ndarray, cls: int) -> dict:
@@ -2752,9 +2751,8 @@ def _shard_k3_check(index, q: np.ndarray, cls: int) -> dict:
     out["plain_ms"] = cuda_ms(lambda: cm.classmax_scan_split_ref(comp, aux, qs, cls=cls),
                               reps=3, warmup=1)
     rows = comp.shape[0]
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        rows * (D * comp.element_size() + 8) + B * D * 2 + B * cls * 8,
-        2.0 * B * rows * D, PEAK_BF16)
+    out["bound_ms"], out["bound_by"] = scan_bound(
+        rows, B, D, D * comp.element_size() + 8, B * cls * 2)
     out["max_abs_err"] = out["keep1_max_abs_err"]
     return out
 
@@ -3793,6 +3791,207 @@ def _attach_sharded_builds(kernels: list[dict]) -> None:
             k["sharded_build_launches"] = got
 
 
+# --- phase 28: the HNSW scale recipe, and rows past element 2^31 ----------------
+
+# 28a: scripts/torch_scale_hnsw.py's own stages at this size and build
+SCALE = dict(n=262_144, d=D, M=32, pool=0)
+SCALE_EF = 96
+# 28b: 2^24 + 4096 rows of d=128: the last 4096 start past element 2^31 of the
+# f32, bf16 and int8 rows (and of the packed ext table from row 14,913,081)
+TAIL_N, TAIL = (1 << 24) + 4096, 4096
+TAIL_Q = 64  # queries, each equal to one tail row
+TAIL_W = 16  # the tail's list width
+PHASE28: dict = {}
+
+
+def load_scale_script():
+    """``scripts/torch_scale_hnsw.py`` as a module (its main() not run); the
+    CPU tests load it through here too."""
+    import importlib.util
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_scale_hnsw.py")
+    spec = importlib.util.spec_from_file_location("torch_scale_hnsw", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks its module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def scale_recipe(dev) -> dict:
+    """28a: the script's run() at SCALE: the data stage, the crosscheck, the
+    build through the fused sweep (its stage file written), the checkpoint,
+    f32, bf16 and int8 rows served at SCALE_EF; then the build again from the
+    stage file, whose levels, lists and entry point must be the first's."""
+    script = load_scale_script()
+    work = tempfile.mkdtemp(prefix="chip_smoke_scale_", dir=BUILD_DIR)
+    try:
+        out = os.path.join(work, "scale.jsonl")
+        cfg = script.Config(**SCALE, rows=("f32", "bf16", "int8"), efs=(SCALE_EF,),
+                            rebuild=True)
+        t0 = time.perf_counter()
+        recs, first = script.run(cfg, dev, out, work)
+        seconds = time.perf_counter() - t0
+        again = dataclasses.replace(cfg, rows=(), efs=(), resume=True)
+        t0 = time.perf_counter()
+        recs2, second = script.run(again, dev, out, work)
+        seconds2 = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _same_graph(first, second, "28a: the build resumed from its stage file")
+    builds = [next(r for r in rs if r["stage"] == "fastbuild") for rs in (recs, recs2)]
+    if builds[0]["resumed"] or not builds[1]["resumed"] or builds[1]["level0_built"]:
+        raise AssertionError(f"28a: the second build did not load layer 0 from the stage "
+                             f"file: {builds[1]}")
+    served = {r["rows"]: r for r in recs if r["stage"] == "hnsw"}
+    for rows, r in served.items():
+        log(f"[scale] 28a {rows}: recall@10={r['recall10']:.4f} eps={r['recall10_eps']:.4f}"
+            f" margin={r['recall10_margin']:.4f} qps={r['qps']:.1f} U={r['U']} "
+            f"launches={r['launches']}")
+        if r["recall10"] < MIN_RECALL or not r["launches"].get("beam_step"):
+            raise AssertionError(f"28a {rows}: recall@10 {r['recall10']:.4f} or beam_step "
+                                 f"never launched ({r['launches']})")
+    if set(served) != {"f32", "bf16", "int8"}:
+        raise AssertionError(f"28a: served {sorted(served)}")
+    plan = builds[0]["timings"]["plan"]
+    log(f"[scale] 28a {SCALE['n']} x {SCALE['d']}, M={SCALE['M']}, pool 0: build "
+        f"{builds[0]['seconds']:.2f} s (launches {builds[0]['launches']}, sweep "
+        f"{plan['layout']} batch {plan['batch']} kb {plan['kb']} keep2 {plan['keep2']}), "
+        f"again from the stage file {builds[1]['seconds']:.2f} s, equal bit for bit; "
+        f"the whole recipe {seconds:.1f} s and {seconds2:.1f} s")
+    return {"seconds": seconds + seconds2, "build_s": [b["seconds"] for b in builds],
+            "build_launches": builds[0]["launches"], "plan": plan,
+            "served": {k: {f: v[f] for f in ("recall10", "recall10_eps", "recall10_margin",
+                                             "qps", "U", "launches", "beam_steps")}
+                       for k, v in served.items()}}
+
+
+def _own_ids(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if not np.array_equal(got, want):
+        bad = np.nonzero(got != want)[0]
+        raise AssertionError(f"28b {what}: {len(bad)} of {len(want)} queries did not find "
+                             f"their own row (first: got {got[bad[:4]]}, want {want[bad[:4]]})")
+
+
+def _tail_lists(tail_ids: torch.Tensor, dev) -> torch.Tensor:
+    """(TAIL_N, TAIL_W) layer-0 lists that join only the tail: row t lists the
+    tail rows t + 1, t + 38, t + 75, ... (mod the tail); -1 elsewhere."""
+    tail0 = TAIL_N - TAIL
+    nb = torch.full((TAIL_N, TAIL_W), -1, dtype=torch.int32, device=dev)
+    hop = torch.arange(TAIL_W, device=dev) * 37 + 1
+    nb[tail0:] = (tail0 + (tail_ids[:, None] - tail0 + hop[None, :]) % TAIL).to(torch.int32)
+    return nb
+
+
+def tail_rows(dev) -> dict:
+    """28b: a table of TAIL_N x 128 Gaussian rows on the card and TAIL_Q
+    queries equal to rows of its last TAIL; each route must return each
+    query's own row first: K2 (FastFlat at the auto knobs, the ext table
+    unshuffled), K3 (the split bf16 table at the auto knobs), gather_score on
+    candidate lists of tail rows, and the layer-0 loop of beam_step over
+    lists that join only the tail, seeded one row before each query's own,
+    on f32, bf16 and int8 rows."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = torch.randn((TAIL_N, D), generator=gen, device=dev)
+    tail_ids = torch.arange(TAIL_N - TAIL, TAIL_N, device=dev)
+    want_t = torch.arange(TAIL_N - 1, TAIL_N - TAIL, -TAIL // TAIL_Q, device=dev)[:TAIL_Q]
+    want = want_t.cpu().numpy().astype(np.int32)
+    q = base[want_t].contiguous()
+    queries = q.cpu().numpy()
+    out: dict = {"rows": TAIL_N, "first_tail_element": (TAIL_N - TAIL) * D}
+    launches: dict = {}
+
+    reset_launches()
+    flat = FastFlatIndex.from_device(base, shuffle=False)
+    ids, _ = flat.search(queries, 10, batch_size=TAIL_Q)
+    _own_ids("K2 (FastFlat auto)", ids[:, 0], want)
+    launches["fastflat"] = _all_launches()
+    out["ext_table"] = list(flat.ext.shape)
+    del flat
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    split = SplitFlatIndex.from_device(base, comp_dtype="bf16")
+    ids, _ = split.search(queries, 10, batch_size=TAIL_Q)
+    _own_ids("K3 (split bf16 auto)", ids[:, 0], want)
+    # by form too, as the K3 entries of the kernel table are named
+    launches["split_bf16"] = {**_all_launches(), **{
+        f"{name}[{dt},keep{2 if k2 else 1}]": n for name, (f, _, _) in K3_FUNCS.items()
+        for (dt, k2), n in f.form_launches.items()}}
+    del split
+    torch.cuda.empty_cache()
+
+    # gather_score on lists of tail rows: each query's own row at a place of
+    # its own among 255 other tail rows, against the plain version
+    K = 256
+    cand = tail_ids[torch.randint(0, TAIL, (TAIL_Q, K), generator=gen, device=dev)]
+    cand[torch.arange(TAIL_Q, device=dev), torch.arange(TAIL_Q, device=dev) * 3] = want_t
+    cand = cand.to(torch.int32).contiguous()
+    q_ext, bias = _extend_query(q, METRIC_L2)
+    reset_launches()
+    got = gather_score(base, q_ext, bias, cand)
+    launches["gather_score"] = _all_launches()
+    err = float((got - gather_score_ref(base, q_ext, bias, cand)).abs().max())
+    _own_ids("gather_score", cand.gather(1, got.argmin(1, keepdim=True))[:, 0].cpu().numpy(),
+             want)
+    if err > ATOL:
+        raise AssertionError(f"28b gather_score: {err} from its plain version")
+    out["gather_score_max_abs_err"] = err
+
+    # the served layer-0 loop, seeded one row before each query's own: only
+    # beam_step's scoring of that seed's list can find the own row
+    nb = _tail_lists(tail_ids, dev)
+    seeds = (TAIL_N - TAIL + (want_t - 1 - (TAIL_N - TAIL)) % TAIL).to(torch.int32)[:, None]
+    # int8 rows from the split int8 table: its codes are quantize_rows' and its
+    # aux holds -||row||^2 and twice the scale
+    qv, aux = pack_split_device(base, METRIC_L2, comp_dtype="int8")
+    tables = {"f32": {"vectors": base}, "bf16": {"vectors": base.to(torch.bfloat16)},
+              "int8": {"vectors": qv, "row_scl": aux[1] / 2, "row_nrm": -aux[0]}}
+    sp = SearchParams(k=10, ef=64, frontier=4).resolved()
+    for rows, t in tables.items():
+        kw = {"row_scl": t.get("row_scl"), "row_nrm": t.get("row_nrm")}
+        reset_launches()
+        seed_d = gather_score(t["vectors"], q_ext, bias, seeds.contiguous(), **kw)
+        state = th._l0_state(seeds, seed_d, sp)
+        th.run_beam_steps(t["vectors"], nb, q_ext, bias, state, sp, **kw)
+        launches[f"layer0_{rows}"] = _all_launches()
+        _own_ids(f"beam_step on {rows} rows", state[0].ids[:, 0].cpu().numpy(), want)
+        if not launches[f"layer0_{rows}"].get("beam_step"):
+            raise AssertionError(f"28b {rows} rows: beam_step never launched")
+    del tables, qv, aux, base, nb
+    torch.cuda.empty_cache()
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    log(f"[scale] 28b {TAIL_N} x {D} rows, {TAIL_Q} queries in the last {TAIL} (from "
+        f"element {out['first_tail_element']:,}): every route found each query's own row; "
+        f"gather_score max_abs_err {err:.3g}; launches {launches}; {out['seconds']:.1f} s")
+    return out
+
+
+def scale_phase(dev) -> dict:
+    """Phase 28: 28a and 28b, one [scale] summary line."""
+    PHASE28["28a"] = scale_recipe(dev)
+    torch.cuda.empty_cache()
+    PHASE28["28b"] = tail_rows(dev)
+    PHASE28["seconds"] = PHASE28["28a"]["seconds"] + PHASE28["28b"]["seconds"]
+    log(f"[scale] summary {json.dumps(PHASE28)}")
+    log(f"[scale] phase 28: {PHASE28['seconds']:.1f} s")
+    return PHASE28
+
+
+def _attach_scale(kernels: list[dict]) -> None:
+    """Each kernel's entry gains its phase-28 launches by run."""
+    runs = {"28a_build": PHASE28["28a"]["build_launches"],
+            **{f"28a_{r}": v["launches"] for r, v in PHASE28["28a"]["served"].items()},
+            **{f"28b_{r}": v for r, v in PHASE28["28b"]["launches"].items()}}
+    for k in kernels:
+        got = {run: n[k["name"]] for run, n in runs.items() if n.get(k["name"])}
+        if got:
+            k["scale_launches"] = got
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3937,6 +4136,7 @@ def main() -> None:
     del ds, gt
     k4_kernels = routed_phases(dev, routed_ds)
     regen_kernels, _ = capacity_phase(dev)
+    scale_phase(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     main_step = step_cases[0]
@@ -4038,6 +4238,7 @@ def main() -> None:
                                    for b in builds}
     _attach_sharded(kernels)
     _attach_sharded_builds(kernels)
+    _attach_scale(kernels)
     SHARDED_SCAN["seconds"] = sum(v for k, v in SHARDED_SCAN.items() if k.endswith("_s")) \
         + SHARDED_SCAN["26d"]["seconds"] + SHARDED_SCAN["26e_flat"]["seconds"] \
         + SHARDED_SCAN["26e_routed"]["seconds"]

@@ -38,9 +38,7 @@ versions) at a small SHINE_CR_N / SHINE_CAPS_N.
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import subprocess
 import sys
 import time
 
@@ -60,6 +58,8 @@ from shine_tpu_torch.io import (  # noqa: E402
 from shine_tpu_torch.io import device_synth as tds  # noqa: E402
 from shine_tpu_torch.models.flat import SplitFlatIndex  # noqa: E402
 from shine_tpu_torch.models.routed_split import build_routed_split  # noqa: E402
+from shine_tpu_torch.utils.meter import Recorder, best_qps, card_line, peak_gb  # noqa: E402
+from shine_tpu_torch.utils.timing import sync_clock  # noqa: E402
 
 D = 128
 NQ = 2048
@@ -77,52 +77,6 @@ def _env(name: str, default):
 def _sweep(text: str) -> list[tuple[int, int, int, int]]:
     """"p:P:T[:kk],..." -> [(p, P, T, kk)], kk 0 (8k) when left out."""
     return [tuple((list(map(int, s.split(":"))) + [0])[:4]) for s in text.split(",")]
-
-
-def card_line(dev: torch.device) -> str | None:
-    """``name, power limit`` as nvidia-smi gives them, on a card."""
-    if dev.type != "cuda":
-        return None
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(dev)
-
-
-class Recorder:
-    def __init__(self, out: str, head: dict):
-        self.out, self.head = out, head
-
-    def __call__(self, rec: dict) -> dict:
-        rec = {**self.head, **rec}
-        print("#", json.dumps(rec), flush=True)
-        os.makedirs(os.path.dirname(os.path.abspath(self.out)), exist_ok=True)
-        with open(self.out, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        return rec
-
-
-def _clock(dev: torch.device) -> float:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return time.perf_counter()
-
-
-def _best_qps(run, nq: int, dev: torch.device, reps: int = 2):
-    """One warm-up pass, then the best of ``reps`` timed passes: (ids, qps)."""
-    ids, _ = run()
-    best = float("inf")
-    for _ in range(reps):
-        t0 = _clock(dev)
-        ids, _ = run()
-        best = min(best, _clock(dev) - t0)
-    return ids, nq / best
-
-
-def _peak_gb(dev: torch.device) -> float | None:
-    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
 
 
 def _crosscheck(row_source, queries: np.ndarray, emit) -> list[dict]:
@@ -154,18 +108,18 @@ def run_routed(dev: torch.device, out: str, nq: int) -> list[dict]:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     timings: dict = {}
-    t0 = _clock(dev)
+    t0 = sync_clock(dev)
     idx, gt = build_routed_split(
         n, D, row_source=row_source, cap_target=cap, cls=cls, cap_slack=slack,
         comp_dtype="int8", seed=SEED, queries=queries, gt_k=11,
         log=lambda m: print(m, flush=True), timings=timings)
-    build_s = _clock(dev) - t0
+    build_s = sync_clock(dev) - t0
     table_gb = (idx.comp.numel() * idx.comp.element_size() + idx.aux_r.numel() * 4
                 + idx.gid.numel() * 4) / 1e9
     recs.append(emit({"stage": "ingest", "seconds": build_s, "timings": timings,
                       "C": idx.C, "cap_actual": idx.cap,
                       "fill": n / (idx.C * idx.cap), "table_gb": table_gb,
-                      "peak_gb": _peak_gb(dev), "base_resident": idx.base_dev is not None}))
+                      "peak_gb": peak_gb(dev), "base_resident": idx.base_dev is not None}))
     recs += _crosscheck(row_source, queries, emit)
     mm = margin_mask(queries, None, gt, 10, row_source=row_source)
     recs.append(emit({"stage": "margin", "margin_frac": float(mm.mean())}))
@@ -173,7 +127,7 @@ def run_routed(dev: torch.device, out: str, nq: int) -> list[dict]:
     pre = idx.preload(queries, batch_size=batch)
 
     def point(stage: str, p: int, P: int, T: int, kk: int, fallback: float) -> dict:
-        ids, qps = _best_qps(lambda: idx.search(
+        ids, qps = best_qps(lambda: idx.search(
             queries, 10, probes=p, shared=P, tile=T, kk=kk, batch_size=batch,
             preloaded=pre, with_dists=False, fallback=fallback), nq, dev)
         return emit({"stage": stage, "p": p, "P": P, "T": T, "kk": kk, "qps": qps,
@@ -182,16 +136,16 @@ def run_routed(dev: torch.device, out: str, nq: int) -> list[dict]:
                      "recall10_margin": recall_at_k(ids[mm], gt[mm], 10),
                      "coverage": idx.last_coverage,
                      "fallback_queries": idx.last_fallback,
-                     "peak_gb": _peak_gb(dev)})
+                     "peak_gb": peak_gb(dev)})
 
     for p, P, T, kk in sweep:
         recs.append(point("search", p, P, T, kk, 0.0))
     p, P, T, kk = sweep[0]
     recs.append(point("search_fallback", p, P, T, kk, 0.5))
     if os.environ.get("SHINE_CR_RECENTER") == "1":
-        t0 = _clock(dev)
+        t0 = sync_clock(dev)
         idx.recenter_routing()
-        recs.append(emit({"stage": "recenter", "seconds": _clock(dev) - t0}))
+        recs.append(emit({"stage": "recenter", "seconds": sync_clock(dev) - t0}))
         for p, P, T, kk in sweep:
             recs.append(point("search_recentered", p, P, T, kk, 0.0))
     return recs
@@ -208,14 +162,14 @@ def run_split(dev: torch.device, out: str, nq: int) -> list[dict]:
     recs = []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = _clock(dev)
+    t0 = sync_clock(dev)
     ds = tds.device_rowkeyed_split_dataset(n=n, dim=d, num_queries=nq, seed=SEED,
                                            gt_k=10, comp_dtype=comp, device=dev)
-    ingest_s = _clock(dev) - t0
+    ingest_s = sync_clock(dev) - t0
     table_gb = (ds.comp_dev.numel() * ds.comp_dev.element_size()
                 + ds.aux_dev.numel() * 4) / 1e9
     recs.append(emit({"stage": "ingest", "seconds": ingest_s, "n_rows": ds.n,
-                      "table_gb": table_gb, "peak_gb": _peak_gb(dev)}))
+                      "table_gb": table_gb, "peak_gb": peak_gb(dev)}))
     queries = np.asarray(ds.queries, np.float32)
     recs += _crosscheck(ds.row_source, queries, emit)
     idx = SplitFlatIndex.from_parts(ds.comp_dev, ds.aux_dev, ds.n, dim=d,
@@ -225,7 +179,7 @@ def run_split(dev: torch.device, out: str, nq: int) -> list[dict]:
     for kb in kbs:
         kw = dict(kb=kb, batch_size=batch, preloaded=pre, with_dists=False,
                   prerank=prerank, **MODES[mode])
-        ids, qps = _best_qps(lambda: idx.search(queries, 10, **kw), nq, dev)
+        ids, qps = best_qps(lambda: idx.search(queries, 10, **kw), nq, dev)
         knobs = idx._resolve_knobs(kb, MODES[mode].get("cls", 0),
                                    MODES[mode].get("keep2"), None, False)
         recs.append(emit({
@@ -233,7 +187,7 @@ def run_split(dev: torch.device, out: str, nq: int) -> list[dict]:
             "qps": qps, "recall10": recall_at_k(ids, ds.ground_truth, 10),
             "recall10_eps": recall_at_k_eps_regen(ids, queries, ds.row_source,
                                                   ds.ground_truth, 10),
-            "peak_gb": _peak_gb(dev)}))
+            "peak_gb": peak_gb(dev)}))
     return recs
 
 

@@ -114,8 +114,33 @@ def test_main_help_with_jax_blocked():
     assert "--device" in res.stdout and "--index" in res.stdout
 
 
+def _port_scripts():
+    return sorted((REPO / "scripts").glob("torch_*.py"))
+
+
 def _port_sources():
-    return [*(REPO / "shine_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    return [*(REPO / "shine_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+            *_port_scripts()]
+
+
+# each script's module body (its imports; main() is not run) under the blocker
+_SCRIPTS = _BLOCK + """
+import runpy
+for path in sys.argv[1:]:
+    runpy.run_path(path, run_name="__blocked__")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
+    assert not loaded, (path, loaded)
+"""
+
+
+def test_port_scripts_import_with_jax_blocked():
+    scripts = _port_scripts()
+    assert REPO / "scripts" / "torch_scale_hnsw.py" in scripts
+    res = subprocess.run(
+        [sys.executable, "-c", _SCRIPTS, *map(str, scripts)], cwd=REPO,
+        capture_output=True, text=True, timeout=120, env=_clean_env(),
+    )
+    assert res.returncode == 0, res.stderr
 
 
 def test_no_jax_import_in_port_sources():
