@@ -258,6 +258,31 @@ recipe (``scripts/torch_scale_hnsw.py``) and checks rows past element 2^31:
 One [scale] summary line; every kernel's entry in the JSON table gains its
 phase-28 launches by run (``scale_launches``).
 
+Phase 29 runs last, after phase 28, and ports the JAX package's last on-card
+recipes, cut in rows (``scripts/torch_scale_validation.py`` and
+``scripts/torch_exp_skew.py``, each script's own run()):
+
+ 29a. the 10M validation recipe at 250,000 x 128 (253,952 rows once rounded
+     up; seed 17, 2,048 queries, exact top-11 on the card, the margin mask,
+     the numpy crosscheck): FastFlatIndex.from_device at the JAX package's
+     defaults (shuffled: the rows are under SHUFFLE_MAX_BYTES) served at the
+     JAX script's five (kb, cls, keep2) points and the shuffle=True index at
+     the first, recall@10 >= 0.90 at each; the IVF fine layout by search
+     (probes 8, 16, 32) and the coarse one (2,048 clusters) by search_routed
+     at three points, recall@10 >= 0.90 there; no returned id outside
+     [0, n); K2 and K1 launched; then the shuffle rule with
+     SHUFFLE_MAX_BYTES set under the rows' size: no permutation, and the
+     table is the rows packed in generator order;
+ 29b. the skew x budget grid on the routed split index at 262,144
+     row-keyed rows (seed 17, a pool of 2,048, a stream of 2,048, cap_target
+     4096, cls 1024, int8): alpha 0, 0.75, 1.25 x probes 16, 32, 64 at
+     12 x p shared clusters, tile 32, no spill: recall@10 >= 0.90 in every
+     cell, each stream's pool indices equal to a numpy recomputation, K4
+     launched.
+
+One [validation] summary line; every kernel's entry in the JSON table gains
+its phase-29 launches by run (``validation_launches``, ``skew_launches``).
+
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
 on the card it scores the probed rows and re-ranks through K1's
@@ -3804,15 +3829,15 @@ TAIL_W = 16  # the tail's list width
 PHASE28: dict = {}
 
 
-def load_scale_script():
-    """``scripts/torch_scale_hnsw.py`` as a module (its main() not run); the
-    CPU tests load it through here too."""
+def load_scale_script(name: str = "torch_scale_hnsw"):
+    """``scripts/<name>.py`` as a module (its main() not run); the CPU tests
+    load the scale scripts through here too."""
     import importlib.util
     import sys
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_scale_hnsw.py")
-    spec = importlib.util.spec_from_file_location("torch_scale_hnsw", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod  # its dataclass looks its module up there
     spec.loader.exec_module(mod)
@@ -3992,6 +4017,153 @@ def _attach_scale(kernels: list[dict]) -> None:
             k["scale_launches"] = got
 
 
+# --- phase 29: the 10M validation recipe and the skew grid, cut in rows ---------
+
+VALIDATION_N = 250_000  # 253,952 rows once rounded up to 4096
+SKEW = dict(n=262_144, stream=2_048, mults=(12,))
+VALIDATION_MIN_RECALL = 0.90  # FastFlat at every point, IVF's routed points
+SKEW_MIN_RECALL = 0.90  # every cell of multiplier 12
+PHASE29: dict = {}
+
+
+def _zipf_stream(pool: int, alpha: float, size: int) -> np.ndarray:
+    """The skew script's stream, recomputed in numpy alone: a Zipf(alpha)
+    draw of ranks (numpy's choice with the normalised weights, uniform
+    integers at alpha 0) mapped through default_rng(31)'s permutation."""
+    rng = np.random.default_rng(7)
+    if alpha <= 0:
+        ranks = rng.integers(0, pool, size=size)
+    else:
+        w = 1.0 / np.power(np.arange(1, pool + 1, dtype=np.float64), alpha)
+        ranks = rng.choice(pool, size=size, p=w / w.sum())
+    return np.random.default_rng(31).permutation(pool)[ranks]
+
+
+def validation_recipe(dev) -> dict:
+    """29a: the validation script's run() at VALIDATION_N; its gates; then
+    the shuffle rule above SHUFFLE_MAX_BYTES."""
+    from shine_tpu_torch.models import flat as tflat
+    from shine_tpu_torch.ops.scan import pack_ext_device
+
+    script = load_scale_script("torch_scale_validation")
+    work = tempfile.mkdtemp(prefix="chip_smoke_validation_", dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        recs, ds = script.run(script.Config(n=VALIDATION_N, d=D), dev,
+                              os.path.join(work, "validation.jsonl"))
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = ds.n
+    runs, served = {}, {}
+    for r in recs:
+        if r["stage"] == "fastflat":
+            what = (f"29a_{r['index']}_kb{r['kb']}_cls{r['cls']}"
+                    + ("_keep2" if r["keep2"] else ""))
+            launched = any(k.startswith("classmax") for k in r["launches"])
+        elif r["stage"] in ("ivf", "ivf_routed"):
+            what = (f"29a_ivf_p{r['probes']}" if r["stage"] == "ivf" else
+                    f"29a_ivf_routed_{r['probes']}:{r['shared']}:{r['tile']}")
+            launched = bool(r["launches"].get("gather_score"))
+        else:
+            continue
+        runs[what] = r["launches"]
+        served[what] = {"recall10": r["recall10"], "qps": r["qps"]}
+        log(f"[validation] {what}: recall@10={r['recall10']:.4f} "
+            f"eps={r['recall10_eps']:.4f} qps={r['qps']:.1f} launches={r['launches']}"
+            + (f" coverage={r['coverage']:.4f} spilled={r['fallback_queries']}"
+               if r["stage"] == "ivf_routed" else "")
+            + (f" scan {r['scan']['ms']:.4f} ms ({r['scan']['x_bound']:.2f}x its bound)"
+               if "scan" in r else ""))
+        if not r["ids_in_range"]:
+            raise AssertionError(f"29a {what}: an id outside [0, {n})")
+        if r["stage"] != "ivf" and r["recall10"] < VALIDATION_MIN_RECALL:
+            raise AssertionError(f"29a {what}: recall@10 {r['recall10']:.4f} < "
+                                 f"{VALIDATION_MIN_RECALL}")
+        if not launched:
+            raise AssertionError(f"29a {what}: its kernel (K2 or K1) never launched "
+                                 f"({r['launches']})")
+    if sum(k.startswith(("29a_default", "29a_shuffled")) for k in runs) != len(script.POINTS) + 1:
+        raise AssertionError("29a: not every FastFlat point was served")
+    build = next(r for r in recs if r["stage"] == "fastflat_build" and r["index"] == "default")
+    if not build["shuffled"]:
+        raise AssertionError(f"29a: {build['rows_bytes']} bytes of rows, under the "
+                             f"limit, were not shuffled")
+    limit = tflat.SHUFFLE_MAX_BYTES
+    tflat.SHUFFLE_MAX_BYTES = n * D * 4 - 1
+    try:
+        plain = tflat.FastFlatIndex.from_device(ds.base_dev)
+    finally:
+        tflat.SHUFFLE_MAX_BYTES = limit
+    if plain.perm is not None or not torch.equal(plain.ext, pack_ext_device(
+            ds.base_dev, METRIC_L2)):
+        raise AssertionError("29a: over SHUFFLE_MAX_BYTES the table is not the rows "
+                             "packed in generator order")
+    del plain, ds
+    torch.cuda.empty_cache()
+    log(f"[validation] 29a {n} x {D}: crosscheck "
+        f"{next(r for r in recs if r['stage'] == 'gt-crosscheck')['gt_overlap']}; "
+        f"over the shuffle limit the table keeps generator order; {seconds:.1f} s")
+    return {"seconds": seconds, "n": n, "launches": runs, "served": served}
+
+
+def skew_recipe(dev) -> dict:
+    """29b: the skew script's routed grid at SKEW; its gates."""
+    script = load_scale_script("torch_exp_skew")
+    cfg = dataclasses.replace(script.Config(), **SKEW)
+    work = tempfile.mkdtemp(prefix="chip_smoke_skew_", dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        recs = script.run(cfg, dev, os.path.join(work, "skew.jsonl"))
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cells = [r for r in recs if r["stage"] == "cell"]
+    if len(cells) != len(cfg.alphas) * len(cfg.probes) * len(cfg.mults):
+        raise AssertionError(f"29b: {len(cells)} cells")
+    runs, served = {}, {}
+    for r in cells:
+        what = f"29b_a{r['alpha']}_p{r['p']}_P{r['P']}"
+        runs[what] = r["launches"]
+        served[what] = {f: r[f] for f in ("recall10", "coverage", "qps")}
+        log(f"[validation] {what}: recall@10={r['recall10']:.4f} "
+            f"coverage={r['coverage']:.4f} qps={r['qps']:.1f} launches={r['launches']}")
+        want = _zipf_stream(cfg.pool, r["alpha"], cfg.stream)
+        if r["stream_digest"] != script.digest(want):
+            raise AssertionError(f"29b {what}: the stream is not numpy's")
+        if r["mult"] == 12 and r["recall10"] < SKEW_MIN_RECALL:
+            raise AssertionError(f"29b {what}: recall@10 {r['recall10']:.4f} < "
+                                 f"{SKEW_MIN_RECALL}")
+        if not r["launches"].get("routed_classmax_scan"):
+            raise AssertionError(f"29b {what}: K4 never launched ({r['launches']})")
+    ingest = next(r for r in recs if r["stage"] == "ingest")
+    log(f"[validation] 29b {cfg.n} row-keyed rows: C={ingest['C']} cap={ingest['cap']}, "
+        f"build {ingest['seconds']:.2f} s; {seconds:.1f} s")
+    return {"seconds": seconds, "C": ingest["C"], "cap": ingest["cap"], "launches": runs,
+            "cells": served}
+
+
+def validation_phase(dev) -> dict:
+    """Phase 29: 29a and 29b, one [validation] summary line."""
+    PHASE29["29a"] = validation_recipe(dev)
+    PHASE29["29b"] = skew_recipe(dev)
+    torch.cuda.empty_cache()
+    PHASE29["seconds"] = PHASE29["29a"]["seconds"] + PHASE29["29b"]["seconds"]
+    log(f"[validation] summary {json.dumps(PHASE29)}")
+    log(f"[validation] phase 29: {PHASE29['seconds']:.1f} s")
+    return PHASE29
+
+
+def _attach_validation(kernels: list[dict]) -> None:
+    """Each kernel's entry gains its phase-29 launches by run."""
+    for key, part in (("validation_launches", "29a"), ("skew_launches", "29b")):
+        for k in kernels:
+            got = {run: n[k["name"]] for run, n in PHASE29[part]["launches"].items()
+                   if n.get(k["name"])}
+            if got:
+                k[key] = got
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -4137,6 +4309,7 @@ def main() -> None:
     k4_kernels = routed_phases(dev, routed_ds)
     regen_kernels, _ = capacity_phase(dev)
     scale_phase(dev)
+    validation_phase(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     main_step = step_cases[0]
@@ -4239,6 +4412,7 @@ def main() -> None:
     _attach_sharded(kernels)
     _attach_sharded_builds(kernels)
     _attach_scale(kernels)
+    _attach_validation(kernels)
     SHARDED_SCAN["seconds"] = sum(v for k, v in SHARDED_SCAN.items() if k.endswith("_s")) \
         + SHARDED_SCAN["26d"]["seconds"] + SHARDED_SCAN["26e_flat"]["seconds"] \
         + SHARDED_SCAN["26e_routed"]["seconds"]

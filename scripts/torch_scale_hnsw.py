@@ -86,6 +86,7 @@ from shine_tpu_torch.utils.meter import (  # noqa: E402
     launches,
     peak_gb,
     reset_launches,
+    reset_peak,
     scan_bound,
 )
 from shine_tpu_torch.utils.timing import sync_clock  # noqa: E402
@@ -138,13 +139,6 @@ class Config:
 def host_peak_gb() -> float:
     """This process's peak resident set (Linux reports KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
-
-
-def reset_peak(dev: torch.device) -> None:
-    """Start the card's peak-memory count anew (a stage's own peak)."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
 
 
 def make_data(cfg: Config, dev: torch.device, emit) -> tuple:

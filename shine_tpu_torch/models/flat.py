@@ -30,6 +30,8 @@ JAX package: keep1 or keep2, the select fused into the kernel or not.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -66,6 +68,12 @@ from shine_tpu_torch.ops.scan_split import (
 )
 
 CHUNK_QUANTUM = 1024
+
+# FastFlatIndex.from_device's shuffle=None rule, the JAX package's: the
+# shuffle gathers one transient f32 copy of the rows, so it runs only while
+# that copy takes at most this many bytes (3 GiB unless the environment
+# says otherwise); above it the rows keep their order
+SHUFFLE_MAX_BYTES = int(os.environ.get("SHINE_SHUFFLE_MAX_BYTES", 3 << 30))
 
 
 def _top_by_position(d: torch.Tensor, ids: torch.Tensor, kk: int):
@@ -522,17 +530,23 @@ class FastFlatIndex(_ClassMaxIndex):
                     blockmax: bool = False) -> "FastFlatIndex":
         """From rows already on a device. The table is padded to a multiple
         of 4096 rows with pad rows (the JAX package asks n to be one). The
-        shuffle (on unless ``shuffle=False``: the transient row copy
-        fits beside any table that fits the card) is the JAX package's
-        ``jax.random.permutation(PRNGKey(seed), n)``, bit for bit
-        (``ops/threefry.py``), drawn on the rows' device."""
+        shuffle is the JAX package's ``jax.random.permutation(PRNGKey(seed),
+        n)``, bit for bit (``ops/threefry.py``), drawn on the rows' device.
+        ``shuffle=None`` follows the JAX package's rule: shuffle when the
+        transient f32 copy of the rows, n * d * 4 bytes, is at most
+        ``SHUFFLE_MAX_BYTES``, else keep the rows in their order (and
+        ``perm`` None); ``True`` and ``False`` shuffle or not at any size.
+        Rows kept in generator order leave same-class decoys correlated,
+        which costs some recall."""
         self = cls.__new__(cls)
         self.metric = metric_id(metric)
         self.blockmax = blockmax
         n, d = v_dev.shape
         v = v_dev.to(torch.float32)
         self.perm = self._perm_dev = None
-        if shuffle or shuffle is None:
+        if shuffle is None:
+            shuffle = n * d * 4 <= SHUFFLE_MAX_BYTES
+        if shuffle:
             perm = threefry.permutation(threefry.prng_key(seed), n,
                                         device=v.device)
             v = v[perm]

@@ -668,6 +668,17 @@ def affinity_order(probes_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return perm, torch.argsort(perm, stable=True)
 
 
+def routed_step_bytes(P: int, cap: int, d: int, T: int) -> int:
+    """The device bytes one tile of ``ivf_routed_search`` adds at its peak,
+    the largest of its three stages: the P gathered blocks in bf16 beside
+    their f32 copy (``_widened``); the f32 blocks beside the (T, P*cap) f32
+    products and two more such buffers of ``_scores``' eager arithmetic;
+    ``top_k`` over the scores, which holds them, their negation and three
+    int64 keys: 32 bytes a score."""
+    blocks, scores = P * cap * d, T * P * cap
+    return max(blocks * 6, blocks * 4 + scores * 12, scores * 32)
+
+
 def ivf_routed_search(
     data: IVFData,
     queries: torch.Tensor,  # (B, d)
@@ -687,7 +698,7 @@ def ivf_routed_search(
     of ``tile`` queries ``shared`` clusters (``_route_cols``); each tile's
     blocks are gathered once and scored for all its queries (bf16 values,
     f32 products and sums, as ``ivf_search``), streamed over groups of
-    tiles whose blocks and scores take about ``step_budget`` bytes; the best
+    tiles that hold about ``step_budget`` bytes (``routed_step_bytes``); the best
     ``rerank * k`` of each query are re-ranked exactly in f32. A column past
     the granted clusters (the pad cluster C) scores +inf with id -1, as the
     JAX package's masked columns. ``approx`` is the JAX package's
@@ -713,8 +724,7 @@ def ivf_routed_search(
     safe = torch.where(cols < C, cols, 0).long()
     ids = torch.where((cols < C)[..., None], data.block_ids[safe], -1)  # (G, P, cap)
     kk = min(max(rerank, 1) * k, P * cap)
-    step_bytes = P * cap * d * 2 + T * P * cap * 4
-    gc = max(1, min(G, step_budget // max(step_bytes, 1)))
+    gc = max(1, min(G, step_budget // max(routed_step_bytes(P, cap, d, T), 1)))
     while G % gc:
         gc -= 1
     cand = torch.empty((G, T, kk), dtype=ids.dtype, device=q.device)

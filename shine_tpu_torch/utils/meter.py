@@ -8,7 +8,9 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import time
 
+import numpy as np
 import torch
 
 from shine_tpu_torch.ops import beam_step as _bs
@@ -107,3 +109,44 @@ def best_qps(run, nq: int, dev: torch.device, reps: int = 2):
 def peak_gb(dev: torch.device) -> float | None:
     """The card's peak allocated memory since its last reset, GB."""
     return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+
+def reset_peak(dev: torch.device) -> None:
+    """Start the card's peak-memory count anew (a stage's own peak)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """The median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def profile_once(fn, top: int = 10) -> dict:
+    """``fn()`` once under torch.profiler on the card: device time by kernel
+    (the ``top`` longest), their sum and its share of the call's span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    return {"span_ms": span, "busy_ms": busy, "busy_share": busy / span,
+            "kernels": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in kernels[:top]]}

@@ -210,6 +210,36 @@ def test_fastflat_search_device_megabatch_and_dists_off():
     assert not z.any()
 
 
+@pytest.mark.parametrize("side", ["under", "over"])
+def test_fastflat_from_device_shuffle_rule_matches_jax(monkeypatch, side):
+    """``shuffle=None`` shuffles while the transient f32 copy, n * d * 4
+    bytes, fits ``SHUFFLE_MAX_BYTES`` (both packages' module constants,
+    patched to sit just at or just under this set's size), and keeps the
+    rows in their order above it. Integer rows, so that the port's
+    block-max route and the JAX index's interpret route agree bit for
+    bit: the same permutation, the same table and the same ids."""
+    rng = np.random.default_rng(22)
+    n, d = 8192, 16
+    v = _ints(rng, (n, d))
+    q = v[rng.integers(0, n, 64)] + _ints(rng, (64, d), -1, 2)
+    limit = n * d * 4 - (side == "over")
+    monkeypatch.setattr(tf, "SHUFFLE_MAX_BYTES", limit)
+    monkeypatch.setattr(jf, "SHUFFLE_MAX_BYTES", limit)
+    got = FastFlatIndex.from_device(torch.from_numpy(v), seed=5, blockmax=True)
+    want = jf.FastFlatIndex.from_device(jnp.asarray(v), seed=5)
+    if side == "over":
+        assert got.perm is None and want.perm is None
+    else:
+        np.testing.assert_array_equal(got.perm, want.perm)
+    w = d + 2  # the packed columns; the rest of each table is zero
+    g_ext = got.ext.to(torch.float32).numpy()
+    w_ext = np.asarray(want.ext.astype(jnp.float32))
+    np.testing.assert_array_equal(g_ext[:, :w], w_ext[:, :w])
+    assert not g_ext[:, w:].any() and not w_ext[:, w:].any()
+    kw = dict(kb=8, batch_size=64)
+    np.testing.assert_array_equal(got.search(q, 10, **kw)[0], want.search(q, 10, **kw)[0])
+
+
 def test_fastflat_from_device_and_from_ext():
     ds = synthetic_dataset(n=8192, dim=16, num_queries=32, seed=3)
     dev_idx = FastFlatIndex.from_device(torch.from_numpy(ds.base), seed=1)

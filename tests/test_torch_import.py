@@ -135,7 +135,8 @@ for path in sys.argv[1:]:
 
 def test_port_scripts_import_with_jax_blocked():
     scripts = _port_scripts()
-    assert REPO / "scripts" / "torch_scale_hnsw.py" in scripts
+    for name in ("torch_scale_hnsw.py", "torch_scale_validation.py", "torch_exp_skew.py"):
+        assert REPO / "scripts" / name in scripts
     res = subprocess.run(
         [sys.executable, "-c", _SCRIPTS, *map(str, scripts)], cwd=REPO,
         capture_output=True, text=True, timeout=120, env=_clean_env(),
