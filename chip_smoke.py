@@ -283,6 +283,31 @@ recipes, cut in rows (``scripts/torch_scale_validation.py`` and
 One [validation] summary line; every kernel's entry in the JSON table gains
 its phase-29 launches by run (``validation_launches``, ``skew_launches``).
 
+Phase 30 runs last, after phase 29, on phase 5's graph and phase 22's saved
+set (kept until then), and drives the experiment scripts through their own
+run():
+
+ 30a. scripts/torch_latency_probe.py at B 1 and 64: HNSW (ef=64, frontier 8)
+     and FastFlat (tq 128) on the 1M set, the best of 5 calls, p50/p99 of 40
+     (bench.py's rule) and one call's profile: beam_step launched in every
+     HNSW call, a K2 form in every FastFlat call, p99 >= p50; at each B the
+     HNSW search served again on the card reads the probe's recall@10, and
+     its top-10 overlaps the CPU twin's (the kernels' plain versions, same
+     graph, ef and queries) by >= 0.99;
+ 30b. scripts/torch_exp_sweep.py: two `python -m shine_tpu_torch` children
+     (--data-path of the saved set, --load-index of the graph, --shards 8,
+     --zipf 1.25, ef 128, 1,000 queries, the replica off and at 10%): both
+     exit 0, recall@10 >= 0.90 and equal, hit rate 0 and > 0;
+ 30c. scripts/torch_exp_ici_exchange.py at one grid point (compact exchange,
+     a 15% replica, alpha 1.25; its 20,000 x 32 graph built natively): wire
+     bytes, lanes, rounds and hit rate > 0, gather_score launched;
+ 30d. scripts/torch_exp_routed_sharded.py at P_loc 6 (65,536 row-keyed
+     rows, 8 shards): owned lanes and coverage > 0, K4 and regen_score
+     launched.
+
+One [experiments] summary line; every kernel's entry in the JSON table gains
+its phase-30 launches by run (``experiments_launches``).
+
 Phase 23 (after phase 11, before phase 22, on the same set) ports the IVF
 family; IVF has no kernel of its own (the JAX package's products are XLA):
 on the card it scores the probed rows and re-ranks through K1's
@@ -394,6 +419,7 @@ from shine_tpu_torch import (
 from shine_tpu_torch.config import METRIC_IP, METRIC_L2, HNSWParams, SearchParams
 from shine_tpu_torch.graph.soa import build_graph, host_search
 from shine_tpu_torch.io import (
+    load_dataset,
     load_graph,
     load_graph_sharded,
     margin_mask,
@@ -4164,6 +4190,167 @@ def _attach_validation(kernels: list[dict]) -> None:
                 k[key] = got
 
 
+# --- phase 30: the experiment scripts on phase 5's graph and phase 22's set -----
+
+LATENCY = dict(batches=(1, 64))  # torch_latency_probe.py: bench.py's p50/p99 batches
+SWEEP = dict(index=("hnsw",), ef_search=(128,), shards=(8,), zipf=(1.25,),
+             cache_ratio=(0.0, 0.10), num_queries=1000, label="phase30")
+SWEEP_MIN_RECALL = 0.90
+ICI_POINT = dict(alphas=(1.25,), exchanges=(("compact", False),), routes=((None, 0.15),))
+ROUTED_POINT = dict(p_locs=(6,))
+PHASE30: dict = {}
+
+
+def _script_run(script, cfg, dev, work: str):
+    """A loaded script's run(cfg, dev, out) with its records under
+    ``work``; (its return value, seconds)."""
+    t0 = time.perf_counter()
+    out = script.run(cfg, dev, os.path.join(work, f"{script.__name__}.jsonl"))
+    return out, time.perf_counter() - t0
+
+
+def _latency_twin(script, graph_path: str, data_dir: str, dev) -> dict:
+    """30a's witness: the probe's HNSW search (its ``SEARCH``, ``batch_size``
+    B) served again on the card and by the CPU twin on the same graph and
+    queries at each B; {B: (the card's recall@10, its top-10 overlap with
+    the CPU's)}."""
+    graph, ds = load_graph(graph_path), load_dataset(data_dir)
+    card, cpu = HNSWIndex(graph, device=dev), HNSWIndex(graph, device="cpu")
+    out = {}
+    for B in LATENCY["batches"]:
+        q = ds.queries[:B]
+        c_ids, _ = card.search(q, script.SEARCH, batch_size=B)
+        a_ids, _ = cpu.search(q, script.SEARCH, batch_size=B)
+        out[B] = (recall_at_k(c_ids, ds.ground_truth[:B], 10), recall_at_k(c_ids, a_ids, 10))
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def latency_check(graph_path: str, data_dir: str, dev, work: str) -> dict:
+    """30a: the latency probe on phase 5's graph and phase 22's set at B 1
+    and 64: p50/p99 at both, beam_step in every HNSW call, K2 in every
+    FastFlat call; at each B the HNSW recall@10 is the card's on a second
+    serve of the same search, whose top-10 overlaps the CPU twin's by at
+    least MIN_OVERLAP."""
+    script = load_scale_script("torch_latency_probe")
+    cfg = dataclasses.replace(script.Config(), data_path=data_dir, graph_path=graph_path,
+                              **LATENCY)
+    recs, seconds = _script_run(script, cfg, dev, work)
+    twin = _latency_twin(script, graph_path, data_dir, dev)
+    runs, served = {}, {}
+    for r in (r for r in recs if r["stage"] == "probe"):
+        what = f"30a_{r['engine']}_b{r['batch']}"
+        runs[what] = r["launches"]
+        served[what] = {k: r[k] for k in ("ms", "p50_ms", "p99_ms", "recall10")}
+        log(f"[experiments] {what}: best {r['ms']:.4f} ms, p50 {r['p50_ms']:.4f} ms, "
+            f"p99 {r['p99_ms']:.4f} ms, recall@10={r['recall10']:.4f}, busy "
+            f"{r['profile']['busy_share']:.3f}, launches a call {r['launches']}")
+        kernel = ("beam_step" if r["engine"] == "hnsw" else
+                  next((k for k in r["launches"] if k.startswith("classmax")), None))
+        if not r["launches"].get(kernel):
+            raise AssertionError(f"30a {what}: its kernel never launched ({r['launches']})")
+        if not r["p99_ms"] >= r["p50_ms"] > 0:
+            raise AssertionError(f"30a {what}: p50 {r['p50_ms']} / p99 {r['p99_ms']}")
+        if r["engine"] == "hnsw":
+            recall, overlap = twin[r["batch"]]
+            served[what]["cpu_overlap"] = overlap
+            log(f"[experiments] {what}: top-10 overlap with the CPU twin {overlap:.4f}")
+            if r["recall10"] != recall or overlap < MIN_OVERLAP:
+                raise AssertionError(f"30a {what}: recall@10 {r['recall10']} ({recall} "
+                                     f"served again), overlap with the CPU twin "
+                                     f"{overlap:.4f} (at least {MIN_OVERLAP})")
+    if len(runs) != 2 * len(LATENCY["batches"]):
+        raise AssertionError(f"30a: {len(runs)} probes")
+    return {"seconds": seconds, "launches": runs, "served": served}
+
+
+def sweep_check(graph_path: str, data_dir: str, dev, work: str) -> dict:
+    """30b: the sweep script, two children of ``python -m shine_tpu_torch``
+    on phase 22's set and phase 5's graph, 8 shards, Zipf 1.25, the
+    replica off and at 10%: both exit 0, recall@10 >= SWEEP_MIN_RECALL and
+    equal (the replica changes no answer), hit rate 0 and > 0."""
+    script = load_scale_script("torch_exp_sweep")
+    cfg = script.Config(data_path=data_dir, index_cache=graph_path, **SWEEP)
+    (docs, failed), seconds = _script_run(script, cfg, dev, work)
+    if failed or len(docs) != 2:
+        raise AssertionError(f"30b: failed children {failed}, {len(docs)} documents")
+    for d in docs:
+        q = d["queries"]
+        log(f"[experiments] 30b {d['meta']['label']}: recall={q['recall']} "
+            f"qps={q['queries_per_sec']} hit_rate={d['cache']['hit_rate']} "
+            f"ici_bytes/q={q['ici_exchange_bytes'] / q['num_queries']:.1f} "
+            f"card={d['meta'].get('card')!r}")
+    (off, on) = docs
+    recall = off["queries"]["recall"]
+    if recall < SWEEP_MIN_RECALL or on["queries"]["recall"] != recall:
+        raise AssertionError(f"30b: recall {recall} / {on['queries']['recall']}")
+    if not off["cache"]["hit_rate"] == 0 < on["cache"]["hit_rate"]:
+        raise AssertionError(f"30b: hit rates {off['cache']} / {on['cache']}")
+    return {"seconds": seconds, "recall": recall, "hit_rate": on["cache"]["hit_rate"],
+            "qps": [d["queries"]["queries_per_sec"] for d in docs]}
+
+
+def mesh_studies_check(dev, work: str) -> dict:
+    """30c: the ICI study at one grid point (compact exchange, 15% replica,
+    alpha 1.25): wire bytes, lanes, rounds and hit rate > 0, gather_score
+    launched; 30d: the routed sharded study at one P_loc: owned lanes and
+    coverage > 0, K4 and regen_score launched."""
+    ici = load_scale_script("torch_exp_ici_exchange")
+    (row,), ici_s = _script_run(ici, ici.Config(**ICI_POINT), dev, work)
+    log(f"[experiments] 30c ici {row['exchange']} {row['routing']} "
+        f"{row['cache_ratio']}: recall={row['recall']:.4f} bytes/q="
+        f"{row['ici_bytes_per_q']:.1f} lanes/q={row['ici_lanes_per_q']:.2f} "
+        f"rounds={row['rpc_rounds']} hit_rate={row['cache_hit_rate']:.4f} "
+        f"qps={row['qps']:.1f} launches={row['launches']}; {ici_s:.1f} s")
+    if not (row["ici_bytes"] > 0 and row["ici_lanes"] > 0 and row["rpc_rounds"] > 0
+            and row["cache_hit_rate"] > 0 and row["launches"].get("gather_score")):
+        raise AssertionError(f"30c: a counter or gather_score at 0: {row}")
+    routed = load_scale_script("torch_exp_routed_sharded")
+    recs, routed_s = _script_run(routed, routed.Config(**ROUTED_POINT), dev, work)
+    got = recs[-1]
+    log(f"[experiments] 30d routed sharded C={got['C']} P_loc={got['P_loc']}: lanes "
+        f"{got['lanes_used']} of {got['lane_window']}, overflow {got['overflow']}, "
+        f"coverage {got['coverage']:.4f}, recall@10={got['recall10']:.4f}, "
+        f"launches={got['launches']}; {routed_s:.1f} s")
+    if not (got["lanes_used"] > 0 and got["coverage"] > 0
+            and got["launches"].get("routed_classmax_scan")
+            and got["launches"].get("regen_score")):
+        raise AssertionError(f"30d: a counter or kernel at 0: {got}")
+    return {"seconds": ici_s + routed_s,
+            "launches": {"30c_ici": row["launches"], "30d_routed": got["launches"]},
+            "ici": {k: row[k] for k in ("recall", "ici_bytes_per_q", "ici_lanes_per_q",
+                                        "rpc_rounds", "cache_hit_rate", "qps")},
+            "routed": {k: got[k] for k in ("C", "lanes_used", "lane_window", "overflow",
+                                           "coverage", "recall10")}}
+
+
+def experiments_phase(graph_path: str, data_dir: str, dev) -> dict:
+    """Phase 30: 30a-d, one [experiments] summary line."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_experiments_", dir=BUILD_DIR)
+    try:
+        PHASE30["30a"] = latency_check(graph_path, data_dir, dev, work)
+        PHASE30["30b"] = sweep_check(graph_path, data_dir, dev, work)
+        PHASE30["30cd"] = mesh_studies_check(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    PHASE30["seconds"] = sum(PHASE30[p]["seconds"] for p in ("30a", "30b", "30cd"))
+    log(f"[experiments] summary {json.dumps(PHASE30)}")
+    log(f"[experiments] phase 30: {PHASE30['seconds']:.1f} s")
+    return PHASE30
+
+
+def _attach_experiments(kernels: list[dict]) -> None:
+    """Each kernel's entry gains its phase-30 launches by run (30a: one
+    call; 30c, 30d: one pass)."""
+    runs = {**PHASE30["30a"]["launches"], **PHASE30["30cd"]["launches"]}
+    for k in kernels:
+        got = {run: n[k["name"]] for run, n in runs.items() if n.get(k["name"])}
+        if got:
+            k["experiments_launches"] = got
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -4303,13 +4490,14 @@ def main() -> None:
         sharded_scan_phase(ds, gt, flat_served, split_served, ivf, data_dir, dev)
         sharded_build_phase(ds, gt, builds["pool0"]["recall@10"], cli_runs, data_dir,
                             cli_dir, dev)
+        del ds, gt
+        k4_kernels = routed_phases(dev, routed_ds)
+        regen_kernels, _ = capacity_phase(dev)
+        scale_phase(dev)
+        validation_phase(dev)
+        experiments_phase(graph_path, data_dir, dev)  # phase 5's graph, phase 22's set
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
-    del ds, gt
-    k4_kernels = routed_phases(dev, routed_ds)
-    regen_kernels, _ = capacity_phase(dev)
-    scale_phase(dev)
-    validation_phase(dev)
 
     main_k1 = k1_cases[0]  # f32 rows, L2: the HNSW slice's own row type
     main_step = step_cases[0]
@@ -4413,6 +4601,7 @@ def main() -> None:
     _attach_sharded_builds(kernels)
     _attach_scale(kernels)
     _attach_validation(kernels)
+    _attach_experiments(kernels)
     SHARDED_SCAN["seconds"] = sum(v for k, v in SHARDED_SCAN.items() if k.endswith("_s")) \
         + SHARDED_SCAN["26d"]["seconds"] + SHARDED_SCAN["26e_flat"]["seconds"] \
         + SHARDED_SCAN["26e_routed"]["seconds"]

@@ -106,6 +106,26 @@ def best_qps(run, nq: int, dev: torch.device, reps: int = 2):
     return ids, nq / best
 
 
+def latency_walls(fn, dev: torch.device, reps: int = 40, warmup: int = 2) -> list[float]:
+    """``warmup`` untimed calls of ``fn()``, then the wall of each of
+    ``reps`` calls in ms, in call order, on the synchronised host clock."""
+    for _ in range(warmup):
+        fn()
+    walls = []
+    for _ in range(reps):
+        t0 = sync_clock(dev)
+        fn()
+        walls.append((sync_clock(dev) - t0) * 1e3)
+    return walls
+
+
+def p50_p99(walls: list[float]) -> tuple[float, float]:
+    """``bench.py``'s low-batch latency rule: of the walls sorted, element
+    len // 2 and element min(len - 1, int(len * 0.99))."""
+    s = sorted(walls)
+    return s[len(s) // 2], s[min(len(s) - 1, int(len(s) * 0.99))]
+
+
 def peak_gb(dev: torch.device) -> float | None:
     """The card's peak allocated memory since its last reset, GB."""
     return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None

@@ -119,8 +119,9 @@ def _port_scripts():
 
 
 def _port_sources():
+    # the shell script's embedded Python too (torch_skew_budget.sh)
     return [*(REPO / "shine_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
-            *_port_scripts()]
+            *_port_scripts(), *(REPO / "scripts").glob("torch_*.sh")]
 
 
 # each script's module body (its imports; main() is not run) under the blocker
@@ -135,8 +136,13 @@ for path in sys.argv[1:]:
 
 def test_port_scripts_import_with_jax_blocked():
     scripts = _port_scripts()
-    for name in ("torch_scale_hnsw.py", "torch_scale_validation.py", "torch_exp_skew.py"):
+    for name in ("torch_scale_hnsw.py", "torch_scale_validation.py", "torch_exp_skew.py",
+                 "torch_latency_probe.py", "torch_sustained_b_sweep.py",
+                 "torch_exp_sweep.py", "torch_collect_results.py",
+                 "torch_exp_ici_exchange.py", "torch_exp_routed_sharded.py",
+                 "torch_exp_skew_capacity_mesh.py"):
         assert REPO / "scripts" / name in scripts
+    assert REPO / "scripts" / "torch_skew_budget.sh" in _port_sources()
     res = subprocess.run(
         [sys.executable, "-c", _SCRIPTS, *map(str, scripts)], cwd=REPO,
         capture_output=True, text=True, timeout=120, env=_clean_env(),
